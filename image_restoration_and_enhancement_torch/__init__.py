@@ -1,0 +1,15 @@
+"""image_restoration_and_enhancement_torch — the PyTorch / CUDA port.
+
+A second package beside the JAX reference (``image_restoration_and_enhancement_tpu``),
+written for one NVIDIA H100. It keeps the reference's module layout and names
+(``config``, ``ops``, ``models``, ``core``, ``tasks``, ``infer``) so each
+counterpart is easy to find, and it never imports JAX or the JAX package.
+
+Ported so far: the denoise task's img2img serve — ``RestorationPipeline.denoise``
+over the SD-1.5 UNet, VAE and CLIP text encoder, the PLMS/DDIM schedulers and the
+CFG sampling loop. Attention and GroupNorm(+SiLU) run on hand-written CUDA
+kernels (``csrc/``, built with nvcc and bound with ctypes by ``ops/_build.py``);
+on CPU tensors the same functions use their plain PyTorch versions.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""

@@ -1,0 +1,163 @@
+"""Stable-Diffusion img2img sampling in PyTorch.
+
+Counterpart of the JAX package's ``core/sampling.py`` for the exact img2img
+path: CLIP encode -> VAE encode (posterior sample) -> ``add_noise`` at the
+timestep the strength truncates to -> a PLMS or DDIM loop with classifier-free
+guidance as one batched UNet call over [uncond; cond] ("halves" layout),
+skipped when guidance_scale <= 1 -> VAE decode.
+
+PyTorch runs the loop eagerly, one UNet call per step. JAX draws the posterior
+and add_noise noise inside the function from ``jax.random.split(key)``; here
+the caller passes a ``torch.Generator`` or, for parity tests, both noise
+tensors. Images and latents are NHWC, as in the JAX package.
+
+Not ported yet: the CFG cache (``cfg_cache_interval``), the CFG prefix dedup,
+the interleaved CFG layout, SDXL conditioning and the inpaint loop.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from ..config import SDModelConfig
+from ..device import DeviceLike, resolve_device
+from ..models.clip_text import CLIPTextModel
+from ..models.layers import CL
+from ..models.unet import UNet2DCondition
+from ..models.vae import AutoencoderKL
+from . import schedulers as sched
+
+
+@dataclasses.dataclass(frozen=True)
+class SDModules:
+    """The modules of one SD stack, on one device and in one dtype."""
+
+    config: SDModelConfig
+    unet: UNet2DCondition
+    vae: AutoencoderKL
+    text_encoder: CLIPTextModel
+
+    @property
+    def device(self) -> torch.device:
+        return self.unet.conv_in.weight.device
+
+    def components(self):
+        return {"unet": self.unet, "vae": self.vae, "text_encoder": self.text_encoder}
+
+    @classmethod
+    def create(cls, config: SDModelConfig, dtype: torch.dtype = torch.bfloat16,
+               device: DeviceLike = None) -> "SDModules":
+        """Allocate the stack on ``device`` (``cuda`` unless ``"cpu"`` is asked for)
+        with uninitialised weights: load a state dict or call ``init_random_``."""
+        if config.text_encoder_2 is not None:
+            raise NotImplementedError("SDXL stacks are ROADMAP item M13, not ported yet")
+        dev = resolve_device(device)
+        with torch.device("meta"):
+            unet = UNet2DCondition(config.unet).to(dtype, memory_format=CL)
+            vae = AutoencoderKL(config.vae).to(dtype, memory_format=CL)
+            te = CLIPTextModel(config.text_encoder).to(dtype)
+        return cls(config, *(m.to_empty(device=dev).eval() for m in (unet, vae, te)))
+
+
+def encode_text(modules: SDModules, input_ids: torch.Tensor) -> torch.Tensor:
+    """Token ids [B, 77] -> conditioning [B, 77, hidden] (fp32)."""
+    return modules.text_encoder(input_ids.to(modules.device))
+
+
+def encode_image(modules: SDModules, image: torch.Tensor,
+                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Image [-1, 1] NHWC -> scaled latents; the posterior mean when noise is None."""
+    dist = modules.vae.encode(image)
+    z = dist.mode if noise is None else dist.sample(noise)
+    return z * modules.config.vae.scaling_factor
+
+
+def decode_latents(modules: SDModules, latents: torch.Tensor) -> torch.Tensor:
+    img = modules.vae.decode(latents / modules.config.vae.scaling_factor)
+    return torch.clamp(img, -1.0, 1.0)
+
+
+def _denoise_loop(modules: SDModules, latents: torch.Tensor, context: torch.Tensor,
+                  uncond_context: Optional[torch.Tensor], plan: sched.StepPlan,
+                  guidance_scale: float, sampler: str) -> torch.Tensor:
+    """The sampling loop: one (CFG-batched) UNet call per plan row."""
+    cfg = modules.config.scheduler
+    ac = sched.alphas_cumprod_tensor(cfg, latents.device)
+    fa = sched.final_alpha_cumprod(cfg)
+    do_cfg = guidance_scale > 1.0 and uncond_context is not None
+
+    b = latents.shape[0]
+    context = context.expand((b,) + context.shape[1:])
+    if do_cfg:
+        uncond = uncond_context.expand((b,) + uncond_context.shape[1:])
+        ctx_all = torch.cat([uncond, context], dim=0)
+    else:
+        ctx_all = context
+
+    def unet_eps(lat: torch.Tensor, t: int) -> torch.Tensor:
+        model_in = torch.cat([lat, lat], dim=0) if do_cfg else lat
+        ts = torch.full((model_in.shape[0],), int(t), dtype=torch.int32, device=lat.device)
+        eps = modules.unet(model_in, ts, ctx_all)
+        if do_cfg:
+            eps_u, eps_c = eps.chunk(2, dim=0)
+            eps = eps_u + guidance_scale * (eps_c - eps_u)
+        return eps
+
+    lat = latents.float()
+    rows = zip(plan.timesteps.tolist(), plan.prev_timesteps.tolist(),
+               plan.order_codes.tolist(), plan.append.tolist())
+    if sampler == "plms":
+        carry = sched.plms_init_carry(lat)
+        for t, prev_t, code, append in rows:
+            carry, lat = sched.plms_step(ac, fa, carry, lat, unet_eps(lat, t), t, prev_t,
+                                         code, append)
+    elif sampler == "ddim":
+        for t, prev_t, _, _ in rows:
+            lat = sched.ddim_step(ac, fa, lat, unet_eps(lat, t), t, prev_t)
+    else:
+        raise ValueError(f"Unknown sampler: {sampler}")
+    return lat
+
+
+def latent_shape(modules: SDModules, image_shape) -> Tuple[int, int, int, int]:
+    """[B, H, W, 3] image -> [B, H/f, W/f, latent_channels] latents."""
+    f = 2 ** (len(modules.config.vae.block_out_channels) - 1)
+    b, h, w = image_shape[:3]
+    return (b, h // f, w // f, modules.config.vae.latent_channels)
+
+
+def make_img2img_fn(modules: SDModules, num_inference_steps: int, strength: float,
+                    guidance_scale: float, sampler: str = "plms") -> Callable:
+    """Build fn(image, prompt_ctx, uncond_ctx, generator=None, noise=None) -> image.
+
+    ``image`` is NHWC in [-1, 1]. ``noise`` = (posterior noise, add_noise noise),
+    each shaped like the latents; without it both are drawn (fp32, standard
+    normal, posterior first) from ``generator``. Returns the decoded image,
+    NHWC fp32 in [-1, 1].
+    """
+    cfg = modules.config.scheduler
+    plan_fn = sched.plms_step_plan if sampler == "plms" else sched.ddim_step_plan
+    plan = plan_fn(cfg, num_inference_steps, strength)
+
+    @torch.inference_mode()
+    def fn(image: torch.Tensor, prompt_ctx: torch.Tensor,
+           uncond_ctx: Optional[torch.Tensor], generator: Optional[torch.Generator] = None,
+           noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+        dev = modules.device
+        image = image.to(dev)
+        if noise is None:
+            shape = latent_shape(modules, image.shape)
+            noise = tuple(torch.randn(shape, generator=generator, device=dev,
+                                      dtype=torch.float32) for _ in range(2))
+        enc_noise, step_noise = (n.to(dev, torch.float32) for n in noise)
+        latents0 = encode_image(modules, image, enc_noise)
+        ac = sched.alphas_cumprod_tensor(cfg, dev)
+        latents = sched.add_noise(ac, latents0, step_noise, plan.init_timestep)
+        latents = _denoise_loop(modules, latents, prompt_ctx.to(dev),
+                                None if uncond_ctx is None else uncond_ctx.to(dev),
+                                plan, guidance_scale, sampler)
+        return decode_latents(modules, latents)
+
+    return fn

@@ -1,0 +1,276 @@
+"""Shared PyTorch building blocks for the UNet and VAE.
+
+Counterparts of the JAX package's ``models/layers.py``. Parameter names are the
+diffusers names that ``export_torch_state_dict`` gives the JAX parameters, so a
+state dict bridged from the JAX package loads with ``strict=True``.
+
+Layout: 2-D blocks take and return NCHW-shaped tensors kept in the
+``channels_last`` memory format, which is NHWC in memory. ``nchw.permute(0, 2,
+3, 1)`` is then a contiguous NHWC view, so the NHWC GroupNorm kernel and the
+token reshape of Transformer2D cost no copy.
+
+Numerics kept from the JAX blocks:
+- GEGLU gates with the tanh-approximated GELU (flax ``nn.gelu`` default), not
+  diffusers' erf GELU.
+- GroupNorm eps is 1e-5 in UNet resnets and 1e-6 in the Transformer2D norm and
+  everywhere in the VAE; LayerNorm uses E[x^2] - E[x]^2 clamped at 0.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.attention import attention
+from ..ops.groupnorm import group_norm
+
+CL = torch.channels_last
+
+
+def to_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """NCHW-shaped -> contiguous NHWC (a view when x is channels_last)."""
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+def from_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous NHWC -> NCHW-shaped channels_last view."""
+    return x.permute(0, 3, 1, 2)
+
+
+class FusedGroupNorm(nn.Module):
+    """GroupNorm with optional fused SiLU on the port's group_norm op."""
+
+    def __init__(self, channels: int, groups: int, eps: float = 1e-5,
+                 act: Optional[str] = None):
+        super().__init__()
+        self.groups, self.eps, self.act = groups, eps, act
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = group_norm(to_nhwc(x), self.weight, self.bias, self.groups, self.eps, self.act)
+        return from_nhwc(y)
+
+
+class FusedLayerNorm(nn.Module):
+    """LayerNorm over the last axis with fp32 statistics, var = E[x^2] - E[x]^2 >= 0."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp(xf.square().mean(-1, keepdim=True) - mean.square(), min=0.0)
+        w = torch.rsqrt(var + self.eps) * self.weight.float()
+        b = self.bias.float() - mean * w
+        return (xf * w + b).to(x.dtype)
+
+
+def timestep_embedding(
+    timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
+    freq_shift: float = 0.0, max_period: float = 10000.0,
+) -> torch.Tensor:
+    """Sinusoidal timestep embedding (diffusers semantics): [B] -> [B, dim] fp32."""
+    half = dim // 2
+    exponent = -math.log(max_period) * torch.arange(
+        half, dtype=torch.float32, device=timesteps.device)
+    freqs = torch.exp(exponent / (half - freq_shift))
+    args = timesteps.float()[:, None] * freqs[None, :]
+    sin, cos = torch.sin(args), torch.cos(args)
+    emb = torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
+    if dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+class TimestepEmbedding(nn.Module):
+    def __init__(self, in_dim: int, embed_dim: int):
+        super().__init__()
+        self.linear_1 = nn.Linear(in_dim, embed_dim)
+        self.linear_2 = nn.Linear(embed_dim, embed_dim)
+
+    def forward(self, t_emb: torch.Tensor) -> torch.Tensor:
+        return self.linear_2(F.silu(self.linear_1(t_emb)))
+
+
+class ResnetBlock2D(nn.Module):
+    """GroupNorm -> SiLU -> Conv3x3, time-conditioned, with skip projection."""
+
+    def __init__(self, in_channels: int, out_channels: int, groups: int = 32,
+                 eps: float = 1e-5, temb_channels: Optional[int] = None):
+        super().__init__()
+        self.norm1 = FusedGroupNorm(in_channels, groups, eps, act="silu")
+        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.time_emb_proj = (
+            nn.Linear(temb_channels, out_channels) if temb_channels else None
+        )
+        self.norm2 = FusedGroupNorm(out_channels, groups, eps, act="silu")
+        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv_shortcut = (
+            nn.Conv2d(in_channels, out_channels, 1) if in_channels != out_channels else None
+        )
+
+    def forward(self, x: torch.Tensor, t_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = self.conv1(self.norm1(x))
+        if self.time_emb_proj is not None and t_emb is not None:
+            h = h + self.time_emb_proj(F.silu(t_emb))[:, :, None, None]
+        h = self.conv2(self.norm2(h))
+        residual = x if self.conv_shortcut is None else self.conv_shortcut(x)
+        return residual + h
+
+
+class Downsample2D(nn.Module):
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+class Upsample2D(nn.Module):
+    """Nearest 2x upsample then Conv3x3."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.interpolate(x, scale_factor=2.0, mode="nearest")
+        return self.conv(x.contiguous(memory_format=CL))
+
+
+class CrossAttention(nn.Module):
+    """Multi-head attention over tokens [B, N, C]; self-attention when context is None."""
+
+    def __init__(self, query_dim: int, heads: int, head_dim: int,
+                 context_dim: Optional[int] = None):
+        super().__init__()
+        inner = heads * head_dim
+        self.heads, self.head_dim = heads, head_dim
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(context_dim or query_dim, inner, bias=False)
+        self.to_v = nn.Linear(context_dim or query_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        ctx = x if context is None else context
+        b, nq, _ = x.shape
+        nk = ctx.shape[1]
+        q = self.to_q(x).view(b, nq, self.heads, self.head_dim)
+        k = self.to_k(ctx).view(b, nk, self.heads, self.head_dim)
+        v = self.to_v(ctx).view(b, nk, self.heads, self.head_dim)
+        o = attention(q, k, v).reshape(b, nq, self.heads * self.head_dim)
+        return self.to_out[0](o)
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim: int, inner: int):
+        super().__init__()
+        self.proj = nn.Linear(dim, inner * 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        return h * F.gelu(gate, approximate="tanh")
+
+
+class GEGLUFeedForward(nn.Module):
+    """GEGLU feed-forward; ``net.0.proj`` / ``net.2`` are the diffusers names."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        inner = dim * mult
+        self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(), nn.Linear(inner, dim)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.net:
+            x = layer(x)
+        return x
+
+
+class BasicTransformerBlock(nn.Module):
+    """LN -> self-attn, LN -> cross-attn, LN -> GEGLU FF, all residual."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int, context_dim: int):
+        super().__init__()
+        self.norm1 = FusedLayerNorm(dim)
+        self.attn1 = CrossAttention(dim, heads, head_dim)
+        self.norm2 = FusedLayerNorm(dim)
+        self.attn2 = CrossAttention(dim, heads, head_dim, context_dim)
+        self.norm3 = FusedLayerNorm(dim)
+        self.ff = GEGLUFeedForward(dim)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn1(self.norm1(x))
+        x = x + self.attn2(self.norm2(x), context)
+        return x + self.ff(self.norm3(x))
+
+
+class Transformer2D(nn.Module):
+    """Spatial transformer: GroupNorm, 1x1 proj in, transformer blocks, 1x1 proj out,
+    residual (the SD-1.5 form; the SDXL linear projection is not ported yet)."""
+
+    def __init__(self, channels: int, heads: int, head_dim: int, context_dim: int,
+                 depth: int = 1, groups: int = 32):
+        super().__init__()
+        self.norm = FusedGroupNorm(channels, groups, eps=1e-6)
+        self.proj_in = nn.Conv2d(channels, channels, 1)
+        self.transformer_blocks = nn.ModuleList(
+            BasicTransformerBlock(channels, heads, head_dim, context_dim) for _ in range(depth)
+        )
+        self.proj_out = nn.Conv2d(channels, channels, 1)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        t = to_nhwc(self.proj_in(self.norm(x))).view(b, h * w, c)
+        for block in self.transformer_blocks:
+            t = block(t, context)
+        y = from_nhwc(t.view(b, h, w, c))
+        return self.proj_out(y) + x
+
+
+class VAEAttentionBlock(nn.Module):
+    """Single-head self-attention over spatial tokens (VAE mid block)."""
+
+    def __init__(self, channels: int, groups: int = 32):
+        super().__init__()
+        self.group_norm = FusedGroupNorm(channels, groups, eps=1e-6)
+        self.to_q = nn.Linear(channels, channels)
+        self.to_k = nn.Linear(channels, channels)
+        self.to_v = nn.Linear(channels, channels)
+        self.to_out = nn.ModuleList([nn.Linear(channels, channels)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        y = to_nhwc(self.group_norm(x)).view(b, h * w, 1, c)
+        o = attention(self.to_q(y), self.to_k(y), self.to_v(y)).view(b, h * w, c)
+        o = self.to_out[0](o).view(b, h, w, c)
+        return x + from_nhwc(o)
+
+
+@torch.no_grad()
+def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Fill every parameter from ``generator``: norm scales 1, biases 0,
+    embeddings N(0, 0.02), other weights N(0, 1/fan_in) (flax's lecun_normal
+    without truncation). The weights are random, only for runs that need a
+    stack of the right shape."""
+    embeddings = {id(m.weight) for m in module.modules() if isinstance(m, nn.Embedding)}
+    for name, p in module.named_parameters():
+        if name.endswith("bias"):
+            p.zero_()
+        elif p.dim() == 1:
+            p.fill_(1.0)
+        elif id(p) in embeddings:
+            p.copy_(torch.randn(p.shape, generator=generator, device=p.device) * 0.02)
+        else:
+            fan_in = p[0].numel()
+            p.copy_(torch.randn(p.shape, generator=generator, device=p.device)
+                    * (1.0 / math.sqrt(fan_in)))
+    return module

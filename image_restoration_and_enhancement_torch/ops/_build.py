@@ -1,0 +1,140 @@
+"""Build and load the port's CUDA kernels: one nvcc call, a plain-C library, ctypes.
+
+Both sources in ``csrc/`` are compiled by a single
+``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC``
+call into ``_build/`` inside the package (listed in ``.gitignore``). The library
+name carries a hash of the sources and flags, so an edited source is rebuilt
+and an unchanged one is loaded as it is. No PyTorch headers are compiled in:
+each kernel has an ``extern "C"`` launcher that takes raw pointers, sizes and
+strides and a ``cudaStream_t``, and returns ``cudaGetLastError()``.
+
+A failed build raises ``KernelError``, and so does a launcher that returns
+non-zero; nothing here falls back to the plain PyTorch versions, and callers
+that catch errors to serve a fallback let ``KernelError`` through.
+
+``launch_counts`` counts kernel launches by kernel name; a wrapper increments it
+right after a launch succeeds and nowhere else. ``launch_shapes`` records the
+same launches keyed by (kernel, shape description), so a caller can replay the
+shapes a run used.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Optional, Tuple
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+SOURCES = ("attention.cu", "groupnorm.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+launch_counts: "collections.Counter[str]" = collections.Counter()
+launch_shapes: "collections.Counter[Tuple[str, tuple]]" = collections.Counter()
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+# What the last build in this process did: seconds, library path, compiler log.
+build_info: Dict[str, object] = {}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_int64
+_F = ctypes.c_float
+_ARGTYPES = {
+    # dtype, q, k, v, o, B, H, Nq, Nk, D, q strides (b, n, h), k strides, v strides,
+    # scale, stream
+    "iret_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
+    # dtype, wdtype, x, scale, bias, y, partial, wb, B, HW, C, G, chunks,
+    # rows_per_chunk, eps, silu, stream
+    "iret_group_norm": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _F, _I, _P],
+}
+
+
+class KernelError(RuntimeError):
+    """A kernel could not be built, loaded or launched."""
+
+
+def record_launch(kernel: str, shape: tuple) -> None:
+    """Count one launch of ``kernel`` (called by a wrapper after its launch)."""
+    launch_counts[kernel] += 1
+    launch_shapes[(kernel, shape)] += 1
+
+
+def reset_launch_counts() -> None:
+    launch_counts.clear()
+    launch_shapes.clear()
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise KernelError(
+        "nvcc not found (looked at $NVCC, PATH and /usr/local/cuda/bin): the "
+        "port's CUDA kernels cannot be built"
+    )
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
+
+
+def _compile(out_path: str) -> str:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out_path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise KernelError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    os.replace(tmp, out_path)
+    return log
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built at first use and then cached."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = os.path.join(BUILD_DIR, f"libiret_kernels_{_source_hash()}.so")
+            t0 = time.perf_counter()
+            built = not os.path.exists(path)
+            log = _compile(path) if built else ""
+            try:
+                lib = ctypes.CDLL(path)
+            except OSError as e:
+                raise KernelError(f"cannot load the kernels library {path}: {e}") from e
+            for name, argtypes in _ARGTYPES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.iret_error_string.argtypes = [ctypes.c_int]
+            lib.iret_error_string.restype = ctypes.c_char_p
+            build_info.update(
+                seconds=time.perf_counter() - t0, path=path, log=log, built=built
+            )
+            _lib = lib
+        return _lib
+
+
+def check(err: int, kernel: str) -> None:
+    """Raise if a launcher reported a CUDA error."""
+    if err != 0:
+        name = library().iret_error_string(err).decode()
+        raise KernelError(f"{kernel} kernel launch failed: cudaError {err} ({name})")
