@@ -5,40 +5,83 @@ their plain PyTorch versions.
     python3 chip_smoke.py
 
 Phases (each prints its seconds; any failure exits non-zero):
-  build     compile csrc/*.cu with one nvcc call (ops/_build.py) and load it.
-  parity    small inputs, CUDA kernels against the plain versions on the CPU:
-            the TINY_SD img2img function end to end, and one full-width SD-1.5
-            UNet call at 32x32 latents, both in fp32.
-  serve     initialise the full SD-1.5 stack (UNet, VAE, CLIP-L) at random from
-            a seeded generator, write it in bf16 with the port's own safetensors
-            writer to a temporary directory outside the checkout, and answer
-            four 512x512 denoise requests through RestorationPipeline: the task
-            default (strength 0.5, 20-step PLMS, gs 5.0, so CFG batch 2), one
-            with guidance=1.0 (no CFG branch), then both again (steady state).
-            Launch counts are zeroed just before and read just after; both
-            kernels must have launched. A CUDA pipeline has no OpenCV
-            fallback: any failure of a request raises and fails this run.
-  kernels   every kernel at every shape the serve launched it with (plus the
-            fp32, eps and mean-5000 cases): kernel against plain version on the
-            same bf16 inputs, max abs error within the stated tolerance, and
-            kernel / plain / library times with CUDA events.
+  build       compile csrc/*.cu (one nvcc process per source, started together,
+              then one link; ops/_build.py) and load the library.
+  parity      small inputs, CUDA kernels against the plain versions on the CPU,
+              in fp32: the TINY_SD img2img function end to end and one
+              full-width SD-1.5 UNet call at 32x32 latents, exact and then
+              int8_static (K3, K4; tables calibrated on the CPU).
+  serve       initialise the full SD-1.5 stack (UNet, VAE, CLIP-L) at random from
+              a seeded generator, write it in bf16 with the port's own safetensors
+              writer to a temporary directory outside the checkout, and answer
+              four 512x512 denoise requests through RestorationPipeline: the task
+              default (strength 0.5, 20-step PLMS, gs 5.0, so CFG batch 2), one
+              with guidance=1.0 (no CFG branch), then both again (steady state).
+              Launch counts are zeroed just before and read just after; K1 and K2
+              must have launched.
+  serve_int8  the same stack served w8a8: calibrate a static table with
+              make_calib_img2img_fn on the request image, write it as JSON, build
+              RestorationPipeline(quant="int8_static", quant_calib=...,
+              attention_backend="int8") and answer a first CFG request, a steady
+              CFG request and a steady gs 1.0 request. Counts are zeroed just
+              before and read just after: K3 and K4 must have launched, and K1
+              (VAE mid-block); no site may miss the table. Prints the PSNR of the
+              int8 output against the bf16 serve's output on the same input
+              (random weights: no target, so no gate). Then one more CFG request
+              captures the input and output of every quantized layer that K3
+              does not serve (Linear, 1x1 and stride-2 convs: the s8 products
+              of torch._int_mm, and the quantizers), one of each shape, and holds
+              each against the same layer on the CPU (layer parity, below).
+              A CUDA pipeline has no OpenCV fallback: any failure of a request
+              raises and fails this run.
+  kernels     every kernel at every shape the serves launched it with (plus edge
+              cases): kernel against plain version on the same inputs, max abs
+              error within ops/tolerance.py's limit, and kernel / plain / library
+              times with CUDA events.
 
 Kernel-vs-plain limits are ops/tolerance.py's: fp32 1e-4 absolute and
 relative; bf16 |got - ref| <= share * max|ref| + 2**-7 * |ref| elementwise (one
-bf16 step of each value plus a share of the largest: 2**-8 for attention,
-2**-10 for GroupNorm).
+bf16 step of each value plus a share of the largest: 2**-8 for attention and
+int8 attention, 2**-10 for GroupNorm); K3 one rounding of the output dtype.
+
+int8 checks, CUDA against CPU:
+- Layer parity (the tight check): the same s8 inputs and weights give the
+  same int32 sums on both devices (torch._int_mm on the card, float64 on the
+  CPU), and both scale them with the same fp32 operations, so each layer's
+  output must agree to within one rounding of its dtype (ops/tolerance.py,
+  "int8_layer"), under the pipeline's static table and under dynamic scales.
+  Control: the card's layer with quantization off must fail that limit at
+  every shape, or the run fails.
+- End to end (a bound on the quantization noise, not a test of int8): the
+  devices' fp32 parts (convs, norms, softmax) differ in the last bits, so
+  some activations land on the other side of an s8 rounding boundary, and a
+  random-weight int8 network amplifies each such flip. The limits are 25 dB
+  PSNR for the TINY_SD image and 15% relative Frobenius error for the SD-1.5
+  UNet call. Quantization off on the card lies inside both (w8a8 against fp32
+  is about as far as the flips go), so these limits cannot tell int8 from
+  full precision; layer parity does. Beside each, the run prints what a 1e-6
+  relative perturbation of every quantized layer's input does on the CPU
+  (what the cross-device differences look like), the card's fp32 output
+  against the CPU's int8 one, and planted faults (a zeroed K3 tap; K4
+  dropping 8 keys), and fails if a limit would pass a planted fault.
 
 fp32 references run with TF32 off (torch.backends.cuda.matmul.allow_tf32 and
-torch.backends.cudnn.allow_tf32 are set False at start). The library calls
-(F.scaled_dot_product_attention, F.group_norm) are timed as yardsticks only;
-the port never calls them.
+torch.backends.cudnn.allow_tf32 are set False at start). The library calls are
+timed as yardsticks only and the port never calls them:
+F.scaled_dot_product_attention and F.group_norm compute K1's and K2's
+functions; no PyTorch call computes K3's or K4's, so bf16 F.conv2d and bf16
+F.scaled_dot_product_attention of the same shapes stand in, labelled as exact
+bf16 yardsticks.
 
 The line before the last is the kernels JSON line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -47,10 +90,13 @@ import tempfile
 import time
 
 SEED = 1234
-PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}  # H100 SXM, dense
+# H100 SXM, dense; int8 in operations per second
+PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
 PARITY_TOL = 2e-3     # fp32 end to end, images in [-1, 1]
 UNET_REL_TOL = 1e-3   # fp32 full-width UNet eps, relative to max |eps|
+INT8_PSNR_MIN = 25.0  # TINY_SD int8_static image, CUDA against CPU (docstring)
+INT8_UNET_REL_TOL = 0.15  # SD-1.5 int8_static eps, relative Frobenius (docstring)
 
 
 def log(msg: str) -> None:
@@ -102,12 +148,78 @@ def phase_build():
                 f"{sum(spills)} bytes of spill stores and loads in all")
 
 
+def _psnr(a, b, peak: float) -> float:
+    import numpy as np
+
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return float("inf") if mse == 0 else float(10.0 * np.log10(peak * peak / mse))
+
+
+@contextlib.contextmanager
+def _planted(fault: str):
+    """Run the port's plain path with a planted fault: "k3_tap" zeroes tap
+    (2, 2) of every int8 3x3 conv weight, "k4_keys" drops the last 8 keys of
+    every int8 attention. Used on the CPU only, to show what a limit rejects."""
+    from image_restoration_and_enhancement_torch.models import layers
+    from image_restoration_and_enhancement_torch.ops import attention as A
+
+    if fault == "k3_tap":
+        mod, name = layers, "conv3x3_same_int8"
+        real = layers.conv3x3_same_int8
+
+        def faulty(x, w, scale, out_dtype):
+            w = w.clone()
+            w[2, 2] = 0
+            return real(x, w, scale, out_dtype)
+    else:
+        mod, name = A, "int8_attention_core"
+        real = A.int8_attention_core
+
+        def faulty(q8, k8, v, scale):
+            return real(q8, k8[:, :-8], v[:, :-8], scale) if k8.shape[1] > 8 else \
+                real(q8, k8, v, scale)
+    setattr(mod, name, faulty)
+    try:
+        yield
+    finally:
+        setattr(mod, name, real)
+
+
+@contextlib.contextmanager
+def _perturbed(roots, rel: float, gen):
+    """Multiply the input of every quantized layer under ``roots`` by
+    (1 + rel * N(0, 1)) elementwise: the size of the difference between two
+    devices' fp32 results, at every place where it can flip an s8 value."""
+    import torch
+
+    from image_restoration_and_enhancement_torch.models.layers import QConv2d, QLinear
+
+    def hook(mod, args):
+        x = args[0]
+        return (x * (1 + rel * torch.randn(x.shape, generator=gen)).to(x.dtype),) + args[1:]
+
+    hooks = [m.register_forward_pre_hook(hook) for root in roots for m in root.modules()
+             if isinstance(m, (QConv2d, QLinear))]
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
+
+
 def phase_parity():
     import torch
 
     from image_restoration_and_enhancement_torch import config as C
     from image_restoration_and_enhancement_torch.core import sampling
-    from image_restoration_and_enhancement_torch.models.layers import init_random_
+    from image_restoration_and_enhancement_torch.models.layers import (
+        CL,
+        init_random_,
+        set_quant,
+    )
+    from image_restoration_and_enhancement_torch.models.unet import UNet2DCondition
+    from image_restoration_and_enhancement_torch.ops import _build
+    from image_restoration_and_enhancement_torch.ops.quant import QuantState
 
     with _Phase("parity"):
         # TINY_SD end to end: the same weights and noise on CPU (plain) and CUDA (kernels).
@@ -127,19 +239,68 @@ def phase_parity():
                 ctx = sampling.encode_text(mods, ids)
                 fn = sampling.make_img2img_fn(mods, 10, 0.5, gs, sampler)
                 outs.append(fn(image, ctx[:1], ctx[1:], noise=noise).cpu())
+            if sampler == "plms":
+                cuda_fp32 = outs[1]
             err = float((outs[0] - outs[1]).abs().max())
             log(f"TINY_SD img2img {sampler} gs={gs}: cuda vs cpu max abs err {err:.3e} "
                 f"(tol {PARITY_TOL})")
             if not err <= PARITY_TOL:
                 raise AssertionError(f"TINY_SD {sampler} disagrees: {err}")
 
+        # TINY_SD int8_static: a table calibrated on the CPU, K3 and K4 on the card.
+        mods8 = []
+        for dev in ("cpu", "cuda"):
+            m8 = sampling.SDModules.create(C.TINY_SD, torch.float32, dev, attention_backend="int8")
+            for name, m in m8.components().items():
+                m.load_state_dict(cpu.components()[name].state_dict())
+            mods8.append(m8)
+        ctx = sampling.encode_text(mods8[0], ids)
+        _, table = sampling.make_calib_img2img_fn(mods8[0], 10, 0.5, 5.0, "plms")(
+            image, ctx[:1], ctx[1:], noise=noise)
+        before = collections.Counter(_build.launch_counts)
+        outs = []
+        for m8 in mods8:
+            m8.set_quant(QuantState("int8_static", table))
+            ctx = sampling.encode_text(m8, ids)
+            fn = sampling.make_img2img_fn(m8, 10, 0.5, 5.0, "plms")
+            outs.append(fn(image, ctx[:1], ctx[1:], noise=noise).cpu())
+            if m8.quant.misses:
+                raise AssertionError(f"TINY_SD int8_static missed sites {m8.quant.misses}")
+        launched = {k: _build.launch_counts[k] - before[k]
+                    for k in ("conv3x3_int8", "int8_attention")}
+        psnr = _psnr(outs[0], outs[1], 2.0)
+        err = float((outs[0] - outs[1]).abs().max())
+        log(f"TINY_SD int8_static img2img plms gs=5.0 ({len(table)} sites): cuda vs cpu "
+            f"PSNR {psnr:.2f} dB (min {INT8_PSNR_MIN}), max abs err {err:.3e}; "
+            f"cuda launches {launched}")
+        if not (psnr >= INT8_PSNR_MIN and all(v > 0 for v in launched.values())):
+            raise AssertionError("TINY_SD int8_static disagrees between CUDA and CPU")
+        # What the limit is measured against: on the CPU, the same run with every
+        # quantized layer's input perturbed by 1e-6 (relative), and with planted
+        # faults; the card's fp32 run of the same function (quantization off).
+        ctx = sampling.encode_text(mods8[0], ids)
+        fn = sampling.make_img2img_fn(mods8[0], 10, 0.5, 5.0, "plms")
+        roots = (mods8[0].unet, mods8[0].vae)
+        pert = []
+        for _ in range(3):
+            with _perturbed(roots, 1e-6, gen):
+                pert.append(_psnr(outs[0], fn(image, ctx[:1], ctx[1:], noise=noise), 2.0))
+        faults = {}
+        for fault in ("k3_tap", "k4_keys"):
+            with _planted(fault):
+                faults[fault] = _psnr(outs[0], fn(image, ctx[:1], ctx[1:], noise=noise), 2.0)
+        log(f"TINY_SD int8_static on the cpu: 1e-6-perturbed layer inputs PSNR "
+            f"{', '.join(f'{p:.2f}' for p in pert)} dB; planted faults "
+            f"{ {k: round(v, 2) for k, v in faults.items()} } dB; cuda fp32 (quantization "
+            f"off) against cpu int8 {_psnr(outs[0], cuda_fp32, 2.0):.2f} dB")
+        if not all(v < INT8_PSNR_MIN for v in faults.values()):
+            raise AssertionError(f"the TINY_SD int8 limit passes a planted fault: {faults}")
+
         # One full-width SD-1.5 UNet call (N = 1024/256/64/16, d = 40/80/160/160).
         gen_cuda = torch.Generator(device="cuda").manual_seed(SEED)
         unet_gpu = sampling.SDModules.create(C.SD15, torch.float32, "cuda").unet
         init_random_(unet_gpu, gen_cuda)
         with torch.device("meta"):
-            from image_restoration_and_enhancement_torch.models.unet import UNet2DCondition
-
             unet_cpu = UNet2DCondition(C.SD15_UNET)
         unet_cpu = unet_cpu.to_empty(device="cpu").eval()
         unet_cpu.load_state_dict(unet_gpu.state_dict())
@@ -155,83 +316,281 @@ def phase_parity():
             f"{scale:.3e} (tol {UNET_REL_TOL} x max |eps|)")
         if not (torch.isfinite(got).all() and err <= UNET_REL_TOL * scale):
             raise AssertionError("SD15 UNet disagrees between CUDA and CPU")
+
+        # The same call w8a8 with int8 attention, a table calibrated on the CPU.
+        u8 = []
+        for dev, src in (("cpu", unet_cpu), ("cuda", unet_gpu)):
+            with torch.device("meta"):
+                u = UNet2DCondition(C.SD15_UNET, "int8")
+            u = u.to_empty(device=dev).to(memory_format=CL).eval()
+            u.load_state_dict(src.state_dict())
+            u8.append(u)
         del unet_gpu, unet_cpu
+        dyn = QuantState("int8")
+        set_quant(u8[0], dyn)
+        with torch.inference_mode():
+            with dyn.collect() as sink:
+                u8[0](x, t, ctx)
+            table = {k: float(v) for k, v in sink.items()}
+            states = [QuantState("int8_static", table) for _ in u8]
+            for u, st in zip(u8, states):
+                set_quant(u, st)
+            before = collections.Counter(_build.launch_counts)
+            ref8 = u8[0](x, t, ctx)
+            got8 = u8[1](x.cuda(), t.cuda(), ctx.cuda()).cpu()
+            with _perturbed((u8[0],), 1e-6, gen):
+                pert8 = u8[0](x, t, ctx)
+            with _planted("k3_tap"):
+                fault8 = u8[0](x, t, ctx)
+        launched = {k: _build.launch_counts[k] - before[k]
+                    for k in ("conv3x3_int8", "int8_attention")}
+        rel_fro = lambda a, b: float(torch.linalg.norm(a - b) / torch.linalg.norm(b))  # noqa: E731
+        rel, fault_rel = rel_fro(got8, ref8), rel_fro(fault8, ref8)
+        log(f"SD15 UNet 32x32 int8_static ({len(table)} sites): cuda vs cpu relative "
+            f"Frobenius error {rel:.4f} (tol {INT8_UNET_REL_TOL}); on the cpu: w8a8 against "
+            f"fp32 {rel_fro(ref8, ref):.4f}, 1e-6-perturbed layer inputs "
+            f"{rel_fro(pert8, ref8):.4f}, planted K3 tap fault {fault_rel:.4f}; cuda fp32 "
+            f"(quantization off) against cpu int8 {rel_fro(got, ref8):.4f}; cuda launches "
+            f"{launched}")
+        if not (torch.isfinite(got8).all() and rel <= INT8_UNET_REL_TOL
+                and all(v > 0 for v in launched.values())
+                and not any(st.misses for st in states)):
+            raise AssertionError("SD15 int8 UNet disagrees between CUDA and CPU")
+        if not fault_rel > INT8_UNET_REL_TOL:
+            raise AssertionError("the SD15 int8 limit passes a planted K3 fault")
+        del u8
         torch.cuda.empty_cache()
 
 
-def phase_serve():
+def _serve(pipe, image, requests):
+    """Answer ``requests`` with launch counts zeroed just before and read just
+    after: (seconds, outputs, launches, shapes, peak bytes)."""
+    import numpy as np
+    import torch
+
+    from image_restoration_and_enhancement_torch.ops import _build
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    seconds, outs = [], []
+    for label, kw in requests:
+        t0 = time.perf_counter()
+        out = pipe.denoise(image, **kw)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        log(f"request {label}: {seconds[-1]:.3f} s")
+        if not (isinstance(out, np.ndarray) and out.dtype == np.uint8
+                and out.shape == (512, 512, 3)):
+            raise AssertionError(f"bad output {type(out)} {getattr(out, 'shape', None)}")
+        outs.append(out)
+    launches = dict(_build.launch_counts)
+    shapes = dict(_build.launch_shapes)
+    return seconds, outs, launches, shapes, torch.cuda.max_memory_allocated()
+
+
+def _pipeline(tmp, **kw):
+    from image_restoration_and_enhancement_torch.infer.pipeline import RestorationPipeline
+
+    return RestorationPipeline(
+        config={"denoise": {"fine_tuned_dir": tmp, "default_backend": "diffusion"}}, **kw)
+
+
+def phase_serve(tmp):
     import numpy as np
     import torch
 
     from image_restoration_and_enhancement_torch import config as C
     from image_restoration_and_enhancement_torch.core import checkpoint as ckpt
     from image_restoration_and_enhancement_torch.core import sampling
-    from image_restoration_and_enhancement_torch.infer.pipeline import RestorationPipeline
     from image_restoration_and_enhancement_torch.models.layers import init_random_
-    from image_restoration_and_enhancement_torch.ops import _build
 
-    result = {}
     with _Phase("serve"):
-        tmp = tempfile.mkdtemp(prefix="iret_smoke_")
-        try:
-            t0 = time.perf_counter()
-            gen = torch.Generator(device="cuda").manual_seed(SEED)
-            mods = sampling.SDModules.create(C.SD15, torch.bfloat16, "cuda")
-            counts = {}
-            for name, m in mods.components().items():
-                init_random_(m, gen)
-                counts[name] = sum(p.numel() for p in m.parameters())
-            log(f"random SD-1.5 stack: {counts} in {time.perf_counter() - t0:.2f} s")
-            if counts["unet"] != 859_520_964:
-                raise AssertionError(f"UNet has {counts['unet']} parameters")
-            t0 = time.perf_counter()
-            ckpt.save_pipeline(tmp, mods.components(), C.SD15, dtype=torch.bfloat16)
-            log(f"wrote + verified bf16 pipeline in {time.perf_counter() - t0:.2f} s")
-            del mods
-            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        mods = sampling.SDModules.create(C.SD15, torch.bfloat16, "cuda")
+        counts = {}
+        for name, m in mods.components().items():
+            init_random_(m, gen)
+            counts[name] = sum(p.numel() for p in m.parameters())
+        log(f"random SD-1.5 stack: {counts} in {time.perf_counter() - t0:.2f} s")
+        if counts["unet"] != 859_520_964:
+            raise AssertionError(f"UNet has {counts['unet']} parameters")
+        t0 = time.perf_counter()
+        ckpt.save_pipeline(tmp, mods.components(), C.SD15, dtype=torch.bfloat16)
+        log(f"wrote + verified bf16 pipeline in {time.perf_counter() - t0:.2f} s")
+        del mods
+        torch.cuda.empty_cache()
 
-            pipe = RestorationPipeline(
-                config={"denoise": {"fine_tuned_dir": tmp, "default_backend": "diffusion"}})
-            image = np.random.default_rng(SEED).integers(0, 256, (512, 512, 3), dtype=np.uint8)
-            requests = [("default (gs 5.0, CFG batch 2; includes the stack load)", {}),
-                        ("guidance=1.0 (no CFG branch; first batch-1 call)",
-                         {"guidance": 1.0}),
-                        ("default again (steady state)", {}),
-                        ("guidance=1.0 again (steady state)", {"guidance": 1.0})]
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            _build.reset_launch_counts()
-            seconds = []
-            for label, kw in requests:
-                t0 = time.perf_counter()
-                out = pipe.denoise(image, **kw)
-                torch.cuda.synchronize()
-                seconds.append(time.perf_counter() - t0)
-                log(f"request {label}: {seconds[-1]:.3f} s")
-                if not (isinstance(out, np.ndarray) and out.dtype == np.uint8
-                        and out.shape == (512, 512, 3)):
-                    raise AssertionError(f"bad output {type(out)} "
-                                         f"{getattr(out, 'shape', None)}")
-            launches = dict(_build.launch_counts)
-            shapes = dict(_build.launch_shapes)
-            peak = torch.cuda.max_memory_allocated()
-            log(f"serve launches: {launches}; peak memory {peak / 2**30:.3f} GiB")
-            for k in ("attention", "group_norm"):
-                if launches.get(k, 0) <= 0:
-                    raise AssertionError(f"kernel {k} did not launch on the main path")
-            result = {"request_seconds": seconds, "peak_bytes": peak,
-                      "launches": launches, "shapes": shapes}
-            log("serve_json " + json.dumps(
-                {"request_seconds": seconds, "peak_memory_bytes": peak,
-                 "launches": launches}))
-            _profile_request(pipe, image, seconds[2])
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
-    return result
+        pipe = _pipeline(tmp)
+        image = np.random.default_rng(SEED).integers(0, 256, (512, 512, 3), dtype=np.uint8)
+        requests = [("default (gs 5.0, CFG batch 2; includes the stack load)", {}),
+                    ("guidance=1.0 (no CFG branch; first batch-1 call)", {"guidance": 1.0}),
+                    ("default again (steady state)", {}),
+                    ("guidance=1.0 again (steady state)", {"guidance": 1.0})]
+        seconds, outs, launches, shapes, peak = _serve(pipe, image, requests)
+        log(f"serve launches: {launches}; peak memory {peak / 2**30:.3f} GiB")
+        for k in ("attention", "group_norm"):
+            if launches.get(k, 0) <= 0:
+                raise AssertionError(f"kernel {k} did not launch on the main path")
+        log("serve_json " + json.dumps(
+            {"request_seconds": seconds, "peak_memory_bytes": peak, "launches": launches}))
+        _profile_request(pipe, image, seconds[2])
+    return {"request_seconds": seconds, "peak_bytes": peak, "launches": launches,
+            "shapes": shapes, "image": image, "out_cfg": outs[2]}
+
+
+def phase_serve_int8(tmp, bf16):
+    import numpy as np
+    import torch
+
+    from image_restoration_and_enhancement_torch import config as C
+    from image_restoration_and_enhancement_torch.core import checkpoint as ckpt
+    from image_restoration_and_enhancement_torch.core import sampling
+    from image_restoration_and_enhancement_torch.models.tokenizer import load_tokenizer
+    from image_restoration_and_enhancement_torch.tasks.registry import get_task
+
+    image = bf16["image"]
+    with _Phase("serve_int8"):
+        # Calibrate on the request image: the task's prompt, sampler and
+        # strength, and the pipeline's seed, on the stack just written.
+        t0 = time.perf_counter()
+        spec = get_task("denoise")
+        mods = sampling.SDModules.create(C.SD15, torch.bfloat16, "cuda", attention_backend="int8")
+        params = ckpt.load_pipeline(tmp)
+        for comp, m in mods.components().items():
+            m.load_state_dict(ckpt.params_from_flax(params.pop(comp)), strict=True)
+        tok = load_tokenizer(tmp, vocab_size=C.SD15.text_encoder.vocab_size)
+        with torch.inference_mode():
+            ctx = sampling.encode_text(mods, torch.as_tensor(tok([spec.prompt])))
+            uncond = sampling.encode_text(mods, torch.as_tensor(tok([""])))
+        x = torch.from_numpy(image.astype(np.float32) / 127.5 - 1.0)[None]
+        sd = spec.sampler
+        calib = sampling.make_calib_img2img_fn(mods, sd.num_inference_steps, 0.5,
+                                               sd.guidance_scale, sd.sampler)
+        _, table = calib(x, ctx, uncond, generator=torch.Generator(device="cuda").manual_seed(42))
+        path = os.path.join(tmp, "quant_calib.json")
+        with open(path, "w") as f:
+            json.dump({"sites": table}, f)
+        log(f"calibrated {len(table)} sites on the request image and wrote {path} in "
+            f"{time.perf_counter() - t0:.2f} s")
+        del calib, mods, params
+        torch.cuda.empty_cache()
+
+        pipe = _pipeline(tmp, quant="int8_static", quant_calib=path, attention_backend="int8")
+        requests = [("int8 default (gs 5.0, CFG batch 2; includes the stack load)", {}),
+                    ("int8 default again (steady state)", {}),
+                    ("int8 guidance=1.0 (no CFG branch)", {"guidance": 1.0})]
+        seconds, outs, launches, shapes, peak = _serve(pipe, image, requests)
+        log(f"serve_int8 launches: {launches}; peak memory {peak / 2**30:.3f} GiB")
+        for k in ("conv3x3_int8", "int8_attention", "attention", "group_norm"):
+            if launches.get(k, 0) <= 0:
+                raise AssertionError(f"kernel {k} did not launch on the int8 path")
+        if pipe.quant.misses:
+            raise AssertionError(f"sites missing from the table: {sorted(pipe.quant.misses)}")
+        psnr = _psnr(outs[1], bf16["out_cfg"], 255.0)
+        log(f"int8 CFG output against the bf16 serve's on the same input: PSNR {psnr:.2f} dB "
+            "(random weights: printed, not gated)")
+        log("serve_int8_json " + json.dumps(
+            {"request_seconds": seconds, "peak_memory_bytes": peak, "launches": launches,
+             "psnr_vs_bf16_db": psnr, "static_misses": sorted(pipe.quant.misses)}))
+        _profile_request(pipe, image, seconds[1])
+        _layer_parity(pipe, image)
+    return {"request_seconds": seconds, "peak_bytes": peak, "launches": launches,
+            "shapes": shapes}
+
+
+def _cpu_twin(mod):
+    """A CPU copy of a quantized layer: same class, weights, dtype and site."""
+    import torch
+
+    from image_restoration_and_enhancement_torch.models.layers import QConv2d
+
+    with torch.device("cpu"):
+        if isinstance(mod, QConv2d):
+            twin = type(mod)(mod.in_channels, mod.out_channels, mod.kernel_size, mod.stride,
+                             mod.padding, bias=mod.bias is not None)
+        else:
+            twin = type(mod)(mod.in_features, mod.out_features, bias=mod.bias is not None)
+    twin = twin.to(mod.weight.dtype)
+    twin.load_state_dict({k: v.cpu() for k, v in mod.state_dict().items()})
+    twin.site = mod.site
+    return twin
+
+
+def _layer_parity(pipe, image) -> None:
+    """Every quantized layer that K3 does not serve (Linear, 1x1 and stride-2
+    convs), one of each (class, weight shape, stride, input shape), with the
+    input and output it had in a default request on the card. Each output
+    must match the same layer on the CPU on the same input to within one
+    rounding of its dtype; so must the card's layer under dynamic scales; and
+    the card's layer with quantization off must not (the control)."""
+    import torch
+
+    from image_restoration_and_enhancement_torch.models.layers import QConv2d, QLinear
+    from image_restoration_and_enhancement_torch.ops import tolerance
+    from image_restoration_and_enhancement_torch.ops.quant import QuantState
+
+    t0 = time.perf_counter()
+    modules = pipe._stacks["denoise"]["modules"]
+    seen = {}
+
+    def hook(mod, args, out):
+        x = args[0]
+        sig = (type(mod).__name__, tuple(mod.weight.shape), getattr(mod, "stride", None),
+               tuple(x.shape))
+        if sig not in seen:
+            seen[sig] = (mod, x.clone(), out.clone())
+
+    hooks = [m.register_forward_hook(hook) for root in (modules.unet, modules.vae)
+             for m in root.modules() if isinstance(m, QLinear) or (isinstance(m, QConv2d) and (
+                 m.kernel_size, m.stride, m.padding) != ((3, 3), (1, 1), (1, 1)))]
+    try:
+        pipe.denoise(image)
+    finally:
+        for h in hooks:
+            h.remove()
+    worst = {"static": 0.0, "dynamic": 0.0}
+    failed, control_passed = [], []
+    twins = {sig: _cpu_twin(mod) for sig, (mod, _, _) in seen.items()}
+    with torch.inference_mode():
+        for sig, (mod, x, out) in seen.items():
+            twin, xc = twins[sig], x.cpu()
+            for label, state in (("static", pipe.quant), ("dynamic", QuantState("int8"))):
+                twin.set_quant(state)
+                ref = twin(xc)
+                if label == "static":
+                    got, ref_static = out.cpu(), ref
+                else:
+                    mod.set_quant(state)
+                    got = mod(x).cpu()
+                ok, err = tolerance.within(got, ref, "int8_layer")
+                worst[label] = max(worst[label], err)
+                if not ok:
+                    failed.append((label, sig, err))
+            mod.set_quant(None)
+            if tolerance.within(mod(x).cpu(), ref_static, "int8_layer")[0]:
+                control_passed.append(sig)
+            mod.set_quant(pipe.quant)
+    log(f"layer parity: {len(seen)} shapes of {sorted({s[0] for s in seen})} layers, cuda "
+        f"against cpu, max abs err static {worst['static']:.3e}, dynamic "
+        f"{worst['dynamic']:.3e} (limit one rounding of the output dtype); control "
+        f"(quantization off on the card) passes at {len(control_passed)} of {len(seen)} "
+        f"shapes; {time.perf_counter() - t0:.2f} s")
+    if failed:
+        raise AssertionError(f"int8 layers disagree between CUDA and CPU at "
+                             f"{len({sig for _, sig, _ in failed})} of {len(seen)} shapes: "
+                             f"{failed[:5]}")
+    if control_passed or not seen:
+        raise AssertionError(f"the int8 layer limit passes full precision: {control_passed[:5]}")
 
 
 def _kernel_group(name: str) -> str:
     low = name.lower()
+    if "conv3x3_int8_kernel" in name:
+        return "K3 conv3x3_int8"
+    if "int8_attention_kernel" in name:
+        return "K4 int8_attention"
     if "attention_mma_kernel" in name or "attention_kernel" in name:
         return "K1 attention"
     if "gn_stats" in name or "gn_finalize" in name or "gn_apply" in name:
@@ -281,80 +640,142 @@ def _profile_request(pipe, image, unprofiled_s: float) -> None:
                    sorted(groups.items(), key=lambda kv: -kv[1][0])}}))
 
 
+def _dtype(name: str):
+    import torch
+
+    return getattr(torch, name.split(".")[-1])
+
+
 def _attention_case(key, gen):
-    import torch
-
-    b, nq, nk, h, d, dtype = key
-    dt = getattr(torch, dtype.split(".")[-1])
-    q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda").to(dt)
-               for n in (nq, nk, nk))
-    flops = 4.0 * b * h * nq * nk * d
-    nbytes = (2 * b * nq * h * d + 2 * b * nk * h * d) * q.element_size()
-    return (q, k, v), flops, nbytes, dtype
-
-
-def _gn_case(key, gen):
-    import torch
-
-    b, hh, ww, c, groups, eps, act, dtype = key
-    dt = getattr(torch, dtype.split(".")[-1])
-    x = (torch.randn((b, hh, ww, c), generator=gen, device="cuda") * 2 + 0.5).to(dt)
-    scale = torch.randn((c,), generator=gen, device="cuda") * 0.5 + 1.0
-    bias = torch.randn((c,), generator=gen, device="cuda") * 0.1
-    n = b * hh * ww * c
-    flops = (9.0 if act == "silu" else 5.0) * n
-    nbytes = 2 * n * x.element_size() + 2 * c * 4
-    return (x, scale, bias, groups, eps, act), flops, nbytes, dtype
-
-
-def phase_kernels(serve):
     import torch
     import torch.nn.functional as F
 
     from image_restoration_and_enhancement_torch.ops import attention as A
+
+    b, nq, nk, h, d, dtype = key
+    q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda").to(_dtype(dtype))
+               for n in (nq, nk, nk))
+    ops_s = 4.0 * b * h * nq * nk * d / PEAK_FLOPS[dtype]
+    nbytes = (2 * b * nq * h * d + 2 * b * nk * h * d) * q.element_size()
+    return (lambda: A.attention(q, k, v), lambda: A.attention_reference(q, k, v),
+            lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                                   v.transpose(1, 2)), ops_s, nbytes)
+
+
+def _gn_case(key, gen):
+    import torch
+    import torch.nn.functional as F
+
+    from image_restoration_and_enhancement_torch.ops import groupnorm as G
+
+    b, hh, ww, c, groups, eps, act, dtype = key
+    x = (torch.randn((b, hh, ww, c), generator=gen, device="cuda") * 2 + 0.5).to(_dtype(dtype))
+    scale = torch.randn((c,), generator=gen, device="cuda") * 0.5 + 1.0
+    bias = torch.randn((c,), generator=gen, device="cuda") * 0.1
+    n = b * hh * ww * c
+    ops_s = (9.0 if act == "silu" else 5.0) * n / PEAK_FLOPS[dtype]
+    nbytes = 2 * n * x.element_size() + 2 * c * 4
+
+    def lib():
+        y = F.group_norm(x.permute(0, 3, 1, 2), groups, scale.to(x.dtype), bias.to(x.dtype), eps)
+        return F.silu(y) if act == "silu" else y
+
+    return (lambda: G.group_norm(x, scale, bias, groups, eps, act),
+            lambda: G.group_norm_reference(x, scale, bias, groups, eps, act), lib, ops_s, nbytes)
+
+
+def _conv_int8_case(key, gen):
+    """K3 on random s8 input and weight and an fp32 scale of realistic size.
+    Yardstick: a bf16 F.conv2d of the same shape (exact bf16, not int8)."""
+    import torch
+    import torch.nn.functional as F
+
+    from image_restoration_and_enhancement_torch.ops import conv_int8 as K3
+
+    b, h, w, c, n, dtype = key
+    dt = _dtype(dtype)
+    x = torch.randint(-127, 128, (b, h + 2, w + 2, c), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, 3, 3, c), generator=gen, device="cuda",
+                       dtype=torch.int8).permute(1, 2, 3, 0)
+    scale = torch.rand((n,), generator=gen, device="cuda") * 1e-5
+    xb = x[:, 1:-1, 1:-1].permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    wb = wq.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    ops_s = 2.0 * b * h * w * n * 9 * c / PEAK_FLOPS["int8"]
+    nbytes = x.numel() + wq.numel() + 4 * n + b * h * w * n * torch.empty((), dtype=dt).element_size()
+    return (lambda: K3.conv3x3_same_int8(x, wq, scale, dt),
+            lambda: K3.conv3x3_same_int8_reference(x, wq, scale, dt),
+            lambda: F.conv2d(xb, wb, padding=1), ops_s, nbytes)
+
+
+def _int8_attention_case(key, gen):
+    """K4 on the s8 Q, K and the scale that smooth_quantize_qk makes of random
+    q, k, and v. Yardstick: bf16 F.scaled_dot_product_attention of the same
+    shape (exact bf16, not int8)."""
+    import torch
+    import torch.nn.functional as F
+
+    from image_restoration_and_enhancement_torch.ops import attention as A
+
+    b, nq, nk, h, d, dtype = key
+    q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda").to(_dtype(dtype))
+               for n in (nq, nk, nk))
+    q8, k8, s = A.smooth_quantize_qk(A._prescale(q), k)
+    pv_peak = PEAK_FLOPS[dtype]
+    ops_s = 2.0 * b * h * nq * nk * d * (1 / PEAK_FLOPS["int8"] + 1 / pv_peak)
+    nbytes = b * h * d * (nq + nk) + (b * nk * h * d + b * nq * h * d) * v.element_size() + 4
+    qb, kb, vb = (t.to(torch.bfloat16).transpose(1, 2) for t in (q, k, v))
+    return (lambda: A.int8_attention_core(q8, k8, v, s),
+            lambda: A.int8_attention_core_reference(q8, k8, v, s),
+            lambda: F.scaled_dot_product_attention(qb, kb, vb), ops_s, nbytes)
+
+
+_CASES = {"attention": _attention_case, "group_norm": _gn_case,
+          "conv3x3_int8": _conv_int8_case, "int8_attention": _int8_attention_case}
+
+
+def phase_kernels(main):
+    """``main``: {(kernel, shape key): launches on the main paths}."""
+    import torch
+
+    from image_restoration_and_enhancement_torch.ops import _build
     from image_restoration_and_enhancement_torch.ops import groupnorm as G
     from image_restoration_and_enhancement_torch.ops import tolerance
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    main = serve["shapes"]
-    extra = [  # cases beside the main path's own shapes
+    extra = [  # cases beside the main paths' own shapes
         ("attention", (1, 256, 77, 8, 40, "torch.float32")),
         ("group_norm", (2, 32, 32, 640, 32, 1e-6, None, "torch.bfloat16")),
         ("group_norm", (2, 16, 16, 1280, 32, 1e-5, None, "torch.float32")),
+        ("conv3x3_int8", (1, 32, 32, 960, 320, "torch.bfloat16")),
+        ("conv3x3_int8", (1, 16, 16, 1920, 640, "torch.bfloat16")),
+        ("conv3x3_int8", (1, 8, 8, 2560, 1280, "torch.bfloat16")),
+        ("conv3x3_int8", (1, 16, 16, 320, 320, "torch.float32")),
+        ("conv3x3_int8", (1, 5, 7, 24, 20, "torch.float32")),
+        ("int8_attention", (1, 4096, 77, 8, 40, "torch.bfloat16")),
+        ("int8_attention", (1, 256, 77, 8, 40, "torch.float32")),
+        ("int8_attention", (1, 1024, 1024, 8, 80, "torch.float32")),
+        ("int8_attention", (1, 64, 77, 8, 160, "torch.float32")),
     ]
     cases = [(k, key, main.get((k, key), 0)) for (k, key) in sorted(main, key=str)]
     cases += [(k, key, 0) for k, key in extra if (k, key) not in main]
     with _Phase("kernels"):
         for kernel, key, count in cases:
-            if kernel == "attention":
-                args, flops, nbytes, dtype = _attention_case(key, gen)
-                q, k, v = args
-                run = lambda: A.attention(q, k, v)  # noqa: E731
-                plain = lambda: A.attention_reference(q, k, v)  # noqa: E731
-                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
-            else:
-                args, flops, nbytes, dtype = _gn_case(key, gen)
-                x, scale, bias, groups, eps, act = args
-                run = lambda: G.group_norm(x, scale, bias, groups, eps, act)  # noqa: E731
-                plain = lambda: G.group_norm_reference(  # noqa: E731
-                    x, scale, bias, groups, eps, act)
-
-                def lib():
-                    y = F.group_norm(x.permute(0, 3, 1, 2), groups, scale.to(x.dtype),
-                                     bias.to(x.dtype), eps)
-                    return F.silu(y) if act == "silu" else y
+            run, plain, lib, ops_s, nbytes = _CASES[kernel](key, gen)
             with torch.inference_mode():
+                before = _build.launch_counts[kernel]
                 got, ref = run(), plain()
                 torch.cuda.synchronize()
+                if _build.launch_counts[kernel] != before + 1:
+                    raise AssertionError(f"{kernel} {key}: the wrapper did not launch its kernel")
                 tol = tolerance.limits(ref, kernel)
                 ok, err = tolerance.within(got, ref, kernel)
-                iters = 5 if flops > 2e10 else 20
+                iters = 5 if ops_s > 2e-5 else 20
                 ms, plain_ms, lib_ms = (_time_ms(f, iters) for f in (run, plain, lib))
-            bound = max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES) * 1e3
-            bound_by = "operations" if flops / PEAK_FLOPS[dtype] > nbytes / PEAK_BYTES \
-                else "bytes"
+            bound = max(ops_s, nbytes / PEAK_BYTES) * 1e3
+            bound_by = "operations" if ops_s > nbytes / PEAK_BYTES else "bytes"
             row = {"kernel": kernel, "shape": list(key), "main_path_launches": count,
                    "max_abs_err": err, "atol_rtol": list(tol), "ms": ms, "plain_ms": plain_ms,
                    "library_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by}
@@ -363,6 +784,7 @@ def phase_kernels(serve):
             if not ok:
                 raise AssertionError(f"{kernel} {key} disagrees with its plain version: "
                                      f"max abs err {err}")
+            del run, plain, lib, got, ref
 
         # Large-mean GroupNorm: E[x^2]-E[x]^2 cancels in fp32 in both versions
         # (by design), so only finiteness is checked here.
@@ -376,26 +798,43 @@ def phase_kernels(serve):
     return rows
 
 
-def _kernel_line(rows, launches):
-    sources = {
-        "attention": ("image_restoration_and_enhancement_torch/csrc/attention.cu",
-                      "image_restoration_and_enhancement_tpu/ops/attention.py:80"),
-        "group_norm": ("image_restoration_and_enhancement_torch/csrc/groupnorm.cu",
-                       "image_restoration_and_enhancement_tpu/ops/groupnorm.py:36"),
-    }
+_SOURCES = {
+    "attention": ("image_restoration_and_enhancement_torch/csrc/attention.cu",
+                  "image_restoration_and_enhancement_tpu/ops/attention.py:80"),
+    "group_norm": ("image_restoration_and_enhancement_torch/csrc/groupnorm.cu",
+                   "image_restoration_and_enhancement_tpu/ops/groupnorm.py:36"),
+    "conv3x3_int8": ("image_restoration_and_enhancement_torch/csrc/conv_int8.cu",
+                     "image_restoration_and_enhancement_tpu/ops/conv_int8.py:47"),
+    "int8_attention": ("image_restoration_and_enhancement_torch/csrc/int8_attention.cu",
+                       "image_restoration_and_enhancement_tpu/ops/attention.py:511"),
+}
+
+
+def _kernel_line(rows, paths):
+    """Per kernel: its launches on the main paths, and kernel / plain / bound /
+    library times summed over those launches (each shape's time x its
+    launches), for all paths together and under ``by_path`` for each.
+    ``paths``: {path: {(kernel, shape key): launches}}."""
+    def totals(name, counts):
+        mine = [(r, counts.get((name, tuple(r["shape"])), 0)) for r in rows
+                if r["kernel"] == name]
+        total = lambda key: sum(r[key] * n for r, n in mine)  # noqa: E731
+        ops_bound = sum(r["bound_ms"] * n for r, n in mine if r["bound_by"] == "operations")
+        return {"launches": sum(n for _, n in mine), "ms": total("ms"),
+                "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+                "bound_by": "operations" if ops_bound > total("bound_ms") / 2 else "bytes",
+                "library_ms": total("library_ms")}
+
+    everything = collections.Counter()
+    for counts in paths.values():
+        everything.update(counts)
     out = []
-    for name, (source, replaces) in sources.items():
-        mine = [r for r in rows if r["kernel"] == name and r["main_path_launches"]]
-        total = lambda key: sum(r[key] * r["main_path_launches"] for r in mine)  # noqa: E731
-        ops_bound = sum(r["bound_ms"] * r["main_path_launches"] for r in mine
-                        if r["bound_by"] == "operations")
+    for name, (source, replaces) in _SOURCES.items():
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches.get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rows if r["kernel"] == name),
-            "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
-            "bound_by": "operations" if ops_bound > total("bound_ms") / 2 else "bytes",
-            "library_ms": total("library_ms"),
+            **totals(name, everything),
+            "by_path": {path: totals(name, counts) for path, counts in paths.items()},
         })
     return {"kernels": out}
 
@@ -423,11 +862,26 @@ def main() -> int:
 
     phase_build()
     phase_parity()
-    serve = phase_serve()
-    rows = phase_kernels(serve)
+    tmp = tempfile.mkdtemp(prefix="iret_smoke_")
+    try:
+        serve = phase_serve(tmp)
+        serve8 = phase_serve_int8(tmp, serve)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    paths = {"serve": serve["shapes"], "serve_int8": serve8["shapes"]}
+    main_shapes = collections.Counter()
+    for counts in paths.values():
+        main_shapes.update(counts)
+    rows = phase_kernels(dict(main_shapes))
+    line = _kernel_line(rows, paths)
+    for k in line["kernels"]:
+        counted = sum(p.get(k["name"], 0) for p in (serve["launches"], serve8["launches"]))
+        if k["launches"] != counted:
+            raise AssertionError(f"{k['name']}: {k['launches']} launches by shape, {counted} "
+                                 "by count")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
-    print(json.dumps(_kernel_line(rows, serve["launches"])))
+    print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

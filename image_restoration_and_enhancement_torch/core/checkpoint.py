@@ -122,6 +122,18 @@ def _torch_module_name(flax_prefix: str) -> str:
     return name
 
 
+def flax_module_path(torch_name: str) -> str:
+    """A module's dotted name in the port -> its flax module path (the inverse
+    of ``_torch_module_name``): ``down_blocks.0.attentions.0.proj_in`` ->
+    ``down_blocks_0/attentions_0/proj_in``, ``...to_out.0`` -> ``.../to_out``,
+    ``ff.net.0.proj`` -> ``ff/proj_in``, ``ff.net.2`` -> ``ff/proj_out``."""
+    mod = torch_name
+    if mod.endswith("to_out.0"):
+        mod = mod[: -len(".0")]
+    mod = mod.replace("ff.net.0.proj", "ff.proj_in").replace("ff.net.2", "ff.proj_out")
+    return _DOTTED.sub(r"\1_\2", mod).replace(".", "/")
+
+
 def params_from_flax(flat: Mapping[str, TensorLike]) -> Dict[str, torch.Tensor]:
     """Flax-path params of one component -> the port's state dict.
 
@@ -159,10 +171,7 @@ def flax_from_params(state: Mapping[str, torch.Tensor], norm_modules=()) -> Dict
             out["position_embedding"] = t
             continue
         mod, _, leaf = name.rpartition(".")
-        if mod.endswith("to_out.0"):
-            mod = mod[: -len(".0")]
-        mod = mod.replace("ff.net.0.proj", "ff.proj_in").replace("ff.net.2", "ff.proj_out")
-        path = _DOTTED.sub(r"\1_\2", mod).replace(".", "/")
+        path = flax_module_path(mod)
         if leaf == "bias":
             out[f"{path}/bias"] = t
         elif mod == "token_embedding":

@@ -11,33 +11,42 @@ and add_noise noise inside the function from ``jax.random.split(key)``; here
 the caller passes a ``torch.Generator`` or, for parity tests, both noise
 tensors. Images and latents are NHWC, as in the JAX package.
 
+Int8 serving: ``SDModules.set_quant`` hands a ``QuantState`` (``ops/quant.py``)
+to the UNet's and VAE's quantized layers; ``make_calib_img2img_fn`` runs the
+img2img function under dynamic int8 and returns the per-site activation absmax
+that mode ``"int8_static"`` loads as its table.
+
 Not ported yet: the CFG cache (``cfg_cache_interval``), the CFG prefix dedup,
 the interleaved CFG layout, SDXL conditioning and the inpaint loop.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..config import SDModelConfig
 from ..device import DeviceLike, resolve_device
 from ..models.clip_text import CLIPTextModel
+from ..models import layers
 from ..models.layers import CL
 from ..models.unet import UNet2DCondition
 from ..models.vae import AutoencoderKL
+from ..ops import quant
 from . import schedulers as sched
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass
 class SDModules:
-    """The modules of one SD stack, on one device and in one dtype."""
+    """The modules of one SD stack, on one device and in one dtype, and the
+    quantization state their quantized layers follow (None: full precision)."""
 
     config: SDModelConfig
     unet: UNet2DCondition
     vae: AutoencoderKL
     text_encoder: CLIPTextModel
+    quant: Optional[quant.QuantState] = None
 
     @property
     def device(self) -> torch.device:
@@ -46,16 +55,27 @@ class SDModules:
     def components(self):
         return {"unet": self.unet, "vae": self.vae, "text_encoder": self.text_encoder}
 
+    def set_quant(self, state: Optional[quant.QuantState]) -> None:
+        """Serve the UNet and VAE under ``state`` (the CLIP text encoder stays
+        full precision, as in the JAX package). An active mode quantizes every
+        weight now, once; the bf16 parameters are left as they are."""
+        self.quant = state
+        for module in (self.unet, self.vae):
+            layers.set_quant(module, state)
+
     @classmethod
     def create(cls, config: SDModelConfig, dtype: torch.dtype = torch.bfloat16,
-               device: DeviceLike = None) -> "SDModules":
+               device: DeviceLike = None,
+               attention_backend: Optional[str] = None) -> "SDModules":
         """Allocate the stack on ``device`` (``cuda`` unless ``"cpu"`` is asked for)
-        with uninitialised weights: load a state dict or call ``init_random_``."""
+        with uninitialised weights: load a state dict or call ``init_random_``.
+        ``attention_backend`` reaches every UNet attention site
+        (``ops/attention.py``); the VAE's attention is always exact."""
         if config.text_encoder_2 is not None:
             raise NotImplementedError("SDXL stacks are ROADMAP item M13, not ported yet")
         dev = resolve_device(device)
         with torch.device("meta"):
-            unet = UNet2DCondition(config.unet).to(dtype, memory_format=CL)
+            unet = UNet2DCondition(config.unet, attention_backend).to(dtype, memory_format=CL)
             vae = AutoencoderKL(config.vae).to(dtype, memory_format=CL)
             te = CLIPTextModel(config.text_encoder).to(dtype)
         return cls(config, *(m.to_empty(device=dev).eval() for m in (unet, vae, te)))
@@ -128,6 +148,18 @@ def latent_shape(modules: SDModules, image_shape) -> Tuple[int, int, int, int]:
     return (b, h // f, w // f, modules.config.vae.latent_channels)
 
 
+def _noise(modules: SDModules, image: torch.Tensor, generator: Optional[torch.Generator],
+           noise: Optional[Tuple[torch.Tensor, torch.Tensor]]):
+    """(posterior noise, add_noise noise): the given pair on the modules' device,
+    or both drawn (fp32, standard normal, posterior first) from ``generator``."""
+    dev = modules.device
+    if noise is None:
+        shape = latent_shape(modules, image.shape)
+        noise = tuple(torch.randn(shape, generator=generator, device=dev,
+                                  dtype=torch.float32) for _ in range(2))
+    return tuple(n.to(dev, torch.float32) for n in noise)
+
+
 def make_img2img_fn(modules: SDModules, num_inference_steps: int, strength: float,
                     guidance_scale: float, sampler: str = "plms") -> Callable:
     """Build fn(image, prompt_ctx, uncond_ctx, generator=None, noise=None) -> image.
@@ -147,11 +179,7 @@ def make_img2img_fn(modules: SDModules, num_inference_steps: int, strength: floa
            noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
         dev = modules.device
         image = image.to(dev)
-        if noise is None:
-            shape = latent_shape(modules, image.shape)
-            noise = tuple(torch.randn(shape, generator=generator, device=dev,
-                                      dtype=torch.float32) for _ in range(2))
-        enc_noise, step_noise = (n.to(dev, torch.float32) for n in noise)
+        enc_noise, step_noise = _noise(modules, image, generator, noise)
         latents0 = encode_image(modules, image, enc_noise)
         ac = sched.alphas_cumprod_tensor(cfg, dev)
         latents = sched.add_noise(ac, latents0, step_noise, plan.init_timestep)
@@ -159,5 +187,38 @@ def make_img2img_fn(modules: SDModules, num_inference_steps: int, strength: floa
                                 None if uncond_ctx is None else uncond_ctx.to(dev),
                                 plan, guidance_scale, sampler)
         return decode_latents(modules, latents)
+
+    return fn
+
+
+def make_calib_img2img_fn(modules: SDModules, num_inference_steps: int, strength: float,
+                          guidance_scale: float, sampler: str = "plms") -> Callable:
+    """Calibration twin of ``make_img2img_fn`` for the int8_static mode.
+
+    Builds fn(image, prompt_ctx, uncond_ctx, generator=None, noise=None) ->
+    (image, {site: activation absmax}): the same img2img run under dynamic
+    int8 quantization, with the absmax of every quantized conv and Linear
+    input maxed over the VAE encode, every UNet call and the VAE decode.
+    Take the elementwise max over several inputs and load the result as the
+    ``QuantState`` table of mode "int8_static". The modules' own state is put
+    back when fn returns.
+    """
+    img2img = make_img2img_fn(modules, num_inference_steps, strength, guidance_scale, sampler)
+
+    def fn(image: torch.Tensor, prompt_ctx: torch.Tensor, uncond_ctx: Optional[torch.Tensor],
+           generator: Optional[torch.Generator] = None,
+           noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+           ) -> Tuple[torch.Tensor, Dict[str, float]]:
+        prev = modules.quant
+        state = quant.QuantState("int8")
+        modules.set_quant(state)
+        try:
+            with state.collect() as stats:
+                out = img2img(image, prompt_ctx, uncond_ctx, generator, noise)
+        finally:
+            modules.set_quant(prev)
+        names = sorted(stats)
+        values = torch.stack([stats[n] for n in names]).tolist() if names else []
+        return out, dict(zip(names, values))
 
     return fn

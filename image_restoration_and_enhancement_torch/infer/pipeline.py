@@ -16,12 +16,20 @@ Differences from the JAX pipeline:
   or the size is off the 64-px buckets (LANCZOS resizing); cv2 only when a
   fallback runs.
 - ``device`` replaces the JAX device: ``cuda`` unless ``"cpu"`` is asked for.
-- the super-resolution, colorize and inpaint tasks, quantized serving, ToMe,
-  the CFG cache and mesh serving are not ported yet (see ROADMAP.md).
+- quantized serving (``quant="int8"`` or ``"int8_static"`` with
+  ``quant_calib``, ``attention_backend="int8"``) keeps its mode and table in
+  a ``QuantState`` owned by this pipeline and handed to its models, not in a
+  process-global read at trace time; ``quant=None`` reads ``IRET_QUANT`` once,
+  here. Under ``IRET_QUANT_STRICT`` a request that reached a site missing
+  from the table raises ``StrictQuantError`` (never served by a fallback).
+- the super-resolution, colorize and inpaint tasks, ToMe, the CFG cache and
+  mesh serving, and the attention backends ``"flash"`` and
+  ``"pallas_packed"``, are not ported yet (see ROADMAP.md).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import os
 from typing import Any, Dict, List, Optional, Tuple
@@ -34,13 +42,29 @@ from ..core import checkpoint as ckpt
 from ..core import sampling
 from ..device import DeviceLike, resolve_device
 from ..models.tokenizer import load_tokenizer
+from ..ops import quant as quant_ops
 from ..ops._build import KernelError
+from ..ops.attention import check_backend
 from ..tasks.registry import ALIASES, TASKS, get_task
 from . import fallbacks
 
 logger = logging.getLogger(__name__)
 
 DEFAULT_MODEL_ROOT = "outputs/models"
+
+
+class StrictQuantError(RuntimeError):
+    """Raised under IRET_QUANT_STRICT=1 when int8_static serving reached a site
+    missing from its calibration table. Never caught by the per-task fallback:
+    strict mode exists to fail loudly."""
+
+
+def load_quant_table(path: str) -> Dict[str, float]:
+    """A calibration JSON: ``{"sites": {site: absmax}, ...}`` (as written by
+    ``calibrate_quant``) or a flat ``{site: absmax}``."""
+    with open(path) as f:
+        loaded = json.load(f)
+    return loaded.get("sites", loaded)
 
 
 def _is_pil(image) -> bool:
@@ -87,8 +111,20 @@ class RestorationPipeline:
         dtype: torch.dtype = torch.bfloat16,
         max_size: int = 1024,
         device: DeviceLike = None,
+        attention_backend: Optional[str] = None,
+        quant: Optional[str] = None,
+        quant_calib: Optional[str] = None,
     ):
         self.device = resolve_device(device)
+        check_backend(attention_backend)
+        self.attention_backend = attention_backend
+        # quant=None defers to IRET_QUANT; "int8" = dynamic w8a8, "int8_static"
+        # = calibrated scales from quant_calib (a site missing from the table
+        # is quantized dynamically and reported, see _check_static_misses).
+        self.quant = quant_ops.QuantState(
+            quant_ops.mode_from_env(quant),
+            load_quant_table(quant_calib) if quant_calib else {})
+        self._warned_misses: set = set()
         self.seed = seed
         self.dtype = dtype
         self.max_size = max_size
@@ -174,12 +210,15 @@ class RestorationPipeline:
         if mc is not None:
             spec = dataclasses.replace(spec, model_config=mc)
         modules = sampling.SDModules.create(spec.model_config, dtype=self.dtype,
-                                            device=self.device)
+                                            device=self.device,
+                                            attention_backend=self.attention_backend)
         params = ckpt.load_pipeline(src_dir)
         for comp, module in modules.components().items():
             if comp not in params:
                 raise FileNotFoundError(f"{src_dir} has no {comp} weights")
             module.load_state_dict(ckpt.params_from_flax(params.pop(comp)), strict=True)
+        if self.quant.active:
+            modules.set_quant(self.quant)
         tokenizer = load_tokenizer(src_dir, vocab_size=spec.model_config.text_encoder.vocab_size)
         stack = {"modules": modules, "tokenizer": tokenizer, "spec": spec}
         self._stacks[task_name] = stack
@@ -218,15 +257,36 @@ class RestorationPipeline:
         fn = self._sampler_fn(stack, steps, strength, gs, sampler)
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
         out = fn(x, ctx, uncond, generator=gen)[0].cpu().numpy()
+        self._check_static_misses()
         out_u8 = ((out + 1.0) * 127.5).clip(0, 255).astype(np.uint8)
         if (bh, bw) != (h, w):
             out_u8 = _resize_lanczos(out_u8, (h, w))
         return out_u8
 
+    def _check_static_misses(self) -> None:
+        """Calibration/serving drift detector: under int8_static a quantized site
+        missing from the table is quantized dynamically: correct, but off the
+        calibrated path. Warns once per site; IRET_QUANT_STRICT=1 raises on
+        every request that reached such a site."""
+        if self.quant.mode != "int8_static":
+            return
+        new = self.quant.misses - self._warned_misses
+        if not new:
+            return
+        msg = (f"int8_static: {len(new)} quantized site(s) missing from the "
+               f"calibration table fell back to dynamic quantization (stale or "
+               f"mismatched calib JSON?), e.g. {sorted(new)[:3]}")
+        if os.environ.get("IRET_QUANT_STRICT"):
+            raise StrictQuantError(msg)
+        self._warned_misses |= new
+        logger.warning(msg)
+
     def _fallback_allowed(self, err: Exception) -> bool:
         """Whether a failed SD run may be served by the classical fallback:
-        only on a CPU pipeline, and never for a kernel failure."""
-        return self.device.type == "cpu" and not isinstance(err, KernelError)
+        only on a CPU pipeline, never for a kernel failure or a strict-mode
+        calibration miss."""
+        return self.device.type == "cpu" and not isinstance(err, (KernelError,
+                                                                  StrictQuantError))
 
     # ------------------------------------------------------------------
     # per-task methods

@@ -9,6 +9,16 @@ Layout: 2-D blocks take and return NCHW-shaped tensors kept in the
 3, 1)`` is then a contiguous NHWC view, so the NHWC GroupNorm kernel and the
 token reshape of Transformer2D cost no copy.
 
+Quantized layers: ``QConv2d`` and ``QLinear`` are ``nn.Conv2d`` and
+``nn.Linear`` with the same parameters, used exactly where the JAX blocks use
+``QConv`` and ``QDense``; each carries ``site``, its JAX flax module path. With
+no quantization state, or one whose mode is None, they are the plain layers.
+Under mode ``"int8"``/``"int8_static"`` (``ops/quant.py``) they compute w8a8
+with exact int32 sums: a 3x3 stride-1 conv through ``conv3x3_same_int8`` (K3
+on the card), every other conv and Linear through ``quant.int_matmul``. The s8
+weights and scales are made once and cached on the layer (not in its
+``state_dict``), and made again if the weight changes.
+
 Numerics kept from the JAX blocks:
 - GEGLU gates with the tanh-approximated GELU (flax ``nn.gelu`` default), not
   diffusers' erf GELU.
@@ -18,13 +28,16 @@ Numerics kept from the JAX blocks:
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..core.checkpoint import flax_module_path
+from ..ops import quant
 from ..ops.attention import attention
+from ..ops.conv_int8 import conv3x3_same_int8
 from ..ops.groupnorm import group_norm
 
 CL = torch.channels_last
@@ -38,6 +51,90 @@ def to_nhwc(x: torch.Tensor) -> torch.Tensor:
 def from_nhwc(x: torch.Tensor) -> torch.Tensor:
     """Contiguous NHWC -> NCHW-shaped channels_last view."""
     return x.permute(0, 3, 1, 2)
+
+
+class _Quantized:
+    """What QConv2d and QLinear share: the state, the site, the s8 weight cache."""
+
+    site: Optional[str] = None
+    quant: Optional[quant.QuantState] = None
+    _wq: Optional[tuple] = None
+
+    def set_quant(self, state: Optional[quant.QuantState]) -> None:
+        self.quant = state
+        if state is not None and state.active:
+            self.quantized_weight()
+
+    def quantized_weight(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(s8 weight, fp32 scale [O]): OHWI for a conv, [O, I] for a Linear."""
+        w = self.weight
+        key = (w.data_ptr(), w._version, w.device)
+        if self._wq is None or self._wq[0] != key:
+            wq, s = quant.quantize_weight_out_channel(w)
+            if wq.dim() == 4:
+                wq = wq.permute(0, 2, 3, 1).contiguous()
+            self._wq = (key, wq, s)
+        return self._wq[1], self._wq[2]
+
+    def _quantized(self) -> bool:
+        return self.quant is not None and self.quant.active
+
+    def _add_bias(self, y: torch.Tensor) -> torch.Tensor:
+        """y (channels last) + bias, added in y's dtype as flax adds it."""
+        return y if self.bias is None else y + self.bias.to(y.dtype)
+
+
+class QLinear(_Quantized, nn.Linear):
+    """``nn.Linear`` that runs w8a8 under an active quantization state."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self._quantized():
+            return super().forward(x)
+        xq, sx = self.quant.quantize_activation(x, self.site)
+        wq, sw = self.quantized_weight()
+        acc = quant.int_matmul(xq.reshape(-1, xq.shape[-1]), wq.t())
+        y = quant.dequantize(acc, sx, sw, x.dtype).view(*x.shape[:-1], -1)
+        return self._add_bias(y)
+
+
+class QConv2d(_Quantized, nn.Conv2d):
+    """``nn.Conv2d`` that runs w8a8 under an active quantization state."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self._quantized():
+            return super().forward(x)
+        if self.groups != 1 or self.dilation != (1, 1) or self.padding_mode != "zeros":
+            raise NotImplementedError("int8 convs take groups=1, no dilation, zero padding")
+        xq, sx = self.quant.quantize_activation(to_nhwc(x), self.site)
+        wq, sw = self.quantized_weight()
+        (kh, kw), (sh, sw_), (ph, pw) = self.kernel_size, self.stride, self.padding
+        if (kh, kw, sh, sw_, ph, pw) == (3, 3, 1, 1, 1, 1):
+            y = conv3x3_same_int8(F.pad(xq, (0, 0, 1, 1, 1, 1)), wq.permute(1, 2, 3, 0),
+                                  sw * sx, out_dtype=x.dtype)
+        else:
+            b, h, w, c = xq.shape
+            xp = F.pad(xq, (0, 0, pw, pw, ph, ph))
+            ho, wo = (h + 2 * ph - kh) // sh + 1, (w + 2 * pw - kw) // sw_ + 1
+            taps = [xp[:, dy:dy + sh * (ho - 1) + 1:sh, dx:dx + sw_ * (wo - 1) + 1:sw_, :]
+                    for dy in range(kh) for dx in range(kw)]
+            cols = torch.cat(taps, dim=-1).view(b * ho * wo, -1)
+            acc = quant.int_matmul(cols, wq.reshape(wq.shape[0], -1).t())
+            y = quant.dequantize(acc, sx, sw, x.dtype).view(b, ho, wo, -1)
+        return from_nhwc(self._add_bias(y))
+
+
+def set_quant(root: nn.Module, state: Optional[quant.QuantState]) -> None:
+    """Hand ``state`` to every quantized layer under ``root`` (None: plain)."""
+    for m in root.modules():
+        if isinstance(m, _Quantized):
+            m.set_quant(state)
+
+
+def assign_sites(root: nn.Module) -> None:
+    """Give every quantized layer under ``root`` its flax module path as site."""
+    for name, m in root.named_modules():
+        if isinstance(m, _Quantized):
+            m.site = flax_module_path(name)
 
 
 class FusedGroupNorm(nn.Module):
@@ -107,14 +204,14 @@ class ResnetBlock2D(nn.Module):
                  eps: float = 1e-5, temb_channels: Optional[int] = None):
         super().__init__()
         self.norm1 = FusedGroupNorm(in_channels, groups, eps, act="silu")
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.conv1 = QConv2d(in_channels, out_channels, 3, padding=1)
         self.time_emb_proj = (
             nn.Linear(temb_channels, out_channels) if temb_channels else None
         )
         self.norm2 = FusedGroupNorm(out_channels, groups, eps, act="silu")
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv2 = QConv2d(out_channels, out_channels, 3, padding=1)
         self.conv_shortcut = (
-            nn.Conv2d(in_channels, out_channels, 1) if in_channels != out_channels else None
+            QConv2d(in_channels, out_channels, 1) if in_channels != out_channels else None
         )
 
     def forward(self, x: torch.Tensor, t_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -129,7 +226,7 @@ class ResnetBlock2D(nn.Module):
 class Downsample2D(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+        self.conv = QConv2d(channels, channels, 3, stride=2, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)
@@ -140,7 +237,7 @@ class Upsample2D(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        self.conv = QConv2d(channels, channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.interpolate(x, scale_factor=2.0, mode="nearest")
@@ -148,17 +245,19 @@ class Upsample2D(nn.Module):
 
 
 class CrossAttention(nn.Module):
-    """Multi-head attention over tokens [B, N, C]; self-attention when context is None."""
+    """Multi-head attention over tokens [B, N, C]; self-attention when context is None.
+    ``attention_backend`` selects the attention function (``ops/attention.py``)."""
 
     def __init__(self, query_dim: int, heads: int, head_dim: int,
-                 context_dim: Optional[int] = None):
+                 context_dim: Optional[int] = None, attention_backend: Optional[str] = None):
         super().__init__()
         inner = heads * head_dim
         self.heads, self.head_dim = heads, head_dim
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(context_dim or query_dim, inner, bias=False)
-        self.to_v = nn.Linear(context_dim or query_dim, inner, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+        self.attention_backend = attention_backend
+        self.to_q = QLinear(query_dim, inner, bias=False)
+        self.to_k = QLinear(context_dim or query_dim, inner, bias=False)
+        self.to_v = QLinear(context_dim or query_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([QLinear(inner, query_dim)])
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
         ctx = x if context is None else context
@@ -167,14 +266,14 @@ class CrossAttention(nn.Module):
         q = self.to_q(x).view(b, nq, self.heads, self.head_dim)
         k = self.to_k(ctx).view(b, nk, self.heads, self.head_dim)
         v = self.to_v(ctx).view(b, nk, self.heads, self.head_dim)
-        o = attention(q, k, v).reshape(b, nq, self.heads * self.head_dim)
+        o = attention(q, k, v, self.attention_backend).reshape(b, nq, self.heads * self.head_dim)
         return self.to_out[0](o)
 
 
 class GEGLU(nn.Module):
     def __init__(self, dim: int, inner: int):
         super().__init__()
-        self.proj = nn.Linear(dim, inner * 2)
+        self.proj = QLinear(dim, inner * 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, gate = self.proj(x).chunk(2, dim=-1)
@@ -187,7 +286,7 @@ class GEGLUFeedForward(nn.Module):
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         inner = dim * mult
-        self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(), nn.Linear(inner, dim)])
+        self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(), QLinear(inner, dim)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.net:
@@ -198,12 +297,13 @@ class GEGLUFeedForward(nn.Module):
 class BasicTransformerBlock(nn.Module):
     """LN -> self-attn, LN -> cross-attn, LN -> GEGLU FF, all residual."""
 
-    def __init__(self, dim: int, heads: int, head_dim: int, context_dim: int):
+    def __init__(self, dim: int, heads: int, head_dim: int, context_dim: int,
+                 attention_backend: Optional[str] = None):
         super().__init__()
         self.norm1 = FusedLayerNorm(dim)
-        self.attn1 = CrossAttention(dim, heads, head_dim)
+        self.attn1 = CrossAttention(dim, heads, head_dim, None, attention_backend)
         self.norm2 = FusedLayerNorm(dim)
-        self.attn2 = CrossAttention(dim, heads, head_dim, context_dim)
+        self.attn2 = CrossAttention(dim, heads, head_dim, context_dim, attention_backend)
         self.norm3 = FusedLayerNorm(dim)
         self.ff = GEGLUFeedForward(dim)
 
@@ -218,14 +318,15 @@ class Transformer2D(nn.Module):
     residual (the SD-1.5 form; the SDXL linear projection is not ported yet)."""
 
     def __init__(self, channels: int, heads: int, head_dim: int, context_dim: int,
-                 depth: int = 1, groups: int = 32):
+                 depth: int = 1, groups: int = 32, attention_backend: Optional[str] = None):
         super().__init__()
         self.norm = FusedGroupNorm(channels, groups, eps=1e-6)
-        self.proj_in = nn.Conv2d(channels, channels, 1)
+        self.proj_in = QConv2d(channels, channels, 1)
         self.transformer_blocks = nn.ModuleList(
-            BasicTransformerBlock(channels, heads, head_dim, context_dim) for _ in range(depth)
+            BasicTransformerBlock(channels, heads, head_dim, context_dim, attention_backend)
+            for _ in range(depth)
         )
-        self.proj_out = nn.Conv2d(channels, channels, 1)
+        self.proj_out = QConv2d(channels, channels, 1)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape

@@ -3,12 +3,15 @@
 Counterpart of the JAX package's ``models/unet.py`` (859,520,964 parameters at
 the SD15 preset). ``forward`` takes and returns NHWC tensors like the JAX
 module; inside, activations are NCHW-shaped in the channels_last format (see
-``layers.py``). The output is fp32. The SDXL ``text_time`` conditioning, the
-linear-projection transformer and the CFG prefix dedup are not ported yet.
+``layers.py``). The output is fp32. ``attention_backend`` reaches every
+cross-attention site, as in the JAX module; the quantized layers carry their
+flax paths as sites (``layers.assign_sites``). The SDXL ``text_time``
+conditioning, the linear-projection transformer and the CFG prefix dedup are
+not ported yet.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 import torch.nn as nn
@@ -21,6 +24,7 @@ from .layers import (
     TimestepEmbedding,
     Transformer2D,
     Upsample2D,
+    assign_sites,
     from_nhwc,
     timestep_embedding,
     to_nhwc,
@@ -29,7 +33,7 @@ from .layers import (
 
 class CrossAttnDownBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, cfg: UNetConfig, level: int,
-                 add_downsample: bool):
+                 add_downsample: bool, attention_backend: Optional[str] = None):
         super().__init__()
         n, temb = cfg.layers_per_block, cfg.time_embed_dim
         self.resnets = nn.ModuleList(
@@ -41,7 +45,7 @@ class CrossAttnDownBlock(nn.Module):
         self.attentions = nn.ModuleList(
             Transformer2D(out_channels, heads, out_channels // heads,
                           cfg.cross_attention_dim, cfg.tx_depth_at(level),
-                          cfg.norm_num_groups)
+                          cfg.norm_num_groups, attention_backend)
             for _ in range(n)
         ) if cfg.attn_levels[level] else None
         self.downsamplers = (
@@ -61,7 +65,7 @@ class CrossAttnDownBlock(nn.Module):
 
 
 class UNetMidBlock(nn.Module):
-    def __init__(self, channels: int, cfg: UNetConfig):
+    def __init__(self, channels: int, cfg: UNetConfig, attention_backend: Optional[str] = None):
         super().__init__()
         level = len(cfg.block_out_channels) - 1
         heads = cfg.heads_at(level)
@@ -72,7 +76,7 @@ class UNetMidBlock(nn.Module):
         )
         self.attentions = nn.ModuleList([
             Transformer2D(channels, heads, channels // heads, cfg.cross_attention_dim,
-                          cfg.tx_depth_at(level), cfg.norm_num_groups)
+                          cfg.tx_depth_at(level), cfg.norm_num_groups, attention_backend)
         ])
 
     def forward(self, x, t_emb, context):
@@ -83,7 +87,8 @@ class UNetMidBlock(nn.Module):
 
 class CrossAttnUpBlock(nn.Module):
     def __init__(self, in_channels: int, skip_channels: List[int], out_channels: int,
-                 cfg: UNetConfig, level: int, add_upsample: bool):
+                 cfg: UNetConfig, level: int, add_upsample: bool,
+                 attention_backend: Optional[str] = None):
         super().__init__()
         temb = cfg.time_embed_dim
         chans = [in_channels] + [out_channels] * (len(skip_channels) - 1)
@@ -95,7 +100,7 @@ class CrossAttnUpBlock(nn.Module):
         self.attentions = nn.ModuleList(
             Transformer2D(out_channels, heads, out_channels // heads,
                           cfg.cross_attention_dim, cfg.tx_depth_at(level),
-                          cfg.norm_num_groups)
+                          cfg.norm_num_groups, attention_backend)
             for _ in skip_channels
         ) if cfg.attn_levels[level] else None
         self.upsamplers = nn.ModuleList([Upsample2D(out_channels)]) if add_upsample else None
@@ -117,7 +122,7 @@ class UNet2DCondition(nn.Module):
       -> eps [B, H, W, Cout] in fp32.
     """
 
-    def __init__(self, config: UNetConfig):
+    def __init__(self, config: UNetConfig, attention_backend: Optional[str] = None):
         super().__init__()
         if config.addition_embed_type is not None or config.use_linear_projection:
             raise NotImplementedError(
@@ -135,10 +140,11 @@ class UNet2DCondition(nn.Module):
         prev = ch[0]
         for i, out_ch in enumerate(ch):
             self.down_blocks.append(
-                CrossAttnDownBlock(prev, out_ch, cfg, i, add_downsample=i < n_levels - 1))
+                CrossAttnDownBlock(prev, out_ch, cfg, i, add_downsample=i < n_levels - 1,
+                                   attention_backend=attention_backend))
             skip_ch += [out_ch] * (cfg.layers_per_block + (1 if i < n_levels - 1 else 0))
             prev = out_ch
-        self.mid_block = UNetMidBlock(ch[-1], cfg)
+        self.mid_block = UNetMidBlock(ch[-1], cfg, attention_backend)
 
         self.up_blocks = nn.ModuleList()
         n_up = cfg.layers_per_block + 1
@@ -147,11 +153,13 @@ class UNet2DCondition(nn.Module):
             blk_skips = list(reversed(skip_ch[-n_up:]))
             del skip_ch[-n_up:]
             self.up_blocks.append(CrossAttnUpBlock(
-                prev, blk_skips, out_ch, cfg, level, add_upsample=i < n_levels - 1))
+                prev, blk_skips, out_ch, cfg, level, add_upsample=i < n_levels - 1,
+                attention_backend=attention_backend))
             prev = out_ch
         self.conv_norm_out = FusedGroupNorm(ch[0], cfg.norm_num_groups, cfg.norm_eps,
                                             act="silu")
         self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, padding=1)
+        assign_sites(self)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor) -> torch.Tensor:

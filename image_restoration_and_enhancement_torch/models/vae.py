@@ -4,7 +4,10 @@ Counterpart of the JAX package's ``models/vae.py``: the diffusers encoder and
 decoder with an asymmetric (0, 1)-pad VALID stride-2 downsample, quant convs,
 logvar clipped to [-30, 20], and GroupNorm eps 1e-6 throughout. ``encode`` and
 ``decode`` take and return NHWC tensors like the JAX module; scaling by
-``scaling_factor`` is the caller's job.
+``scaling_factor`` is the caller's job. The resnet convs and upsamplers are
+quantized layers (sites ``encoder/...``, ``decoder/...``); the IO convs, the
+asymmetric downsample, the quant convs and the mid-block attention stay full
+precision, as in the JAX module.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from .layers import (
     ResnetBlock2D,
     Upsample2D,
     VAEAttentionBlock,
+    assign_sites,
     from_nhwc,
     to_nhwc,
 )
@@ -152,6 +156,7 @@ class AutoencoderKL(nn.Module):
         self.decoder = Decoder(config)
         self.quant_conv = nn.Conv2d(2 * config.latent_channels, 2 * config.latent_channels, 1)
         self.post_quant_conv = nn.Conv2d(config.latent_channels, config.latent_channels, 1)
+        assign_sites(self)
 
     def encode(self, images: torch.Tensor) -> DiagonalGaussian:
         """images [B, H, W, 3] in [-1, 1] -> posterior with fp32 NHWC mean/logvar."""

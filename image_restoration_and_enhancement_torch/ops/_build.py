@@ -1,12 +1,14 @@
-"""Build and load the port's CUDA kernels: one nvcc call, a plain-C library, ctypes.
+"""Build and load the port's CUDA kernels: nvcc, a plain-C library, ctypes.
 
-Both sources in ``csrc/`` are compiled by a single
-``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC``
-call into ``_build/`` inside the package (listed in ``.gitignore``). The library
-name carries a hash of the sources and flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is. No PyTorch headers are compiled in:
-each kernel has an ``extern "C"`` launcher that takes raw pointers, sizes and
-strides and a ``cudaStream_t``, and returns ``cudaGetLastError()``.
+Every source in ``csrc/`` is compiled to an object by its own
+``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c``
+process, all started together, and one more nvcc call links the objects into a
+shared library in ``_build/`` inside the package (listed in ``.gitignore``).
+The library name carries a hash of the sources and flags, so an edited source
+is rebuilt and an unchanged one is loaded as it is. No PyTorch headers are
+compiled in: each kernel has an ``extern "C"`` launcher that takes raw
+pointers, sizes and strides and a ``cudaStream_t``, and returns
+``cudaGetLastError()``.
 
 A failed build raises ``KernelError``, and so does a launcher that returns
 non-zero; nothing here falls back to the plain PyTorch versions, and callers
@@ -32,10 +34,10 @@ from typing import Dict, Optional, Tuple
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("attention.cu", "groupnorm.cu")
+SOURCES = ("attention.cu", "groupnorm.cu", "conv_int8.cu", "int8_attention.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 launch_counts: "collections.Counter[str]" = collections.Counter()
@@ -59,6 +61,10 @@ _ARGTYPES = {
     # rows_per_chunk, eps, silu, stream
     "iret_group_norm": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _F, _I, _P],
+    # out dtype, x, w, scale, out, B, H, W, C, N, stream
+    "iret_conv3x3_int8": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # v dtype, q8, k8, v, scale, o, B, H, Nq, Nk, D, DP, DV, stream
+    "iret_int8_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -97,13 +103,36 @@ def _source_hash() -> str:
 
 def _compile(out_path: str) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise KernelError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    os.replace(tmp, out_path)
+    nvcc = _nvcc()
+    tmp = f"{out_path}.{os.getpid()}"
+    objs = [f"{tmp}.{os.path.splitext(s)[0]}.o" for s in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC_DIR, src)]
+            for src, obj in zip(SOURCES, objs)]
+    cmds.append([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                 "-o", f"{tmp}.so", *objs])
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds[:-1]]
+    log = ""
+    try:
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate()
+            log += out
+            if proc.returncode != 0:
+                raise KernelError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        proc = subprocess.run(cmds[-1], capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise KernelError(f"nvcc link failed ({proc.returncode}):\n"
+                              f"{' '.join(cmds[-1])}\n{proc.stdout}{proc.stderr}")
+        os.replace(f"{tmp}.so", out_path)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     return log
 
 

@@ -12,6 +12,14 @@ for attention and 2**-10 for GroupNorm.
 ``test_bf16_limit_rejects_planted_faults`` shows that this limit catches a
 kernel that drops a KV tile or skips the online-softmax rescale at the N = 4096
 shapes; its CPU case runs anywhere, with fewer query rows.
+
+K3 (int8 conv) is held to one rounding of the output dtype (the integer sums
+are exact) and K4 (int8 attention) to attention's bf16 limit (share 2**-8);
+``test_int8_limits_reject_planted_faults`` shows that they catch a dropped
+conv tap, and a dropped KV tile or a missing rescale, with a CPU case as above.
+``test_int8_layers_match_cpu`` holds the int8 layers that K3 does not serve
+(``torch._int_mm`` and the quantizers on the card) against the CPU to one
+rounding of the output dtype, and shows that the limit fails full precision.
 """
 import math
 
@@ -20,6 +28,7 @@ import torch
 
 from image_restoration_and_enhancement_torch.ops import _build
 from image_restoration_and_enhancement_torch.ops import attention as A
+from image_restoration_and_enhancement_torch.ops import conv_int8 as K3
 from image_restoration_and_enhancement_torch.ops import groupnorm as G
 from image_restoration_and_enhancement_torch.ops import tolerance
 
@@ -139,3 +148,167 @@ def test_bf16_limit_rejects_planted_faults(device, b, nk, h, d):
     for fault in ({"drop_tile": 17}, {"rescale": False}):
         ok, err = tolerance.within(_online_attention(q, k, v, **fault), ref, "attention")
         assert not ok, f"the bf16 limit passed a planted fault {fault} (max err {err})"
+
+
+# ---------------------------------------------------------------------------
+# K3 (int8 3x3 conv) and K4 (int8 Q.K^T attention)
+# ---------------------------------------------------------------------------
+
+
+def _conv_inputs(b, h, w, c, n, device, gen):
+    x = torch.randint(-127, 128, (b, h + 2, w + 2, c), generator=gen, device=device,
+                      dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, 3, 3, c), generator=gen, device=device,
+                       dtype=torch.int8).permute(1, 2, 3, 0)
+    scale = torch.rand((n,), generator=gen, device=device) * 1e-5
+    return x, wq, scale
+
+
+@pytest.mark.parametrize("b,h,w,c,n", [
+    (2, 64, 64, 320, 320), (2, 8, 8, 2560, 1280), (2, 16, 16, 1920, 640),
+    (2, 32, 32, 960, 320), (1, 256, 256, 256, 256), (1, 5, 7, 24, 20), (1, 1, 1, 16, 8),
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv3x3_int8_kernel_matches_plain(cuda, b, h, w, c, n, dtype):
+    x, wq, scale = _conv_inputs(b, h, w, c, n, "cuda", cuda)
+    before = _build.launch_counts["conv3x3_int8"]
+    got = K3.conv3x3_same_int8(x, wq, scale, dtype)
+    assert _build.launch_counts["conv3x3_int8"] == before + 1
+    assert_within(got, K3.conv3x3_same_int8_reference(x, wq, scale, dtype), "conv3x3_int8")
+
+
+def _int8_inputs(b, nq, nk, h, d, dtype, device, gen):
+    q, k, v = (torch.randn((b, n, h, d), generator=gen, device=device).to(dtype)
+               for n in (nq, nk, nk))
+    q8, k8, s = A.smooth_quantize_qk(A._prescale(q), k)
+    return q8, k8, v, s
+
+
+@pytest.mark.parametrize("b,nq,nk,h,d", [
+    (2, 4096, 4096, 8, 40), (2, 4096, 77, 8, 40), (2, 1024, 1024, 8, 80),
+    (2, 256, 256, 8, 160), (2, 64, 77, 8, 160), (1, 64, 64, 2, 4), (1, 100, 37, 3, 8),
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_attention_kernel_matches_plain(cuda, b, nq, nk, h, d, dtype):
+    q8, k8, v, s = _int8_inputs(b, nq, nk, h, d, dtype, "cuda", cuda)
+    before = _build.launch_counts["int8_attention"]
+    got = A.int8_attention_core(q8, k8, v, s)
+    assert _build.launch_counts["int8_attention"] == before + 1
+    assert_within(got, A.int8_attention_core_reference(q8, k8, v, s), "int8_attention")
+    # the entry point the model calls, quantization prologue included
+    q, k = (torch.randn((b, n, h, d), generator=cuda, device="cuda").to(dtype) for n in (nq, nk))
+    got = A.attention(q, k, v, backend="int8")
+    assert _build.launch_counts["int8_attention"] == before + 2
+    assert_within(got, A.int8_attention_reference(q, k, v), "int8_attention")
+
+
+def test_int8_kernels_reject_what_they_do_not_take(cuda):
+    x, wq, scale = _conv_inputs(1, 4, 4, 12, 8, "cuda", cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        K3.conv3x3_same_int8(x, wq, scale)
+    q8, k8, v, s = _int8_inputs(1, 8, 8, 1, 200, torch.bfloat16, "cuda", cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        A.int8_attention_core(q8, k8, v, s)
+    q8, k8, v, s = _int8_inputs(1, 8, 8, 1, 40, torch.float16, "cuda", cuda)
+    with pytest.raises(TypeError):
+        A.int8_attention_core(q8, k8, v, s)
+
+
+def _online_int8_attention(q8, k8, v, scale, tile=64, drop_tile=None, rescale=True):
+    """K4's algorithm in plain PyTorch: exact s8 scores in KV tiles of ``tile``
+    keys, exp2 against the running max, P rounded to v's dtype for P.V and the
+    row sum, one divide at the end. ``drop_tile`` and ``rescale=False`` plant
+    the two faults."""
+    s_all = torch.einsum("bqhd,bkhd->bhqk", q8.float(), k8.float()) * (scale * A.LOG2E)
+    vf = v.float().transpose(1, 2)
+    m = torch.full(s_all.shape[:-1] + (1,), -math.inf, device=v.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(s_all.shape[:-1] + (v.shape[-1],), device=v.device)
+    for i, k0 in enumerate(range(0, k8.shape[1], tile)):
+        if i == drop_tile:
+            continue
+        s = s_all[..., k0:k0 + tile]
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new).to(v.dtype).float()
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = (acc * alpha if rescale else acc) + p @ vf[:, :, k0:k0 + tile]
+        m = m_new
+    return (acc / l).to(v.dtype).transpose(1, 2)
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_int8_limits_reject_planted_faults(device):
+    """At the main path's largest shapes, the K3 limit passes the kernel and
+    fails a dropped conv tap; the K4 limit passes the kernel and an emulation
+    of it, and fails a dropped KV tile and a missing rescale (N = 4096). The
+    CPU case takes fewer rows: each row sees the same statistics."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=device).manual_seed(2)
+    h = 64 if device == "cuda" else 8
+    x, wq, scale = _conv_inputs(2, h, h, 320, 320, device, gen)
+    ref = K3.conv3x3_same_int8_reference(x, wq, scale, torch.bfloat16)
+    if device == "cuda":
+        assert_within(K3.conv3x3_same_int8(x, wq, scale, torch.bfloat16), ref, "conv3x3_int8")
+    dropped = wq.clone()
+    dropped[2, 2] = 0
+    ok, err = tolerance.within(K3.conv3x3_same_int8_reference(x, dropped, scale, torch.bfloat16),
+                               ref, "conv3x3_int8")
+    assert not ok, f"the K3 limit passed a dropped tap (max err {err})"
+
+    nq = 4096 if device == "cuda" else 256
+    for b, nk, hh, d in ((2, 4096, 8, 40), (2, 1024, 8, 80)):
+        q8, k8, v, s = _int8_inputs(b, nq, nk, hh, d, torch.bfloat16, device, gen)
+        ref = A.int8_attention_core_reference(q8, k8, v, s)
+        honest = [_online_int8_attention(q8, k8, v, s)]
+        if device == "cuda":
+            honest.append(A.int8_attention_core(q8, k8, v, s))
+        for got in honest:
+            assert_within(got, ref, "int8_attention")
+        for fault in ({"drop_tile": 5}, {"rescale": False}):
+            ok, err = tolerance.within(_online_int8_attention(q8, k8, v, s, **fault), ref,
+                                       "int8_attention")
+            assert not ok, f"the K4 limit passed a planted fault {fault} (max err {err})"
+
+
+@pytest.mark.parametrize("layer,in_shape", [
+    (("linear", 320, 320), (2, 4096, 320)),        # to_q at 64x64 latents, CFG batch
+    (("linear", 768, 320), (2, 77, 768)),          # to_k on the text context
+    (("linear", 640, 5120), (2, 1024, 640)),       # GEGLU proj at 32x32
+    (("linear", 1280, 1280), (2, 64, 1280)),       # mid block
+    (("conv", 640, 1280, 1, 1, 0), (2, 640, 16, 16)),   # resnet conv_shortcut
+    (("conv", 320, 320, 3, 2, 1), (2, 320, 64, 64)),    # Downsample2D, stride 2
+])
+def test_int8_layers_match_cpu(cuda, layer, in_shape):
+    """The int8 layers that K3 does not serve (torch._int_mm on the card,
+    float64 sums on the CPU) give the CPU's output to within one rounding of
+    the output dtype, under a static and a dynamic scale; the same layer with
+    quantization off does not."""
+    from image_restoration_and_enhancement_torch.models.layers import CL, QConv2d, QLinear
+    from image_restoration_and_enhancement_torch.ops.quant import QuantState
+
+    torch.manual_seed(3)
+    if layer[0] == "linear":
+        cpu = QLinear(*layer[1:])
+        x = torch.randn(in_shape)
+    else:
+        cpu = QConv2d(*layer[1:3], kernel_size=layer[3], stride=layer[4], padding=layer[5])
+        x = torch.randn(in_shape).contiguous(memory_format=CL)
+    cpu, x = cpu.to(torch.bfloat16), x.to(torch.bfloat16)
+    gpu = type(cpu)(*layer[1:3], **({} if layer[0] == "linear" else dict(
+        kernel_size=layer[3], stride=layer[4], padding=layer[5]))).to("cuda", torch.bfloat16)
+    gpu.load_state_dict(cpu.state_dict())
+    cpu.site = gpu.site = "site"
+    for state in (QuantState("int8_static", {"site": float(x.abs().amax()) * 0.9}),
+                  QuantState("int8")):
+        cpu.set_quant(state)
+        gpu.set_quant(state)
+        with torch.inference_mode():
+            ref, got = cpu(x), gpu(x.cuda()).cpu()
+        assert_within(got, ref, "int8_layer")
+    gpu.set_quant(None)
+    with torch.inference_mode():
+        ok, err = tolerance.within(gpu(x.cuda()).cpu(), ref, "int8_layer")
+    assert not ok, f"the int8 layer limit passed full precision (max err {err})"
