@@ -8,9 +8,10 @@ Phases (each prints its seconds; any failure exits non-zero):
   build       compile csrc/*.cu (one nvcc process per source, started together,
               then one link; ops/_build.py) and load the library.
   parity      small inputs, CUDA kernels against the plain versions on the CPU,
-              in fp32: the TINY_SD img2img function end to end and one
-              full-width SD-1.5 UNet call at 32x32 latents, exact and then
-              int8_static (K3, K4; tables calibrated on the CPU).
+              in fp32: the TINY_SD img2img function end to end (default
+              backend, then attention_backend "flash" (K5) and "pallas_packed"
+              (K6b)) and one full-width SD-1.5 UNet call at 32x32 latents,
+              exact and then int8_static (K3, K4; tables calibrated on the CPU).
   serve       initialise the full SD-1.5 stack (UNet, VAE, CLIP-L) at random from
               a seeded generator, write it in bf16 with the port's own safetensors
               writer to a temporary directory outside the checkout, and answer
@@ -34,10 +35,25 @@ Phases (each prints its seconds; any failure exits non-zero):
               each against the same layer on the CPU (layer parity, below).
               A CUDA pipeline has no OpenCV fallback: any failure of a request
               raises and fails this run.
+  serve_flash the bf16 stack served by RestorationPipeline(attention_backend=
+  serve_packed "flash") and (attention_backend="pallas_packed"): a first and a
+              steady CFG request each. Counts are zeroed just before and read
+              just after: every UNet attention site must run K5 (K6b), 352
+              launches per CFG request (32 sites x 11 UNet calls), and K1 only
+              at the VAE mid-block (2 per request). Prints request seconds, peak
+              memory, the PSNR against the bf16 serve's output on the same
+              image (K5 differs from K1 in its row sum; K6b runs K1's code on
+              the same addresses, so inf; random weights, so no gate) and one
+              profiled request.
   kernels     every kernel at every shape the serves launched it with (plus edge
-              cases): kernel against plain version on the same inputs, max abs
-              error within ops/tolerance.py's limit, and kernel / plain / library
-              times with CUDA events.
+              cases; K6a at K6b's shapes through its own entry, and the batch-1
+              twins of K5's and K6's CFG shapes): kernel against plain version on
+              the same inputs, max abs error within ops/tolerance.py's limit,
+              for the bf16 attention kernels (K1, K5, K6a, K6b) the placement
+              check (more elements bitwise equal to the plain version than to
+              attention_reference, by ops/tolerance.py's margin), and kernel /
+              plain / library times with CUDA events. K1 also runs once with
+              IRET_ATTN_SCORES_BF16=1 and once with IRET_ATTN_NORM_BOUND=1.
 
 Kernel-vs-plain limits are ops/tolerance.py's: fp32 1e-4 absolute and
 relative; bf16 |got - ref| <= share * max|ref| + 2**-7 * |ref| elementwise (one
@@ -68,10 +84,10 @@ int8 checks, CUDA against CPU:
 fp32 references run with TF32 off (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 are set False at start). The library calls are
 timed as yardsticks only and the port never calls them:
-F.scaled_dot_product_attention and F.group_norm compute K1's and K2's
-functions; no PyTorch call computes K3's or K4's, so bf16 F.conv2d and bf16
-F.scaled_dot_product_attention of the same shapes stand in, labelled as exact
-bf16 yardsticks.
+F.scaled_dot_product_attention and F.group_norm compute K1's (K5's, K6's)
+and K2's functions up to roundings; no PyTorch call computes K3's or K4's, so
+bf16 F.conv2d and bf16 F.scaled_dot_product_attention of the same shapes stand
+in, labelled as exact bf16 yardsticks.
 
 The line before the last is the kernels JSON line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -81,6 +97,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import json
+import math
 import os
 import re
 import shutil
@@ -88,6 +105,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 SEED = 1234
 # H100 SXM, dense; int8 in operations per second
@@ -97,6 +115,12 @@ PARITY_TOL = 2e-3     # fp32 end to end, images in [-1, 1]
 UNET_REL_TOL = 1e-3   # fp32 full-width UNet eps, relative to max |eps|
 INT8_PSNR_MIN = 25.0  # TINY_SD int8_static image, CUDA against CPU (docstring)
 INT8_UNET_REL_TOL = 0.15  # SD-1.5 int8_static eps, relative Frobenius (docstring)
+# Attention launches per 512x512 denoise request (strength 0.5, 20-step PLMS:
+# 10 steps plus PLMS's extra first call = 11 UNet calls): 16 transformer blocks x
+# 2 sites in the UNet, and the VAE's mid block once in the encoder and once in
+# the decoder.
+UNET_ATTENTION_PER_REQUEST = 32 * 11
+VAE_ATTENTION_PER_REQUEST = 2
 
 
 def log(msg: str) -> None:
@@ -246,6 +270,26 @@ def phase_parity():
                 f"(tol {PARITY_TOL})")
             if not err <= PARITY_TOL:
                 raise AssertionError(f"TINY_SD {sampler} disagrees: {err}")
+
+        # The same function with K5 and K6b at the UNet's sites (the VAE keeps K1).
+        for backend, kernel in (("flash", "flash_attention"),
+                                ("pallas_packed", "packed_attention_grid")):
+            outs = []
+            before = _build.launch_counts[kernel]
+            for dev in ("cpu", "cuda"):
+                mods = sampling.SDModules.create(C.TINY_SD, torch.float32, dev,
+                                                 attention_backend=backend)
+                for name, m in mods.components().items():
+                    m.load_state_dict(cpu.components()[name].state_dict())
+                ctx = sampling.encode_text(mods, ids)
+                fn = sampling.make_img2img_fn(mods, 10, 0.5, 5.0, "plms")
+                outs.append(fn(image, ctx[:1], ctx[1:], noise=noise).cpu())
+            err = float((outs[0] - outs[1]).abs().max())
+            launched = _build.launch_counts[kernel] - before
+            log(f"TINY_SD img2img plms gs=5.0 attention_backend={backend}: cuda vs cpu max abs "
+                f"err {err:.3e} (tol {PARITY_TOL}); {kernel} launched {launched} times")
+            if not (err <= PARITY_TOL and launched > 0):
+                raise AssertionError(f"TINY_SD with attention_backend={backend} disagrees: {err}")
 
         # TINY_SD int8_static: a table calibrated on the CPU, K3 and K4 on the card.
         mods8 = []
@@ -500,6 +544,43 @@ def phase_serve_int8(tmp, bf16):
             "shapes": shapes}
 
 
+_VARIANT_KERNEL = {"flash": "flash_attention", "pallas_packed": "packed_attention_grid"}
+_VARIANT_LABEL = {"flash": "K5 flash_attention", "pallas_packed": "K6b packed_attention_grid"}
+
+
+def phase_serve_variant(tmp, bf16, backend):
+    """The bf16 stack with K5 ("flash") or K6b ("pallas_packed") at every UNet
+    attention site: a first and a steady CFG request."""
+    import torch
+
+    name = {"flash": "serve_flash", "pallas_packed": "serve_packed"}[backend]
+    kernel = _VARIANT_KERNEL[backend]
+    image = bf16["image"]
+    with _Phase(name):
+        torch.cuda.empty_cache()
+        pipe = _pipeline(tmp, attention_backend=backend)
+        requests = [(f"{backend} default (gs 5.0, CFG batch 2; includes the stack load)", {}),
+                    (f"{backend} default again (steady state)", {})]
+        seconds, outs, launches, shapes, peak = _serve(pipe, image, requests)
+        log(f"{name} launches: {launches}; peak memory {peak / 2**30:.3f} GiB")
+        want = {kernel: UNET_ATTENTION_PER_REQUEST * len(requests),
+                "attention": VAE_ATTENTION_PER_REQUEST * len(requests)}
+        for k, n in want.items():
+            if launches.get(k, 0) != n:
+                raise AssertionError(f"{name}: {k} launched {launches.get(k, 0)} times, not {n}")
+        psnr = _psnr(outs[1], bf16["out_cfg"], 255.0)
+        log(f"{backend} CFG output against the bf16 serve's on the same input: PSNR "
+            f"{psnr:.2f} dB (inf: bitwise equal; random weights: printed, not gated)")
+        log(f"{name}_json " + json.dumps(
+            {"request_seconds": seconds, "peak_memory_bytes": peak, "launches": launches,
+             "psnr_vs_bf16_db": psnr if math.isfinite(psnr) else None}))
+        _profile_request(pipe, image, seconds[1], _VARIANT_LABEL[backend])
+        del pipe
+        torch.cuda.empty_cache()
+    return {"request_seconds": seconds, "peak_bytes": peak, "launches": launches,
+            "shapes": shapes}
+
+
 def _cpu_twin(mod):
     """A CPU copy of a quantized layer: same class, weights, dtype and site."""
     import torch
@@ -585,13 +666,17 @@ def _layer_parity(pipe, image) -> None:
         raise AssertionError(f"the int8 layer limit passes full precision: {control_passed[:5]}")
 
 
-def _kernel_group(name: str) -> str:
+def _kernel_group(name: str, mma_label: str) -> str:
+    """``mma_label``: what runs the tensor-core attention kernel in this serve
+    (K1, K5 and K6 share its device code; the UNet's sites decide)."""
     low = name.lower()
     if "conv3x3_int8_kernel" in name:
         return "K3 conv3x3_int8"
     if "int8_attention_kernel" in name:
         return "K4 int8_attention"
-    if "attention_mma_kernel" in name or "attention_kernel" in name:
+    if "attention_mma_kernel" in name:
+        return mma_label
+    if "attention_kernel" in name:
         return "K1 attention"
     if "gn_stats" in name or "gn_finalize" in name or "gn_apply" in name:
         return "K2 group_norm"
@@ -604,12 +689,13 @@ def _kernel_group(name: str) -> str:
     return "other"
 
 
-def _profile_request(pipe, image, unprofiled_s: float) -> None:
+def _profile_request(pipe, image, unprofiled_s: float, mma_label: str = "K1 attention") -> None:
     """One more default request under torch.profiler: device time by kernel
     group. Its launches are not counted: the counts were read above. The
     profiler's own host cost lengthens this request, so the device busy share
     is also given against ``unprofiled_s``, the same request's steady-state
-    time without the profiler."""
+    time without the profiler. ``mma_label`` names the kernel that the UNet's
+    bf16 attention sites run (see ``_kernel_group``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -625,7 +711,7 @@ def _profile_request(pipe, image, unprofiled_s: float) -> None:
         us = e.self_device_time_total
         if e.device_type != DeviceType.CUDA or us <= 0:
             continue
-        group = _kernel_group(e.key)
+        group = _kernel_group(e.key, mma_label)
         total, count = groups.get(group, (0.0, 0))
         groups[group] = (total + us, count + e.count)
     device_us = sum(t for t, _ in groups.values())
@@ -646,20 +732,35 @@ def _dtype(name: str):
     return getattr(torch, name.split(".")[-1])
 
 
-def _attention_case(key, gen):
-    import torch
-    import torch.nn.functional as F
+def _attention_case(kernel):
+    """K1, K5, K6a or K6b on random q, k, v of one shape: (kernel, plain
+    version, SDPA, operations seconds, bytes, attention_reference for the
+    placement check). K6 takes the [B, N, H*D] views of the same tensors."""
+    def case(key, gen):
+        import torch
+        import torch.nn.functional as F
 
-    from image_restoration_and_enhancement_torch.ops import attention as A
+        from image_restoration_and_enhancement_torch.ops import attention as A
 
-    b, nq, nk, h, d, dtype = key
-    q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda").to(_dtype(dtype))
-               for n in (nq, nk, nk))
-    ops_s = 4.0 * b * h * nq * nk * d / PEAK_FLOPS[dtype]
-    nbytes = (2 * b * nq * h * d + 2 * b * nk * h * d) * q.element_size()
-    return (lambda: A.attention(q, k, v), lambda: A.attention_reference(q, k, v),
-            lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                                   v.transpose(1, 2)), ops_s, nbytes)
+        b, nq, nk, h, d, dtype = key
+        q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda").to(_dtype(dtype))
+                   for n in (nq, nk, nk))
+        ops_s = 4.0 * b * h * nq * nk * d / PEAK_FLOPS[dtype]
+        nbytes = (2 * b * nq * h * d + 2 * b * nk * h * d) * q.element_size()
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        wrong = lambda: A.attention_reference(q, k, v)  # noqa: E731
+        if kernel in ("attention", "flash_attention"):
+            run, plain = {"attention": (A.pallas_attention, A.pallas_attention_reference),
+                          "flash_attention": (A.flash_attention,
+                                              A.flash_attention_reference)}[kernel]
+            return (lambda: run(q, k, v), lambda: plain(q, k, v), lib, ops_s, nbytes, wrong)
+        qp, kp, vp = (t.flatten(2) for t in (q, k, v))
+        run = A.pallas_attention_packed if kernel == "packed_attention" \
+            else A.pallas_attention_packed_grid
+        return (lambda: run(qp, kp, vp, h), lambda: A.packed_attention_reference(qp, kp, vp, h),
+                lib, ops_s, nbytes, lambda: wrong().reshape(b, nq, h * d))
+    return case
 
 
 def _gn_case(key, gen):
@@ -681,7 +782,8 @@ def _gn_case(key, gen):
         return F.silu(y) if act == "silu" else y
 
     return (lambda: G.group_norm(x, scale, bias, groups, eps, act),
-            lambda: G.group_norm_reference(x, scale, bias, groups, eps, act), lib, ops_s, nbytes)
+            lambda: G.group_norm_reference(x, scale, bias, groups, eps, act), lib, ops_s, nbytes,
+            None)
 
 
 def _conv_int8_case(key, gen):
@@ -706,7 +808,7 @@ def _conv_int8_case(key, gen):
     nbytes = x.numel() + wq.numel() + 4 * n + b * h * w * n * torch.empty((), dtype=dt).element_size()
     return (lambda: K3.conv3x3_same_int8(x, wq, scale, dt),
             lambda: K3.conv3x3_same_int8_reference(x, wq, scale, dt),
-            lambda: F.conv2d(xb, wb, padding=1), ops_s, nbytes)
+            lambda: F.conv2d(xb, wb, padding=1), ops_s, nbytes, None)
 
 
 def _int8_attention_case(key, gen):
@@ -728,11 +830,14 @@ def _int8_attention_case(key, gen):
     qb, kb, vb = (t.to(torch.bfloat16).transpose(1, 2) for t in (q, k, v))
     return (lambda: A.int8_attention_core(q8, k8, v, s),
             lambda: A.int8_attention_core_reference(q8, k8, v, s),
-            lambda: F.scaled_dot_product_attention(qb, kb, vb), ops_s, nbytes)
+            lambda: F.scaled_dot_product_attention(qb, kb, vb), ops_s, nbytes, None)
 
 
-_CASES = {"attention": _attention_case, "group_norm": _gn_case,
-          "conv3x3_int8": _conv_int8_case, "int8_attention": _int8_attention_case}
+_CASES = {"attention": _attention_case("attention"), "group_norm": _gn_case,
+          "conv3x3_int8": _conv_int8_case, "int8_attention": _int8_attention_case,
+          "flash_attention": _attention_case("flash_attention"),
+          "packed_attention": _attention_case("packed_attention"),
+          "packed_attention_grid": _attention_case("packed_attention_grid")}
 
 
 def phase_kernels(main):
@@ -758,13 +863,32 @@ def phase_kernels(main):
         ("int8_attention", (1, 256, 77, 8, 40, "torch.float32")),
         ("int8_attention", (1, 1024, 1024, 8, 80, "torch.float32")),
         ("int8_attention", (1, 64, 77, 8, 160, "torch.float32")),
+        # K5's and K6's edge cases from the JAX package's tests
+        ("flash_attention", (1, 256, 256, 2, 40, "torch.bfloat16")),
+        ("flash_attention", (1, 200, 200, 1, 80, "torch.bfloat16")),
+        ("flash_attention", (2, 128, 77, 2, 40, "torch.float32")),
+        ("flash_attention", (1, 128, 128, 1, 160, "torch.float32")),
+        ("packed_attention", (1, 64, 77, 4, 80, "torch.bfloat16")),
+        ("packed_attention", (1, 100, 100, 2, 160, "torch.float32")),
+        ("packed_attention_grid", (2, 64, 64, 8, 40, "torch.float32")),
+        ("packed_attention_grid", (1, 100, 100, 2, 160, "torch.bfloat16")),
     ]
-    cases = [(k, key, main.get((k, key), 0)) for (k, key) in sorted(main, key=str)]
-    cases += [(k, key, 0) for k, key in extra if (k, key) not in main]
+    # K6a at K6b's shapes; K5 and K6 also at the batch-1 twins of their CFG
+    # shapes (the UNet's shapes of a gs 1.0 request)
+    for k, key in sorted(main, key=str):
+        if k not in ("flash_attention", "packed_attention_grid"):
+            continue
+        shapes = [key, (1,) + key[1:]] if key[0] == 2 else [key]
+        for kk in (k, "packed_attention") if k == "packed_attention_grid" else (k,):
+            extra += [(kk, shape) for shape in shapes]
+    cases = [(k, key, main.get((k, key), 0), {}) for (k, key) in sorted(main, key=str)]
+    cases += [(k, key, 0, {}) for k, key in dict.fromkeys(extra) if (k, key) not in main]
+    cases += [("attention", (2, 4096, 4096, 8, 40, "torch.bfloat16"), 0, {name: "1"})
+              for name in ("IRET_ATTN_SCORES_BF16", "IRET_ATTN_NORM_BOUND")]
     with _Phase("kernels"):
-        for kernel, key, count in cases:
-            run, plain, lib, ops_s, nbytes = _CASES[kernel](key, gen)
-            with torch.inference_mode():
+        for kernel, key, count, env in cases:
+            run, plain, lib, ops_s, nbytes, wrong = _CASES[kernel](key, gen)
+            with torch.inference_mode(), mock.patch.dict(os.environ, env):
                 before = _build.launch_counts[kernel]
                 got, ref = run(), plain()
                 torch.cuda.synchronize()
@@ -772,6 +896,10 @@ def phase_kernels(main):
                     raise AssertionError(f"{kernel} {key}: the wrapper did not launch its kernel")
                 tol = tolerance.limits(ref, kernel)
                 ok, err = tolerance.within(got, ref, kernel)
+                placed = None
+                if wrong is not None and got.dtype == torch.bfloat16:
+                    placed = dict(zip(("ok", "right_share", "wrong_share"),
+                                      tolerance.placement(got, ref, wrong())))
                 iters = 5 if ops_s > 2e-5 else 20
                 ms, plain_ms, lib_ms = (_time_ms(f, iters) for f in (run, plain, lib))
             bound = max(ops_s, nbytes / PEAK_BYTES) * 1e3
@@ -779,12 +907,18 @@ def phase_kernels(main):
             row = {"kernel": kernel, "shape": list(key), "main_path_launches": count,
                    "max_abs_err": err, "atol_rtol": list(tol), "ms": ms, "plain_ms": plain_ms,
                    "library_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by}
+            if placed is not None:
+                row["placement"] = placed
+            if env:
+                row["env"] = env
             rows.append(row)
             log("kernel_case " + json.dumps(row))
             if not ok:
-                raise AssertionError(f"{kernel} {key} disagrees with its plain version: "
+                raise AssertionError(f"{kernel} {key} {env} disagrees with its plain version: "
                                      f"max abs err {err}")
-            del run, plain, lib, got, ref
+            if placed is not None and not placed["ok"]:
+                raise AssertionError(f"{kernel} {key} {env} fails the placement check: {placed}")
+            del run, plain, lib, got, ref, wrong
 
         # Large-mean GroupNorm: E[x^2]-E[x]^2 cancels in fp32 in both versions
         # (by design), so only finiteness is checked here.
@@ -801,6 +935,12 @@ def phase_kernels(main):
 _SOURCES = {
     "attention": ("image_restoration_and_enhancement_torch/csrc/attention.cu",
                   "image_restoration_and_enhancement_tpu/ops/attention.py:80"),
+    "flash_attention": ("image_restoration_and_enhancement_torch/csrc/attention.cu",
+                        "image_restoration_and_enhancement_tpu/ops/attention.py:361"),
+    "packed_attention": ("image_restoration_and_enhancement_torch/csrc/attention.cu",
+                         "image_restoration_and_enhancement_tpu/ops/attention.py:208"),
+    "packed_attention_grid": ("image_restoration_and_enhancement_torch/csrc/attention.cu",
+                              "image_restoration_and_enhancement_tpu/ops/attention.py:319"),
     "group_norm": ("image_restoration_and_enhancement_torch/csrc/groupnorm.cu",
                    "image_restoration_and_enhancement_tpu/ops/groupnorm.py:36"),
     "conv3x3_int8": ("image_restoration_and_enhancement_torch/csrc/conv_int8.cu",
@@ -810,17 +950,25 @@ _SOURCES = {
 }
 
 
+# K6a is on no served path (the JAX package reaches it only through
+# _packed_call(variant="packed")): its times are summed over K6b's launches.
+_WEIGHTED_BY = {"packed_attention": "packed_attention_grid"}
+
+
 def _kernel_line(rows, paths):
     """Per kernel: its launches on the main paths, and kernel / plain / bound /
     library times summed over those launches (each shape's time x its
-    launches), for all paths together and under ``by_path`` for each.
-    ``paths``: {path: {(kernel, shape key): launches}}."""
+    launches; K6a's over K6b's, see ``_WEIGHTED_BY``), for all paths together
+    and under ``by_path`` for each. ``paths``: {path: {(kernel, shape key):
+    launches}}."""
     def totals(name, counts):
-        mine = [(r, counts.get((name, tuple(r["shape"])), 0)) for r in rows
-                if r["kernel"] == name]
+        weight = _WEIGHTED_BY.get(name, name)
+        mine = [(r, counts.get((weight, tuple(r["shape"])), 0)) for r in rows
+                if r["kernel"] == name and "env" not in r]
         total = lambda key: sum(r[key] * n for r, n in mine)  # noqa: E731
         ops_bound = sum(r["bound_ms"] * n for r, n in mine if r["bound_by"] == "operations")
-        return {"launches": sum(n for _, n in mine), "ms": total("ms"),
+        launches = sum(n for (k, _), n in counts.items() if k == name)
+        return {"launches": launches, "ms": total("ms"),
                 "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
                 "bound_by": "operations" if ops_bound > total("bound_ms") / 2 else "bytes",
                 "library_ms": total("library_ms")}
@@ -836,6 +984,8 @@ def _kernel_line(rows, paths):
             **totals(name, everything),
             "by_path": {path: totals(name, counts) for path, counts in paths.items()},
         })
+        if name in _WEIGHTED_BY:
+            out[-1]["times_weighted_by"] = f"{_WEIGHTED_BY[name]} launches"
     return {"kernels": out}
 
 
@@ -864,18 +1014,21 @@ def main() -> int:
     phase_parity()
     tmp = tempfile.mkdtemp(prefix="iret_smoke_")
     try:
-        serve = phase_serve(tmp)
-        serve8 = phase_serve_int8(tmp, serve)
+        results = {"serve": phase_serve(tmp)}
+        results["serve_int8"] = phase_serve_int8(tmp, results["serve"])
+        results["serve_flash"] = phase_serve_variant(tmp, results["serve"], "flash")
+        results["serve_packed"] = phase_serve_variant(tmp, results["serve"], "pallas_packed")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    paths = {"serve": serve["shapes"], "serve_int8": serve8["shapes"]}
+    paths = {name: r["shapes"] for name, r in results.items()}
+    launches = {name: r["launches"] for name, r in results.items()}
     main_shapes = collections.Counter()
     for counts in paths.values():
         main_shapes.update(counts)
     rows = phase_kernels(dict(main_shapes))
     line = _kernel_line(rows, paths)
     for k in line["kernels"]:
-        counted = sum(p.get(k["name"], 0) for p in (serve["launches"], serve8["launches"]))
+        counted = sum(p[k["name"]] for p in launches.values() if k["name"] in p)
         if k["launches"] != counted:
             raise AssertionError(f"{k['name']}: {k['launches']} launches by shape, {counted} "
                                  "by count")

@@ -1,19 +1,48 @@
-// K1 — exact softmax attention on [B, N, H, D] for the PyTorch port.
+// K1, K5, K6a and K6b — exact softmax attention for the PyTorch port, one
+// device code behind four entries.
 //
-// Replaces: image_restoration_and_enhancement_tpu/ops/attention.py
-//   _fused_attention_kernel (called from _pallas_attention_bhnd / pallas_attention).
-// Computes the function of xla_attention there: scores q.k in fp32, scaled by
-// 1/sqrt(D), softmax with fp32 row max and row sum, P.V accumulated in fp32 and
-// divided once by the row sum, output written in the input dtype.
+// Replaces, in image_restoration_and_enhancement_tpu/ops/attention.py:
+//   K1  _fused_attention_kernel (from _pallas_attention_bhnd / pallas_attention)
+//       -> iret_attention
+//   K5  _flash_attention_kernel (from _pallas_flash_bhnd / pallas_flash_attention)
+//       -> iret_flash_attention
+//   K6a _packed_attention_kernel (from pallas_attention_packed)
+//       -> iret_packed_attention
+//   K6b the inner kernel of pallas_attention_packed_grid -> iret_packed_attention_grid
+//
+// The function is the Pallas kernels', with their roundings where they put
+// them (the plain versions are in ops/attention.py):
+//   q' = q * (1/sqrt(D)) rounded to the input dtype, before the dot;
+//   s  = q'.k in fp32; keys past Nk score -inf;
+//   p  = exp(s - m) in fp32, rounded to the input dtype for P.V;
+//   l  = the row sum of the rounded P (K1, K6), or of the fp32 P (K5);
+//   out = (P.V in fp32) * (1 / l), in the input dtype.
+// K1 also takes the TPU kernel's two opt-in branches as runtime flags:
+//   kScoresBf16 (IRET_ATTN_SCORES_BF16): s rounded to bf16 before the mask,
+//     max and exp; s - m is then a bf16 difference, rounded to bf16, so the
+//     shift must be the exact row max: a first pass over K takes it (npass 2);
+//   kNormBound (IRET_ATTN_NORM_BOUND): the shift is ||q'|| * max_j ||k_j||,
+//     computed in fp32 at the start of each block, and l is clamped at 1e-30.
+// Both make the shift fixed for the whole KV walk, so nothing is rescaled.
 //
 // What bounds it on the H100: at the UNet's N = 4096 self-attention sites the
 // work is 4*N*N*D operations per (batch, head) against 4*N*D elements moved, far
-// above the card's ~295 operations per byte, so the bound is arithmetic. The
-// TPU kernel keeps all of K and V resident per (batch*head); at N = 4096 and
-// D = 512 (the VAE mid block) that is 8 MB, far over a block's 227 KB of shared
-// memory. So one block takes one Q tile of BQ rows, walks the KV sequence in
-// tiles of BK keys with an online softmax (running max m, sum l and the output
-// accumulator in registers), and never writes the score matrix to device memory.
+// above the card's ~295 operations per byte, so the bound is arithmetic (bf16
+// tensor cores, 989 TFLOP/s). The TPU kernels keep K and V resident per
+// (batch*head) (K1, K6) or chunk KV by 1024 keys over a sequential grid axis so
+// that Mosaic overlaps one chunk's VPU softmax with the next chunk's MXU work
+// (K5). On Hopper blocks run in parallel and in no order, so that sequential
+// axis becomes a loop inside each block, and a block's 227 KB of shared memory
+// holds far less than K and V at N = 4096 and D = 512 (8 MB). So one block
+// takes one Q tile of BQ rows, walks the KV sequence in tiles of BK keys with
+// an online softmax (running max m, sum l and the output accumulator in
+// registers), and never writes the score matrix to device memory: K5's chunked
+// walk is exactly what K1 already does here, and K5 differs from K1 only in
+// the row sum. K6a (in-kernel lane slices of one [block, H*D] block) and K6b
+// (grid BlockSpecs that cut D-wide lane blocks) are two ways of reading the
+// projection layout [B, N, H*D] on the TPU; here a block computes its own
+// addresses from strides, so both are the [B, N, H, D] code with head stride
+// D and row stride H*D.
 //
 // Two paths, one function:
 // - bf16 with head_dim <= 160 (every UNet site): tensor cores through
@@ -27,10 +56,12 @@
 //   one warp, so the row max and row sum reduce with __shfl_xor_sync.
 //   At d = 512 this path is slower than the plain PyTorch version, which runs
 //   on cuBLAS's tensor cores (PERF.md); a tensor-core d = 512 path is queued.
-// Ragged edges (Nq, Nk not a multiple of the tile, Nk = 77 for text
-// cross-attention, D = 40/80/160/512) are masked: keys past Nk score -inf,
-// padded dims are zero, dims past D are never stored. A wgmma/TMA version with
-// pipelined tile loads is later work.
+// The tiles here are 64 keys (the TPU's are 1024 or all of Nk), so P is rounded
+// against other running maxima than the plain versions': the two agree to the
+// bf16 rounding of P. Ragged edges (Nq, Nk not a multiple of the tile, Nk = 77
+// for text cross-attention, D = 40/80/160/512) are masked: keys past Nk score
+// -inf, padded dims are zero, dims past D are never stored. A wgmma/TMA
+// version with pipelined tile loads is later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -39,6 +70,12 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Function flags, uniform over the grid (runtime, so no template instance is added).
+constexpr int kRowSumF32 = 1;   // l sums the fp32 P, not the P rounded for P.V
+constexpr int kScoresBf16 = 2;  // s rounded to bf16 before the mask, max and exp
+constexpr int kNormBound = 4;   // shift by ||q'|| * max ||k||, clamp l at 1e-30
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -52,6 +89,36 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// x rounded to T and back (a no-op for float).
+template <typename T>
+__device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
+
+__device__ __forceinline__ float round_bf16(float x) { return round_to<__nv_bfloat16>(x); }
+
+// sqrt(max_j sum_d k[j][d]^2) over the Nk keys of one (batch, head), in fp32,
+// for every thread of the block; red holds one float per warp.
+template <typename T>
+__device__ float max_key_norm(const T* kb, int Nk, int D, int64_t ksn, float* red) {
+  float mx = 0.f;
+  for (int j = threadIdx.x; j < Nk; j += blockDim.x) {
+    const T* row = kb + (int64_t)j * ksn;
+    float ss = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float x = to_f(row[d]);
+      ss += x * x;
+    }
+    mx = fmaxf(mx, ss);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = mx;
+  __syncthreads();
+  float r = red[0];
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) r = fmaxf(r, red[w]);
+  __syncthreads();
+  return sqrtf(r);
+}
+
 template <int BQ, int BK>
 __host__ __device__ constexpr int smem_floats(int d) {
   return d * (BQ + 1) + d * (BK + 1) + BK * d + BQ * BK;
@@ -63,7 +130,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int H, int Nq,
                  int Nk, int D, int64_t qsb, int64_t qsn, int64_t qsh,
                  int64_t ksb, int64_t ksn, int64_t ksh, int64_t vsb,
-                 int64_t vsn, int64_t vsh, float scale) {
+                 int64_t vsn, int64_t vsh, float scale, int flags) {
   constexpr int RT = BQ / 16;
   constexpr int CT = BK / 16;
   constexpr int DT = DMAX / 16;
@@ -75,6 +142,14 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* ks_t = qs_t + D * QS;   // [D][KS]
   float* vs = ks_t + D * KS;     // [BK][D]
   float* ps = vs + BK * D;       // [BQ][BK]
+  __shared__ float red[kThreads / 32];
+
+  const bool scores_bf16 = flags & kScoresBf16;
+  const bool norm_bound = flags & kNormBound;
+  const bool rowsum_f32 = flags & kRowSumF32;
+  const bool fixed = scores_bf16 || norm_bound;  // one shift for the whole walk
+  const bool round_d = scores_bf16 && !norm_bound;
+  const int npass = round_d ? 2 : 1;  // pass 0 only takes the exact row max
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
@@ -93,7 +168,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int d = i - r * D;
     const int n = q0 + r;
     float val = 0.f;
-    if (n < Nq) val = to_f(qb[(int64_t)n * qsn + d]) * scale;
+    if (n < Nq) val = round_to<T>(to_f(qb[(int64_t)n * qsn + d]) * scale);
     qs_t[d * QS + r] = val;
   }
 
@@ -107,84 +182,111 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DT; ++j) acc[i][j] = 0.f;
   }
-
-  for (int k0 = 0; k0 < Nk; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done with ks_t, vs, ps
-    for (int i = tid; i < BK * D; i += kThreads) {
-      const int c = i / D;
-      const int d = i - c * D;
-      const int n = k0 + c;
-      float kv = 0.f, vv = 0.f;
-      if (n < Nk) {
-        kv = to_f(kb[(int64_t)n * ksn + d]);
-        vv = to_f(vb[(int64_t)n * vsn + d]);
+  if (norm_bound) {
+    const float kn = max_key_norm(kb, Nk, D, ksn, red);  // syncs: qs_t is complete
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      float ss = 0.f;
+      for (int d = 0; d < D; ++d) {
+        const float x = qs_t[d * QS + ty * RT + i];
+        ss += x * x;
       }
-      ks_t[d * KS + c] = kv;
-      vs[c * D + d] = vv;
+      m[i] = sqrtf(ss) * kn;
     }
-    __syncthreads();
+  }
 
-    float s[RT][CT];
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int j = 0; j < CT; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qr[RT], kc[CT];
-#pragma unroll
-      for (int i = 0; i < RT; ++i) qr[i] = qs_t[d * QS + ty * RT + i];
-#pragma unroll
-      for (int j = 0; j < CT; ++j) kc[j] = ks_t[d * KS + tx + 16 * j];
+  for (int pass = 0; pass < npass; ++pass) {
+    const bool stats = pass + 1 < npass;
+    for (int k0 = 0; k0 < Nk; k0 += BK) {
+      __syncthreads();  // the previous tile's readers are done with ks_t, vs, ps
+      for (int i = tid; i < BK * D; i += kThreads) {
+        const int c = i / D;
+        const int d = i - c * D;
+        const int n = k0 + c;
+        float kv = 0.f, vv = 0.f;
+        if (n < Nk) {
+          kv = to_f(kb[(int64_t)n * ksn + d]);
+          vv = to_f(vb[(int64_t)n * vsn + d]);
+        }
+        ks_t[d * KS + c] = kv;
+        vs[c * D + d] = vv;
+      }
+      __syncthreads();
+
+      float s[RT][CT];
 #pragma unroll
       for (int i = 0; i < RT; ++i)
 #pragma unroll
-        for (int j = 0; j < CT; ++j) s[i][j] = fmaf(qr[i], kc[j], s[i][j]);
-    }
+        for (int j = 0; j < CT; ++j) s[i][j] = 0.f;
+      for (int d = 0; d < D; ++d) {
+        float qr[RT], kc[CT];
+#pragma unroll
+        for (int i = 0; i < RT; ++i) qr[i] = qs_t[d * QS + ty * RT + i];
+#pragma unroll
+        for (int j = 0; j < CT; ++j) kc[j] = ks_t[d * KS + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < RT; ++i)
+#pragma unroll
+          for (int j = 0; j < CT; ++j) s[i][j] = fmaf(qr[i], kc[j], s[i][j]);
+      }
 
 #pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      float mx = -INFINITY;
+      for (int i = 0; i < RT; ++i) {
+        float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < CT; ++j) {
-        if (k0 + tx + 16 * j >= Nk) s[i][j] = -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
+        for (int j = 0; j < CT; ++j) {
+          if (scores_bf16) s[i][j] = round_bf16(s[i][j]);
+          if (k0 + tx + 16 * j >= Nk) s[i][j] = -INFINITY;
+          mx = fmaxf(mx, s[i][j]);
+        }
+        if (stats || !fixed) {  // a fixed shift needs no row max
+#pragma unroll
+          for (int off = 8; off > 0; off >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        }
+        if (stats) {
+          m[i] = fmaxf(m[i], mx);
+          continue;
+        }
+        // Every tile holds at least one key < Nk, so an online m_new is finite.
+        const float m_new = fixed ? m[i] : fmaxf(m[i], mx);
+        const float alpha = fixed ? 1.f : expf(m[i] - m_new);
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < CT; ++j) {
+          const float dlt = round_d ? round_bf16(s[i][j] - m_new) : s[i][j] - m_new;
+          const float pf = expf(dlt);
+          const float pr = round_to<T>(pf);
+          s[i][j] = pr;
+          rs += rowsum_f32 ? pf : pr;
+        }
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1)
+          rs += __shfl_xor_sync(0xffffffffu, rs, off);
+        l[i] = l[i] * alpha + rs;
+        m[i] = m_new;
+        if (!fixed) {
+#pragma unroll
+          for (int j = 0; j < DT; ++j) acc[i][j] *= alpha;
+        }
+#pragma unroll
+        for (int j = 0; j < CT; ++j) ps[(ty * RT + i) * BK + tx + 16 * j] = s[i][j];
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      // Every tile holds at least one key < Nk, so m_new is finite.
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < CT; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        s[i][j] = p;
-        rs += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DT; ++j) acc[i][j] *= alpha;
-#pragma unroll
-      for (int j = 0; j < CT; ++j) ps[(ty * RT + i) * BK + tx + 16 * j] = s[i][j];
-    }
-    __syncthreads();
+      if (stats) continue;
+      __syncthreads();
 
-    const int kmax = min(BK, Nk - k0);
-    for (int c = 0; c < kmax; ++c) {
-      float pr[RT];
+      const int kmax = min(BK, Nk - k0);
+      for (int c = 0; c < kmax; ++c) {
+        float pr[RT];
 #pragma unroll
-      for (int i = 0; i < RT; ++i) pr[i] = ps[(ty * RT + i) * BK + c];
+        for (int i = 0; i < RT; ++i) pr[i] = ps[(ty * RT + i) * BK + c];
 #pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        const int d = tx + 16 * j;
-        const float vv = d < D ? vs[c * D + d] : 0.f;
+        for (int j = 0; j < DT; ++j) {
+          const int d = tx + 16 * j;
+          const float vv = d < D ? vs[c * D + d] : 0.f;
 #pragma unroll
-        for (int i = 0; i < RT; ++i) acc[i][j] = fmaf(pr[i], vv, acc[i][j]);
+          for (int i = 0; i < RT; ++i) acc[i][j] = fmaf(pr[i], vv, acc[i][j]);
+        }
       }
     }
   }
@@ -193,7 +295,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < RT; ++i) {
     const int n = q0 + ty * RT + i;
     if (n >= Nq) continue;
-    const float inv = 1.f / l[i];
+    const float inv = 1.f / (norm_bound ? fmaxf(l[i], 1e-30f) : l[i]);
     T* orow = o + (((int64_t)b * Nq + n) * H + h) * D;
 #pragma unroll
     for (int j = 0; j < DT; ++j) {
@@ -206,7 +308,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int BQ, int BK, int DMAX>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
                    int H, int Nq, int Nk, int D, const int64_t* qs,
-                   const int64_t* ks, const int64_t* vs, float scale,
+                   const int64_t* ks, const int64_t* vs, float scale, int flags,
                    cudaStream_t stream) {
   const size_t bytes = sizeof(float) * (size_t)smem_floats<BQ, BK>(D);
   auto kernel = attention_kernel<T, BQ, BK, DMAX>;
@@ -217,7 +319,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), H, Nq, Nk, D, qs[0], qs[1],
-      qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale);
+      qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale, flags);
   return cudaGetLastError();
 }
 
@@ -225,16 +327,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
 // widths). bf16 takes this path only above kMmaMaxHeadDim, at DMAX 512.
 cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
                          int B, int H, int Nq, int Nk, int D, const int64_t* qs,
-                         const int64_t* ks, const int64_t* vs, float scale,
+                         const int64_t* ks, const int64_t* vs, float scale, int flags,
                          cudaStream_t stream) {
   if (D <= 64)
-    return launch<float, 64, 64, 64>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, stream);
+    return launch<float, 64, 64, 64>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, flags,
+                                     stream);
   if (D <= 128)
-    return launch<float, 64, 64, 128>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, stream);
+    return launch<float, 64, 64, 128>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, flags,
+                                      stream);
   if (D <= 160)
-    return launch<float, 64, 64, 160>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, stream);
+    return launch<float, 64, 64, 160>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, flags,
+                                      stream);
   if (D <= 512)
-    return launch<float, 32, 32, 512>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, stream);
+    return launch<float, 32, 32, 512>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, flags,
+                                      stream);
   return cudaErrorInvalidValue;
 }
 
@@ -242,15 +348,18 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
 // bf16 tensor-core path (head_dim <= 160): mma.sync m16n8k16, fp32 accumulate.
 //
 // A block of 4 warps takes 64 query rows; each warp owns 16 of them for the
-// whole KV walk. Per KV tile of 64 keys a warp computes its 16 x 64 score tile
-// S = Q K^T with mma.sync (Q's A fragments stay in registers), scales and
-// masks it in fp32, updates the running row max and sum, and multiplies
-// P = exp(S - m) by V with the score accumulators reused as the A operand in
-// bf16 (the accumulator layout of m16n8 equals the A layout of m16n8k16), so
-// P never leaves registers; V's B fragments come from row-major shared memory
-// through ldmatrix.trans. K and V tiles are double-buffered: with 16-byte
-// aligned rows (VEC) the next tile streams in by cp.async while the current
-// one is multiplied. head_dim is zero-padded to DP, a multiple of 16.
+// whole KV walk. Its Q fragments are loaded once, each pair multiplied by
+// bf16(1/sqrt(D)) and rounded to bf16 on the way into registers (the Pallas
+// kernels' q'). Per KV tile of 64 keys a warp computes its 16 x 64 score tile
+// S = q' K^T with mma.sync, masks it in fp32, updates the running row max, and
+// multiplies P = exp(S - m) by V with the score accumulators reused as the A
+// operand in bf16 (the accumulator layout of m16n8 equals the A layout of
+// m16n8k16), so P never leaves registers; the row sum adds the same bf16
+// values that are packed for P.V (K1, K6), or the fp32 ones (K5). V's B
+// fragments come from row-major shared memory through ldmatrix.trans. K and V
+// tiles are double-buffered: with 16-byte aligned rows (VEC) the next tile
+// streams in by cp.async while the current one is multiplied. head_dim is
+// zero-padded to DP, a multiple of 16.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
@@ -288,6 +397,16 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
+}
+
+// a bf16 pair times scale, each product rounded to bf16 (exact in fp32 first)
+__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float scale) {
+  const float2 f = unpack_bf16(x);
+  return pack_bf16(f.x * scale, f.y * scale);
 }
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
@@ -338,7 +457,7 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      __nv_bfloat16* __restrict__ o, int H, int Nq, int Nk, int D,
                      int64_t qsb, int64_t qsn, int64_t qsh, int64_t ksb,
                      int64_t ksn, int64_t ksh, int64_t vsb, int64_t vsn,
-                     int64_t vsh, float scale_log2) {
+                     int64_t vsh, float scale, int flags) {
   constexpr int DPS = DP + 8;    // row stride of every tile (16-byte multiple)
   constexpr int KSL = DP / 16;   // k-slices of Q K^T
   constexpr int NB = kMmaBK / 8; // n-blocks of S
@@ -348,6 +467,13 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][DPS]
   __nv_bfloat16* ks = qs + kMmaBQ * DPS;                            // 2 x [BK][DPS]
   __nv_bfloat16* vs = ks + 2 * TILE;                                // 2 x [BK][DPS]
+  __shared__ float red[kMmaThreads / 32];
+
+  const bool scores_bf16 = flags & kScoresBf16;
+  const bool norm_bound = flags & kNormBound;
+  const bool rowsum_f32 = flags & kRowSumF32;
+  const bool fixed = scores_bf16 || norm_bound;  // one shift for the whole walk
+  const bool round_d = scores_bf16 && !norm_bound;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -362,25 +488,32 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* kb = k + b * ksb + h * ksh;
   const __nv_bfloat16* vb = v + b * vsb + h * vsh;
   const int ntiles = (Nk + kMmaBK - 1) / kMmaBK;
+  // With round_d the walk goes over K twice: the first ntiles steps only take
+  // the exact row max.
+  const int steps = round_d ? 2 * ntiles : ntiles;
 
   load_tile<DP, kMmaBQ, VEC>(qs, qb, q0, Nq, D, qsn);
   load_tile<DP, kMmaBK, VEC>(ks, kb, 0, Nk, D, ksn);
   load_tile<DP, kMmaBK, VEC>(vs, vb, 0, Nk, D, vsn);
   cp_async_commit();
+  const float kn = norm_bound ? max_key_norm(kb, Nk, D, ksn, red) : 0.f;
 
   uint32_t qf[KSL][4];
   float oacc[DB][4];
 #pragma unroll
   for (int j = 0; j < DB; ++j) oacc[j][0] = oacc[j][1] = oacc[j][2] = oacc[j][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g and g + 8
+  float m0 = -INFINITY, m1 = -INFINITY;  // shift of rows g and g + 8
   float l0 = 0.f, l1 = 0.f;              // this thread's part of the row sums
 
-  for (int it = 0; it < ntiles; ++it) {
-    const int k0 = it * kMmaBK;
-    if (it + 1 < ntiles) {  // prefetch the next tile into the other buffer
+  for (int it = 0; it < steps; ++it) {
+    const int tile = it < ntiles ? it : it - ntiles;
+    const bool stats = it + ntiles < steps;
+    const int k0 = tile * kMmaBK;
+    if (it + 1 < steps) {  // prefetch the next tile into the other buffer
       const int nxt = (it + 1) & 1;
-      load_tile<DP, kMmaBK, VEC>(ks + nxt * TILE, kb, k0 + kMmaBK, Nk, D, ksn);
-      load_tile<DP, kMmaBK, VEC>(vs + nxt * TILE, vb, k0 + kMmaBK, Nk, D, vsn);
+      const int n0 = (tile + 1 < ntiles ? tile + 1 : 0) * kMmaBK;
+      load_tile<DP, kMmaBK, VEC>(ks + nxt * TILE, kb, n0, Nk, D, ksn);
+      load_tile<DP, kMmaBK, VEC>(vs + nxt * TILE, vb, n0, Nk, D, vsn);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -389,12 +522,28 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
     if (it == 0) {
       const __nv_bfloat16* qw = qs + warp * 16 * DPS;
+      float ss0 = 0.f, ss1 = 0.f;
 #pragma unroll
       for (int j = 0; j < KSL; ++j) {
-        qf[j][0] = ld32(qw + g * DPS + j * 16 + t * 2);
-        qf[j][1] = ld32(qw + (g + 8) * DPS + j * 16 + t * 2);
-        qf[j][2] = ld32(qw + g * DPS + j * 16 + t * 2 + 8);
-        qf[j][3] = ld32(qw + (g + 8) * DPS + j * 16 + t * 2 + 8);
+        qf[j][0] = scale_bf16x2(ld32(qw + g * DPS + j * 16 + t * 2), scale);
+        qf[j][1] = scale_bf16x2(ld32(qw + (g + 8) * DPS + j * 16 + t * 2), scale);
+        qf[j][2] = scale_bf16x2(ld32(qw + g * DPS + j * 16 + t * 2 + 8), scale);
+        qf[j][3] = scale_bf16x2(ld32(qw + (g + 8) * DPS + j * 16 + t * 2 + 8), scale);
+        if (norm_bound) {
+          const float2 a = unpack_bf16(qf[j][0]), c = unpack_bf16(qf[j][2]);
+          const float2 bb = unpack_bf16(qf[j][1]), e = unpack_bf16(qf[j][3]);
+          ss0 += a.x * a.x + a.y * a.y + c.x * c.x + c.y * c.y;
+          ss1 += bb.x * bb.x + bb.y * bb.y + e.x * e.x + e.y * e.y;
+        }
+      }
+      if (norm_bound) {
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          ss0 += __shfl_xor_sync(0xffffffffu, ss0, off);
+          ss1 += __shfl_xor_sync(0xffffffffu, ss1, off);
+        }
+        m0 = sqrtf(ss0) * kn;
+        m1 = sqrtf(ss1) * kn;
       }
     }
     const __nv_bfloat16* kt = ks + (it & 1) * TILE;
@@ -415,46 +564,73 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int col = k0 + nb * 8 + t * 2 + (i & 1);
-        s[nb][i] = col < Nk ? s[nb][i] * scale_log2 : -INFINITY;
+        const float x = scores_bf16 ? round_bf16(s[nb][i]) : s[nb][i];
+        s[nb][i] = col < Nk ? x : -INFINITY;
       }
       mx0 = fmaxf(mx0, fmaxf(s[nb][0], s[nb][1]));
       mx1 = fmaxf(mx1, fmaxf(s[nb][2], s[nb][3]));
     }
+    if (stats || !fixed) {
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
     }
-    // Every tile holds at least one key < Nk, so the new maxima are finite.
-    const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
-    const float a0 = exp2f(m0 - n0), a1 = exp2f(m1 - n1);
-    m0 = n0;
-    m1 = n1;
-    float r0 = 0.f, r1 = 0.f;
+    if (stats) {
+      m0 = fmaxf(m0, mx0);
+      m1 = fmaxf(m1, mx1);
+      __syncthreads();  // every warp is done with this buffer before it is refilled
+      continue;
+    }
+    float a0 = 1.f, a1 = 1.f;
+    if (!fixed) {
+      // Every tile holds at least one key < Nk, so the new maxima are finite.
+      const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
+      a0 = exp2f((m0 - n0) * kLog2e);
+      a1 = exp2f((m1 - n1) * kLog2e);
+      m0 = n0;
+      m1 = n1;
+#pragma unroll
+      for (int j = 0; j < DB; ++j) {
+        oacc[j][0] *= a0;
+        oacc[j][1] *= a0;
+        oacc[j][2] *= a1;
+        oacc[j][3] *= a1;
+      }
+    }
+    const float ml0 = m0 * kLog2e, ml1 = m1 * kLog2e;
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) {
-      s[nb][0] = exp2f(s[nb][0] - n0);
-      s[nb][1] = exp2f(s[nb][1] - n0);
-      s[nb][2] = exp2f(s[nb][2] - n1);
-      s[nb][3] = exp2f(s[nb][3] - n1);
-      r0 += s[nb][0] + s[nb][1];
-      r1 += s[nb][2] + s[nb][3];
+      if (round_d) {
+        s[nb][0] = exp2f(round_bf16(s[nb][0] - m0) * kLog2e);
+        s[nb][1] = exp2f(round_bf16(s[nb][1] - m0) * kLog2e);
+        s[nb][2] = exp2f(round_bf16(s[nb][2] - m1) * kLog2e);
+        s[nb][3] = exp2f(round_bf16(s[nb][3] - m1) * kLog2e);
+      } else {
+        s[nb][0] = exp2f(fmaf(s[nb][0], kLog2e, -ml0));
+        s[nb][1] = exp2f(fmaf(s[nb][1], kLog2e, -ml0));
+        s[nb][2] = exp2f(fmaf(s[nb][2], kLog2e, -ml1));
+        s[nb][3] = exp2f(fmaf(s[nb][3], kLog2e, -ml1));
+      }
     }
-    l0 = l0 * a0 + r0;
-    l1 = l1 * a1 + r1;
-#pragma unroll
-    for (int j = 0; j < DB; ++j) {
-      oacc[j][0] *= a0;
-      oacc[j][1] *= a0;
-      oacc[j][2] *= a1;
-      oacc[j][3] *= a1;
-    }
+    l0 *= a0;
+    l1 *= a1;
 #pragma unroll
     for (int j = 0; j < kMmaBK / 16; ++j) {
       const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
                               pack_bf16(s[2 * j][2], s[2 * j][3]),
                               pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
                               pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+      if (rowsum_f32) {
+        l0 += (s[2 * j][0] + s[2 * j][1]) + (s[2 * j + 1][0] + s[2 * j + 1][1]);
+        l1 += (s[2 * j][2] + s[2 * j][3]) + (s[2 * j + 1][2] + s[2 * j + 1][3]);
+      } else {
+        const float2 r0 = unpack_bf16(pa[0]), r2 = unpack_bf16(pa[2]);
+        const float2 r1 = unpack_bf16(pa[1]), r3 = unpack_bf16(pa[3]);
+        l0 += (r0.x + r0.y) + (r2.x + r2.y);
+        l1 += (r1.x + r1.y) + (r3.x + r3.y);
+      }
       // lane l addresses key row j*16 + (l & 15) at d-block db + (l >> 4)
       const __nv_bfloat16* vrow = vt + (j * 16 + (lane & 15)) * DPS + (lane >> 4) * 8;
 #pragma unroll
@@ -472,6 +648,10 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int off = 1; off < 4; off <<= 1) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  if (norm_bound) {
+    l0 = fmaxf(l0, 1e-30f);
+    l1 = fmaxf(l1, 1e-30f);
   }
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
   const int row0 = q0 + warp * 16 + g;
@@ -494,7 +674,7 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 template <int DP, bool VEC>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int B,
                        int H, int Nq, int Nk, int D, const int64_t* qs,
-                       const int64_t* ks, const int64_t* vs, float scale,
+                       const int64_t* ks, const int64_t* vs, float scale, int flags,
                        cudaStream_t stream) {
   constexpr int bytes = mma_smem_bytes<DP>();
   auto kernel = attention_mma_kernel<DP, VEC>;
@@ -505,8 +685,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int
   kernel<<<grid, kMmaThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H, Nq,
-      Nk, D, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
-      scale * 1.4426950408889634f);
+      Nk, D, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale, flags);
   return cudaGetLastError();
 }
 
@@ -524,54 +703,89 @@ bool rows_aligned(const void* p, const int64_t* strides, int D) {
 template <bool VEC>
 cudaError_t dispatch_mma_dp(const void* q, const void* k, const void* v, void* o,
                             int B, int H, int Nq, int Nk, int D, const int64_t* qs,
-                            const int64_t* ks, const int64_t* vs, float scale,
+                            const int64_t* ks, const int64_t* vs, float scale, int flags,
                             cudaStream_t stream) {
   if (D <= 32)
-    return launch_mma<32, VEC>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, stream);
+    return launch_mma<32, VEC>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, flags, stream);
   if (D <= 48)
-    return launch_mma<48, VEC>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, stream);
+    return launch_mma<48, VEC>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, flags, stream);
   if (D <= 64)
-    return launch_mma<64, VEC>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, stream);
+    return launch_mma<64, VEC>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, flags, stream);
   if (D <= 80)
-    return launch_mma<80, VEC>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, stream);
-  return launch_mma<160, VEC>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, stream);
-}
-
-cudaError_t dispatch_mma(const void* q, const void* k, const void* v, void* o,
-                         int B, int H, int Nq, int Nk, int D, const int64_t* qs,
-                         const int64_t* ks, const int64_t* vs, float scale,
-                         cudaStream_t stream) {
-  if (rows_aligned(q, qs, D) && rows_aligned(k, ks, D) && rows_aligned(v, vs, D))
-    return dispatch_mma_dp<true>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, stream);
-  return dispatch_mma_dp<false>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, stream);
+    return launch_mma<80, VEC>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, flags, stream);
+  return launch_mma<160, VEC>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, flags, stream);
 }
 
 constexpr int kMmaMaxHeadDim = 160;
+
+// dtype: 0 = float32, 1 = bfloat16. Strides are in elements, for the b, n and h
+// axes of q, k and v; the d axis has stride 1. o is a contiguous [B, Nq, H, D].
+// scale is 1/sqrt(D) as the input dtype holds it.
+int run(int dtype, const void* q, const void* k, const void* v, void* o, int B, int H,
+        int Nq, int Nk, int D, const int64_t* qs, const int64_t* ks, const int64_t* vs,
+        float scale, int flags, void* stream) {
+  if (B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0 || D <= 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch_f32(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, flags, s);
+  if (dtype == 1 && D <= kMmaMaxHeadDim) {
+    if (rows_aligned(q, qs, D) && rows_aligned(k, ks, D) && rows_aligned(v, vs, D))
+      return dispatch_mma_dp<true>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, flags, s);
+    return dispatch_mma_dp<false>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, flags, s);
+  }
+  if (dtype == 1 && D <= 512)
+    return launch<__nv_bfloat16, 32, 32, 512>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs,
+                                              scale, flags, s);
+  return cudaErrorInvalidValue;
+}
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements, for the b, n and h
-// axes of q, k and v; the d axis has stride 1. o is a contiguous [B, Nq, H, D].
+// K1 on [B, N, H, D] views. flags: kScoresBf16 | kNormBound | kRowSumF32, as
+// ops/attention.py sets them from IRET_ATTN_SCORES_BF16 and IRET_ATTN_NORM_BOUND.
 int iret_attention(int dtype, const void* q, const void* k, const void* v,
                    void* o, int B, int H, int Nq, int Nk, int D, int64_t qsb,
                    int64_t qsn, int64_t qsh, int64_t ksb, int64_t ksn,
                    int64_t ksh, int64_t vsb, int64_t vsn, int64_t vsh,
-                   float scale, void* stream) {
-  if (B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0 || D <= 0) return cudaErrorInvalidValue;
+                   float scale, int flags, void* stream) {
   const int64_t qs[3] = {qsb, qsn, qsh};
   const int64_t ks[3] = {ksb, ksn, ksh};
   const int64_t vs[3] = {vsb, vsn, vsh};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_f32(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, s);
-  if (dtype == 1 && D <= kMmaMaxHeadDim)
-    return dispatch_mma(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, s);
-  if (dtype == 1 && D <= 512)
-    return launch<__nv_bfloat16, 32, 32, 512>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs,
-                                              scale, s);
-  return cudaErrorInvalidValue;
+  return run(dtype, q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, flags, stream);
+}
+
+// K5 on [B, N, H, D] views: K1's walk with the row sum over the fp32 P.
+int iret_flash_attention(int dtype, const void* q, const void* k, const void* v,
+                         void* o, int B, int H, int Nq, int Nk, int D, int64_t qsb,
+                         int64_t qsn, int64_t qsh, int64_t ksb, int64_t ksn,
+                         int64_t ksh, int64_t vsb, int64_t vsn, int64_t vsh,
+                         float scale, void* stream) {
+  const int64_t qs[3] = {qsb, qsn, qsh};
+  const int64_t ks[3] = {ksb, ksn, ksh};
+  const int64_t vs[3] = {vsb, vsn, vsh};
+  return run(dtype, q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, kRowSumF32, stream);
+}
+
+// K6a and K6b on the projection layout [B, N, H*D]: strides of the b and n
+// axes; head h starts at column h*D. o is a contiguous [B, Nq, H*D].
+int iret_packed_attention(int dtype, const void* q, const void* k, const void* v,
+                          void* o, int B, int H, int Nq, int Nk, int D, int64_t qsb,
+                          int64_t qsn, int64_t ksb, int64_t ksn, int64_t vsb,
+                          int64_t vsn, float scale, void* stream) {
+  const int64_t qs[3] = {qsb, qsn, D};
+  const int64_t ks[3] = {ksb, ksn, D};
+  const int64_t vs[3] = {vsb, vsn, D};
+  return run(dtype, q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, 0, stream);
+}
+
+int iret_packed_attention_grid(int dtype, const void* q, const void* k, const void* v,
+                               void* o, int B, int H, int Nq, int Nk, int D, int64_t qsb,
+                               int64_t qsn, int64_t ksb, int64_t ksn, int64_t vsb,
+                               int64_t vsn, float scale, void* stream) {
+  return iret_packed_attention(dtype, q, k, v, o, B, H, Nq, Nk, D, qsb, qsn, ksb, ksn,
+                               vsb, vsn, scale, stream);
 }
 
 const char* iret_error_string(int err) {

@@ -54,9 +54,18 @@ _L = ctypes.c_int64
 _F = ctypes.c_float
 _ARGTYPES = {
     # dtype, q, k, v, o, B, H, Nq, Nk, D, q strides (b, n, h), k strides, v strides,
-    # scale, stream
+    # scale, flags, stream
     "iret_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
+                       _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P],
+    # as iret_attention, without flags
+    "iret_flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
+    # dtype, q, k, v, o, B, H, Nq, Nk, D, q strides (b, n), k strides, v strides,
+    # scale, stream
+    "iret_packed_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _L, _L, _L, _L, _L, _L, _F, _P],
+    "iret_packed_attention_grid": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _L, _L, _L, _L, _L, _L, _F, _P],
     # dtype, wdtype, x, scale, bias, y, partial, wb, B, HW, C, G, chunks,
     # rows_per_chunk, eps, silu, stream
     "iret_group_norm": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -1,14 +1,29 @@
-"""Attention on [B, N, H, D]: the CUDA kernels K1 (exact) and K4 (int8 Q.K^T),
-each beside its plain PyTorch version.
+"""Attention on [B, N, H, D]: the CUDA kernels K1 (exact), K5 (flash), K6a/K6b
+(exact, packed layout) and K4 (int8 Q.K^T), each beside its plain PyTorch
+version.
 
 Counterpart of the JAX package's ``ops/attention.py``. ``attention(q, k, v,
-backend)`` picks the function:
+backend)`` picks the function as the JAX package's ``attention`` does:
 
-- ``None``, ``"pallas"`` or ``"xla"``: exact attention. ``attention_reference``
-  matches ``xla_attention`` in the JAX package: fp32 scores scaled by
-  1/sqrt(D), fp32 softmax, probabilities cast to V's dtype for the P.V
-  product, output in the input dtype. On a CUDA tensor the hand-written K1
-  (``csrc/attention.cu``) computes it with an online softmax.
+- ``"xla"``: ``attention_reference``, the function of ``xla_attention``: fp32
+  scores scaled by 1/sqrt(D), fp32 softmax, the normalised probabilities cast
+  to V's dtype for P.V, output in the input dtype. Plain PyTorch on every
+  device (in the JAX package ``"xla"`` never reaches a Pallas kernel).
+- ``"pallas"``: K1 (``csrc/attention.cu``), the function of the Pallas
+  ``_fused_attention_kernel``, whose plain version is
+  ``pallas_attention_reference``: Q times 1/sqrt(D) rounded to Q's dtype before
+  the dot, P = exp(s - row max) rounded to V's dtype, the row sum over that
+  rounded P, P.V divided once by the row sum. Its opt-in branches
+  IRET_ATTN_SCORES_BF16 and IRET_ATTN_NORM_BOUND are read at call time.
+- ``None``: K1 on the card and ``attention_reference`` on the CPU. (The JAX
+  package runs Pallas on the TPU only inside a window of sequence lengths and
+  XLA elsewhere; the port runs K1 at every site on the card.)
+- ``"flash"``: K5, the function of ``_flash_attention_kernel``
+  (``flash_attention_reference``): K1's, with KV walked in chunks and the row
+  sum taken over the fp32 P.
+- ``"pallas_packed"``: K6b through ``packed_call``, on the projection layout
+  [B, N, H*D] (``packed_attention_reference``, K1's function per head); K6a is
+  ``packed_call(..., variant="packed")``, as in the JAX package.
 - ``"int8"``: ``int8_attention``, the function of the JAX package's Pallas
   int8 kernel. Q is scaled by 1/sqrt(D) in its own dtype, K is smoothed by
   its token mean, both are quantized to s8 with one per-tensor scale each
@@ -18,17 +33,16 @@ backend)`` picks the function:
   tensor the hand-written K4 (``csrc/int8_attention.cu``) computes it.
 - ``"xla_int8"`` and ``"xla_int8_pv"``: the JAX package's plain XLA int8
   variants (s8 Q.K^T; s8 Q.K^T and s8 P.V), in plain PyTorch on any device.
-- ``"flash"`` and ``"pallas_packed"`` (the TPU kernels K5 and K6) are not
-  ported yet and raise ``NotImplementedError``.
 
-A CUDA tensor goes to the kernel, a CPU tensor to the plain version; there is
-no other branch. Gradients recompute through ``attention_reference``, as the
-JAX package's custom_vjp recomputes through ``xla_attention`` for every
-backend (rounding has no useful gradient).
+For a kernel's backend a CUDA tensor goes to the kernel and a CPU tensor to
+its plain version; there is no other branch. Gradients recompute through
+``attention_reference``, as the JAX package's custom_vjp recomputes through
+``xla_attention`` for every backend (rounding has no useful gradient).
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -53,6 +67,101 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v).to(q.dtype)
 
 
+# csrc/attention.cu's function flags
+_ROWSUM_F32, _SCORES_BF16, _NORM_BOUND = 1, 2, 4
+
+
+def _k1_flags() -> int:
+    """K1's opt-in branches, read from the environment at call time as the JAX
+    package reads them: IRET_ATTN_SCORES_BF16=1 and IRET_ATTN_NORM_BOUND=1."""
+    scores_bf16 = os.environ.get("IRET_ATTN_SCORES_BF16") == "1"
+    norm_bound = os.environ.get("IRET_ATTN_NORM_BOUND", "0") == "1"
+    return ((_SCORES_BF16 if scores_bf16 else 0) | (_NORM_BOUND if norm_bound else 0)
+            | (_ROWSUM_F32 if scores_bf16 and not norm_bound else 0))
+
+
+def _pallas_function(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     flags: int = 0) -> torch.Tensor:
+    """The Pallas K1 function on [B, N, H, D] with ``flags`` (``_k1_flags``)."""
+    qs = _prescale(q)
+    s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
+    if flags & _SCORES_BF16:
+        s = s.to(torch.bfloat16)
+    if flags & _NORM_BOUND:
+        qn = qs.float().square().sum(-1).sqrt()         # [B, Nq, H]
+        kn = k.float().square().sum(-1).amax(1).sqrt()  # [B, H]
+        m = (qn * kn[:, None]).transpose(1, 2)[..., None]
+    else:
+        m = s.amax(-1, keepdim=True)
+    pf = torch.exp((s - m).float())  # bf16 scores: s - m is a bf16 difference
+    p = pf.to(v.dtype)
+    l = (pf if flags & _ROWSUM_F32 else p.float()).sum(-1, keepdim=True)
+    if flags & _NORM_BOUND:
+        l = l.clamp_min(1e-30)
+    o = torch.einsum("bhqk,bkhd->bhqd", p.float(), v.float()) * (1.0 / l)
+    return o.to(q.dtype).transpose(1, 2)
+
+
+def pallas_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                               ) -> torch.Tensor:
+    """Plain version of K1, the JAX package's ``_fused_attention_kernel``, on
+    [B, N, H, D]: Q times 1/sqrt(D) in Q's dtype, fp32 scores, P = exp(s - row
+    max) rounded to V's dtype, the row sum over that rounded P, P.V in fp32
+    times the reciprocal of the row sum, the output in Q's dtype.
+
+    Its two opt-in branches are read from the environment at call time:
+    IRET_ATTN_SCORES_BF16=1 rounds the scores to bf16 before the max and exp
+    (s - max is then a bf16 difference), and IRET_ATTN_NORM_BOUND=1 shifts by
+    ||q'|| * max_j ||k_j|| in fp32 instead of the row max and clamps the row sum
+    at 1e-30. With bf16 scores the exp is taken in fp32 and the row sum adds
+    that fp32 exp, and so does P.V in fp32: that is how the JAX kernel runs on
+    the CPU in interpret mode, where XLA keeps the fp32 value of a bf16 exp
+    that feeds an fp32 operation."""
+    return _pallas_function(q, k, v, _k1_flags())
+
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              block_k: Optional[int] = None) -> torch.Tensor:
+    """Plain version of K5, the JAX package's ``_flash_attention_kernel``, on
+    [B, N, H, D]: Q prescaled as in K1, KV walked in chunks of
+    min(block_k, round_up(Nk, 128)) keys (``block_k`` defaults to
+    IRET_FLASH_BLOCK_K or 1024, read at call time) with a running max m, and per
+    chunk alpha = exp(m - m_new), P = exp(s - m_new) in fp32, l = l*alpha + the
+    sum of the fp32 P, acc = acc*alpha + (P in V's dtype).V; at the end acc
+    times the reciprocal of l, in Q's dtype."""
+    if block_k is None:
+        block_k = int(os.environ.get("IRET_FLASH_BLOCK_K", "1024"))
+    nk = k.shape[1]
+    chunk = min(block_k, -(-nk // 128) * 128)
+    qs = _prescale(q).float()
+    m = l = acc = None
+    for k0 in range(0, nk, chunk):
+        s = torch.einsum("bqhd,bkhd->bhqk", qs, k[:, k0:k0 + chunk].float())
+        m_new = s.amax(-1, keepdim=True) if m is None else torch.maximum(
+            m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        pv = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(),
+                          v[:, k0:k0 + chunk].float())
+        if m is None:
+            l, acc = p.sum(-1, keepdim=True), pv
+        else:
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + pv
+        m = m_new
+    return (acc * (1.0 / l)).to(q.dtype).transpose(1, 2)
+
+
+def packed_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               heads: int) -> torch.Tensor:
+    """Plain version of K6a and K6b on the projection layout: q [B, Nq, H*D],
+    k and v [B, Nk, H*D] -> [B, Nq, H*D]. Both TPU kernels compute K1's Pallas
+    function per head (without its opt-in branches)."""
+    b, nq, hd = q.shape
+    split = [t.unflatten(-1, (heads, hd // heads)) for t in (q, k, v)]
+    return _pallas_function(*split).reshape(b, nq, hd)
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("attention takes [B, N, H, D] tensors")
@@ -62,33 +171,118 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"v {tuple(v.shape)}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"attention runs on cuda or cpu, not {q.device}")
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError("q, k and v must share a dtype")
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    b, nq, h, d = q.shape
-    nk = k.shape[1]
+def _check_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> None:
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape or q.shape[0] != k.shape[0] \
+            or q.shape[2] != k.shape[2] or q.shape[2] % heads:
+        raise ValueError(f"packed attention takes q [B, Nq, H*D] and k, v [B, Nk, H*D] "
+                         f"with H = {heads}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    _check(*(t.unsqueeze(2) for t in (q, k, v)))
+
+
+def _kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d: int):
+    """(dtype code, scale) for the csrc/attention.cu entries, after checking what
+    they take. The scale is 1/sqrt(D) as q's dtype holds it."""
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"the attention kernel takes float32 or bfloat16, not {q.dtype}")
     if d > MAX_HEAD_DIM:
         raise ValueError(f"the attention kernel takes head_dim <= {MAX_HEAD_DIM}, not {d}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1:
+        if t.stride(-1) != 1:
             raise ValueError(f"{name} must have a unit stride on its head_dim axis")
-    lib = _build.library()
+    return _DTYPE_CODES[q.dtype], float(torch.tensor(1.0 / math.sqrt(d), dtype=q.dtype))
+
+
+def _launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K1 (``"attention"``) or K5 (``"flash_attention"``) on [B, N, H, D] views."""
+    b, nq, h, d = q.shape
+    nk = k.shape[1]
+    code, scale = _kernel_args(q, k, v, d)
+    flags = (_k1_flags(),) if kernel == "attention" else ()
     out = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
-    err = lib.iret_attention(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), b, h, nq, nk, d,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream,
+    err = getattr(_build.library(), f"iret_{kernel}")(
+        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, nq, nk, d,
+        *(t.stride(i) for t in (q, k, v) for i in range(3)),
+        scale, *flags, torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(err, "attention")
-    _build.record_launch("attention", (b, nq, nk, h, d, str(q.dtype)))
+    _build.check(err, kernel)
+    _build.record_launch(kernel, (b, nq, nk, h, d, str(q.dtype)))
     return out
+
+
+def _launch_packed(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   heads: int) -> torch.Tensor:
+    """K6a (``"packed_attention"``) or K6b (``"packed_attention_grid"``) on
+    [B, N, H*D] views."""
+    b, nq, hd = q.shape
+    nk, d = k.shape[1], hd // heads
+    code, scale = _kernel_args(q, k, v, d)
+    out = torch.empty((b, nq, hd), dtype=q.dtype, device=q.device)
+    err = getattr(_build.library(), f"iret_{kernel}")(
+        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, heads, nq, nk, d,
+        *(t.stride(i) for t in (q, k, v) for i in range(2)),
+        scale, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, kernel)
+    _build.record_launch(kernel, (b, nq, nk, heads, d, str(q.dtype)))
+    return out
+
+
+def pallas_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K1 on [B, N, H, D]: the kernel for CUDA tensors, ``pallas_attention_reference``
+    for CPU tensors."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return pallas_attention_reference(q, k, v)
+    return _launch("attention", q, k, v)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K5 on [B, N, H, D]: the kernel for CUDA tensors, ``flash_attention_reference``
+    for CPU tensors."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v)
+    return _launch("flash_attention", q, k, v)
+
+
+def pallas_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            heads: int) -> torch.Tensor:
+    """K6a on [B, N, H*D]: the kernel for CUDA tensors,
+    ``packed_attention_reference`` for CPU tensors."""
+    _check_packed(q, k, v, heads)
+    if q.device.type == "cpu":
+        return packed_attention_reference(q, k, v, heads)
+    return _launch_packed("packed_attention", q, k, v, heads)
+
+
+def pallas_attention_packed_grid(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 heads: int) -> torch.Tensor:
+    """K6b on [B, N, H*D]: the kernel for CUDA tensors,
+    ``packed_attention_reference`` for CPU tensors."""
+    _check_packed(q, k, v, heads)
+    if q.device.type == "cpu":
+        return packed_attention_reference(q, k, v, heads)
+    return _launch_packed("packed_attention_grid", q, k, v, heads)
+
+
+def packed_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                variant: str = "grid") -> torch.Tensor:
+    """[B, N, H, D] through the packed layout: each of q, k, v reshaped to
+    [B, N, H*D] (a view when its head and dim axes are contiguous, as the
+    UNet's projections are), K6b (``"grid"``) or K6a (``"packed"``), and back."""
+    if variant not in ("grid", "packed"):
+        raise ValueError(f"Unknown packed variant: {variant}")
+    impl = pallas_attention_packed_grid if variant == "grid" else pallas_attention_packed
+    b, nq, h, d = q.shape
+    out = impl(*(t.reshape(t.shape[0], t.shape[1], h * d) for t in (q, k, v)), heads=h)
+    return out.view(b, nq, h, d)
 
 
 class _AttentionFn(torch.autograd.Function):
@@ -249,15 +443,8 @@ def xla_attention_int8_pv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
     return o.to(q.dtype)
 
 
-_NOT_PORTED = {"flash": "K5 (flash attention)", "pallas_packed": "K6 (packed-layout attention)"}
-
-
 def check_backend(backend: Optional[str]) -> None:
     """Raise unless ``attention`` takes ``backend``."""
-    if backend in _NOT_PORTED:
-        raise NotImplementedError(
-            f"attention backend {backend!r} runs the TPU kernel {_NOT_PORTED[backend]}, "
-            "which is not ported to CUDA yet (ROADMAP.md)")
     if backend not in _BACKENDS:
         raise ValueError(f"Unknown attention backend: {backend}")
 
@@ -266,23 +453,27 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               backend: Optional[str] = None) -> torch.Tensor:
     """Multi-head softmax attention, [B, Nq, H, D] x [B, Nk, H, D] -> [B, Nq, H, D].
 
-    ``backend``: None, "pallas" or "xla" (exact: K1 on the card), "int8" (K4),
-    "xla_int8" or "xla_int8_pv" (plain int8 variants)."""
+    ``backend``: None (K1 on the card, ``attention_reference`` on the CPU),
+    "pallas" (K1), "xla" (``attention_reference`` everywhere), "flash" (K5),
+    "pallas_packed" (K6b), "int8" (K4), "xla_int8" or "xla_int8_pv" (plain int8
+    variants)."""
     check_backend(backend)
     _check(q, k, v)
     return _BACKENDS[backend](q, k, v)
 
 
-def _exact_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _default_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if q.device.type == "cpu":
         return attention_reference(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"attention runs on cuda or cpu, not {q.device}")
-    return _AttentionFn.apply(_launch, q, k, v)
+    return _AttentionFn.apply(pallas_attention, q, k, v)
 
 
 _BACKENDS: "dict[Optional[str], Callable]" = {
-    None: _exact_attention, "pallas": _exact_attention, "xla": _exact_attention,
+    None: _default_attention,
+    "pallas": lambda q, k, v: _AttentionFn.apply(pallas_attention, q, k, v),
+    "xla": attention_reference,
+    "flash": lambda q, k, v: _AttentionFn.apply(flash_attention, q, k, v),
+    "pallas_packed": lambda q, k, v: _AttentionFn.apply(packed_call, q, k, v),
     "int8": int8_attention,
     "xla_int8": lambda q, k, v: _AttentionFn.apply(xla_attention_int8, q, k, v),
     "xla_int8_pv": lambda q, k, v: _AttentionFn.apply(xla_attention_int8_pv, q, k, v),

@@ -10,19 +10,43 @@ absolute term covers that as a share of the largest output:
 
     |got - ref| <= share * max|ref| + 2**-7 * |ref|      (elementwise)
 
-- attention, share 2**-8 (half a step of the largest value): the plain
-  version rounds the normalised probabilities to bf16 before P.V, the kernel
-  the unnormalised ones, each to 2**-9 of itself with random sign.
-  Self-attention over 4096 random keys averages to |out| ~ 0.03, and a kernel
-  that dropped one 64-key tile or skipped the online-softmax rescale moves it
-  by far more than this limit (tests/test_torch_cuda.py holds both faults
-  against it).
+- attention (K1), share 2**-8 (half a step of the largest value): the plain
+  version (``pallas_attention_reference``) rounds P to bf16 against the row
+  max, the kernel against the running max of its 64-key tiles, each to 2**-9
+  of itself with random sign. Self-attention over 4096 random keys averages
+  to |out| ~ 0.03, and a kernel that dropped one 64-key tile or skipped the
+  online-softmax rescale moves it by far more than this limit
+  (tests/test_torch_cuda.py holds both faults against it).
+- flash_attention (K5), share 2**-8, as attention: the plain version rounds
+  P against the running max of 1024-key chunks, the kernel against that of
+  64-key tiles; the row sum is the fp32 P's on both sides.
+- packed_attention and packed_attention_grid (K6a, K6b), share 2**-8: K1's
+  function and K1's device code on another layout, so K1's difference.
+- attention_scores_bf16: K1 with IRET_ATTN_SCORES_BF16=1, in either input
+  dtype, share 2**-8 as attention. Both sides take the exact row max and shift
+  by it, but the scores are fp32 sums that each side rounds to bf16, and one
+  summed in another order can round to the neighbouring bf16 value: that
+  moves its P by 2**-8 of itself, in fp32 inputs too.
 - group_norm, share 2**-10: the two sides differ before rounding only by
   fp32 sums taken in another order, which shows where x*w + b cancels near 0.
 - int8_attention (K4), share 2**-8, as attention: Q.K^T is exact in s8 on
   both sides, and they differ in the bf16 rounding of P, the kernel rounding
   it against the running max of 64-key tiles, the plain version against the
   row max (the same difference as K1's).
+
+Placement (bf16 only): the limit above also passes a kernel that puts its
+bf16 roundings elsewhere (for example one that scales the fp32 scores instead
+of rounding Q*(1/sqrt(D)), or sums the fp32 P), so ``placement`` adds a check:
+the share of output elements bitwise equal to the right plain version must
+beat the share bitwise equal to a plain version with other roundings
+(``attention_reference``, xla_attention's) by ``PLACEMENT_MARGIN``. On the CPU
+(bf16 inputs from a seed, 128 query rows at the served shapes) a plain emulation
+of the kernel's 64-key tiles with the Pallas roundings equals
+``pallas_attention_reference`` on 62-100% of elements and
+``attention_reference`` on 43-47%; the same emulation with the roundings K1
+had before (fp32 scores scaled after the dot, row sum over the fp32 P) equals
+them on 44-49% and 50-52%. A margin of 0.1 share lies between: the right
+placement clears it by 0.09 or more, the wrong one misses it by 0.13 or more.
 
 conv3x3_int8 (K3): both sides take the same exact int32 sums, convert each
 to fp32 with one rounding and multiply by the same fp32 scale, so they agree
@@ -41,14 +65,17 @@ from typing import Tuple
 
 import torch
 
-_BF16_SHARE = {"attention": 2.0**-8, "group_norm": 2.0**-10, "int8_attention": 2.0**-8}
+_BF16_SHARE = {"attention": 2.0**-8, "group_norm": 2.0**-10, "int8_attention": 2.0**-8,
+               "flash_attention": 2.0**-8, "packed_attention": 2.0**-8,
+               "packed_attention_grid": 2.0**-8, "attention_scores_bf16": 2.0**-8}
+PLACEMENT_MARGIN = 0.1
 
 
 def limits(ref: torch.Tensor, kernel: str) -> Tuple[float, float]:
     """(atol, rtol) for holding ``kernel``'s output against its plain ``ref``."""
     if kernel in ("conv3x3_int8", "int8_layer"):
         return 0.0, torch.finfo(ref.dtype).eps
-    if ref.dtype == torch.bfloat16:
+    if ref.dtype == torch.bfloat16 or kernel == "attention_scores_bf16":
         return _BF16_SHARE[kernel] * float(ref.float().abs().max()), 2.0**-7
     if ref.dtype == torch.float32:
         return 1e-4, 1e-4
@@ -60,3 +87,13 @@ def within(got: torch.Tensor, ref: torch.Tensor, kernel: str) -> Tuple[bool, flo
     atol, rtol = limits(ref, kernel)
     err = (got.float() - ref.float()).abs()
     return bool(torch.all(err <= atol + rtol * ref.float().abs())), float(err.max())
+
+
+def placement(got: torch.Tensor, right_ref: torch.Tensor, wrong_ref: torch.Tensor
+              ) -> Tuple[bool, float, float]:
+    """Whether ``got`` equals ``right_ref`` bitwise on a share of its elements
+    that beats its share equal to ``wrong_ref`` by ``PLACEMENT_MARGIN``; and both
+    shares."""
+    right = float((got.float() == right_ref.float()).float().mean())
+    wrong = float((got.float() == wrong_ref.float()).float().mean())
+    return right >= wrong + PLACEMENT_MARGIN, right, wrong

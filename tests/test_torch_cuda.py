@@ -8,10 +8,15 @@ exists (so on a CPU-only machine each skips with that reason). On the H100:
 Tolerances are ``ops/tolerance.py``'s: fp32 1e-4 absolute and relative (the
 same sums in another order); bf16 one bf16 step of each value plus a share of
 the largest, |got - ref| <= share * max|ref| + 2**-7 * |ref|, with share 2**-8
-for attention and 2**-10 for GroupNorm.
-``test_bf16_limit_rejects_planted_faults`` shows that this limit catches a
-kernel that drops a KV tile or skips the online-softmax rescale at the N = 4096
-shapes; its CPU case runs anywhere, with fewer query rows.
+for the attention kernels (K1, K5, K6a, K6b) and 2**-10 for GroupNorm. In bf16
+the attention kernels must also pass ``tolerance.placement``: more of their
+output equal bitwise to their own plain version (the Pallas kernel's
+roundings) than to ``attention_reference`` (xla_attention's roundings).
+``test_placement_check_detects_f1`` shows that this check fails the roundings
+K1 had before they were moved (its CPU case runs anywhere).
+``test_bf16_limit_rejects_planted_faults`` shows that the bf16 limit catches a
+K1 or K5 that drops a KV tile or skips the online-softmax rescale at the
+N = 4096 shapes; its CPU case runs anywhere, with fewer query rows.
 
 K3 (int8 conv) is held to one rounding of the output dtype (the integer sums
 are exact) and K4 (int8 attention) to attention's bf16 limit (share 2**-8);
@@ -21,6 +26,7 @@ conv tap, and a dropped KV tile or a missing rescale, with a CPU case as above.
 (``torch._int_mm`` and the quantizers on the card) against the CPU to one
 rounding of the output dtype, and shows that the limit fails full precision.
 """
+import collections
 import math
 
 import pytest
@@ -46,11 +52,24 @@ def cuda():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-@pytest.mark.parametrize("b,nq,nk,h,d", [
+def assert_attention_kernel(got, kernel, right_ref, q, k, v):
+    """The kernel's output within its limit of its plain version and, in bf16,
+    placed: nearer bitwise to it than to ``attention_reference``."""
+    assert_within(got, right_ref, kernel)
+    if got.dtype == torch.bfloat16:
+        wrong = A.attention_reference(q, k, v).reshape(got.shape)
+        ok, right_share, wrong_share = tolerance.placement(got, right_ref, wrong)
+        assert ok, (right_share, wrong_share)
+
+
+ATTN_SHAPES = [
     (2, 4096, 4096, 8, 40), (2, 1024, 77, 8, 80), (2, 256, 256, 8, 160),
     (2, 64, 77, 8, 160), (1, 4096, 4096, 1, 512), (1, 100, 37, 3, 24),
     (1, 77, 50, 2, 20),   # head_dim not a multiple of 8: the unvectorised tile loads
-])
+]
+
+
+@pytest.mark.parametrize("b,nq,nk,h,d", ATTN_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_attention_kernel_matches_plain(cuda, b, nq, nk, h, d, dtype):
     q, k, v = (torch.randn((b, n, h, d), generator=cuda, device="cuda").to(dtype)
@@ -58,14 +77,70 @@ def test_attention_kernel_matches_plain(cuda, b, nq, nk, h, d, dtype):
     before = _build.launch_counts["attention"]
     got = A.attention(q, k, v)
     assert _build.launch_counts["attention"] == before + 1
-    assert_within(got, A.attention_reference(q, k, v), "attention")
+    assert_attention_kernel(got, "attention", A.pallas_attention_reference(q, k, v), q, k, v)
+    # "xla" is the plain xla_attention function on every device
+    assert torch.equal(A.attention(q, k, v, backend="xla"), A.attention_reference(q, k, v))
+    assert _build.launch_counts["attention"] == before + 1
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_attention_kernel_takes_strided_views(cuda, dtype):
     qkv = torch.randn((2, 300, 3, 4, 40), generator=cuda, device="cuda").to(dtype)
     q, k, v = qkv.unbind(2)
-    assert_within(A.attention(q, k, v), A.attention_reference(q, k, v), "attention")
+    assert_within(A.attention(q, k, v), A.pallas_attention_reference(q, k, v), "attention")
+
+
+VARIANT_SHAPES = [  # the UNet's shapes at CFG batch 2, then the JAX tests' edge cases
+    (2, 4096, 4096, 8, 40), (2, 4096, 77, 8, 40), (2, 1024, 1024, 8, 80),
+    (2, 1024, 77, 8, 80), (2, 256, 256, 8, 160), (2, 64, 77, 8, 160),
+    (1, 256, 256, 2, 40), (1, 200, 200, 1, 80), (1, 100, 100, 2, 160), (1, 77, 50, 2, 20),
+]
+
+
+def _variant(kernel, q, k, v):
+    """(kernel's output, its plain version's) on [B, N, H, D] inputs."""
+    if kernel == "flash_attention":
+        return A.attention(q, k, v, backend="flash"), A.flash_attention_reference(q, k, v)
+    b, nq, h, d = q.shape
+    ref = A.packed_attention_reference(*(t.flatten(2) for t in (q, k, v)), h).view(b, nq, h, d)
+    if kernel == "packed_attention_grid":
+        return A.attention(q, k, v, backend="pallas_packed"), ref
+    return A.packed_call(q, k, v, variant="packed"), ref
+
+
+@pytest.mark.parametrize("b,nq,nk,h,d", VARIANT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kernel", ["flash_attention", "packed_attention",
+                                    "packed_attention_grid"])
+def test_attention_variant_kernels_match_plain(cuda, kernel, b, nq, nk, h, d, dtype):
+    """K5, K6a and K6b: one launch each, within the limit of their plain
+    versions and, in bf16, placed."""
+    q, k, v = (torch.randn((b, n, h, d), generator=cuda, device="cuda").to(dtype)
+               for n in (nq, nk, nk))
+    before = collections.Counter(_build.launch_counts)
+    got, ref = _variant(kernel, q, k, v)
+    launched = collections.Counter(_build.launch_counts) - before
+    assert launched == {kernel: 1}, launched
+    assert got.shape == q.shape and got.dtype == dtype
+    assert_attention_kernel(got, kernel, ref, q, k, v)
+
+
+@pytest.mark.parametrize("env", ["IRET_ATTN_SCORES_BF16", "IRET_ATTN_NORM_BOUND"])
+@pytest.mark.parametrize("b,nq,nk,h,d", [(2, 1024, 1024, 8, 80), (2, 1024, 77, 8, 80),
+                                         (1, 256, 256, 1, 512), (1, 100, 37, 3, 24)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_kernel_branches_match_plain(cuda, monkeypatch, env, b, nq, nk, h, d, dtype):
+    """K1's opt-in branches, read at call time by the wrapper and the plain
+    version. Both fix the softmax shift for the whole KV walk (the exact row
+    max from a first pass, or the norm bound), so the kernel rounds where its
+    plain version does."""
+    monkeypatch.setenv(env, "1")
+    q, k, v = (torch.randn((b, n, h, d), generator=cuda, device="cuda").to(dtype)
+               for n in (nq, nk, nk))
+    assert_within(A.attention(q, k, v, backend="pallas"), A.pallas_attention_reference(q, k, v),
+                  "attention_scores_bf16" if env == "IRET_ATTN_SCORES_BF16" else "attention")
+    if env == "IRET_ATTN_NORM_BOUND":  # the underflow cliff: finite, no 0/0
+        assert torch.isfinite(A.attention(q * 12, k * 12, v, backend="pallas")).all()
 
 
 @pytest.mark.parametrize("shape,groups,eps,act", [
@@ -100,13 +175,21 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         G.group_norm(x, torch.ones(8, device="cuda"), torch.zeros(8, device="cuda"), 2)
 
 
-def _online_attention(q, k, v, tile=64, drop_tile=None, rescale=True):
+def _online_attention(q, k, v, tile=64, drop_tile=None, rescale=True, rowsum_f32=False,
+                      placement="pallas"):
     """K1's algorithm in plain PyTorch: KV tiles of ``tile`` keys, fp32 running
-    max, sum and accumulator, bf16 probabilities into P.V, one divide at the
-    end. ``drop_tile`` (skip that tile) and ``rescale=False`` (never scale the
+    max, sum and accumulator, P rounded to v's dtype for P.V, one divide at the
+    end. ``placement="pallas"``: Q times 1/sqrt(D) rounded to q's dtype before
+    the dot and the row sum over the rounded P (K1), or over the fp32 P with
+    ``rowsum_f32`` (K5); ``placement="f1"``: the roundings K1 had before they
+    were moved (fp32 scores scaled after the dot, the row sum over the fp32 P).
+    ``drop_tile`` (skip that tile) and ``rescale=False`` (never scale the
     accumulator by exp(m_old - m_new)) plant the two faults."""
-    d = q.shape[-1]
-    qf = q.float().transpose(1, 2) / math.sqrt(d)
+    if placement == "pallas":
+        qf = A._prescale(q).float().transpose(1, 2)
+    else:
+        qf = q.float().transpose(1, 2) / math.sqrt(q.shape[-1])
+        rowsum_f32 = True
     kf, vf = k.float().transpose(1, 2), v.float().transpose(1, 2)
     m = torch.full(qf.shape[:-1] + (1,), -math.inf, device=q.device)
     l = torch.zeros_like(m)
@@ -118,9 +201,9 @@ def _online_attention(q, k, v, tile=64, drop_tile=None, rescale=True):
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
-        l = l * alpha + p.sum(-1, keepdim=True)
-        pv = p.to(v.dtype).float() @ vf[:, :, k0:k0 + tile]
-        acc = (acc * alpha if rescale else acc) + pv
+        pr = p.to(v.dtype).float()
+        l = l * alpha + (p if rowsum_f32 else pr).sum(-1, keepdim=True)
+        acc = (acc * alpha if rescale else acc) + pr @ vf[:, :, k0:k0 + tile]
         m = m_new
     return (acc / l).to(q.dtype).transpose(1, 2)
 
@@ -128,10 +211,10 @@ def _online_attention(q, k, v, tile=64, drop_tile=None, rescale=True):
 @pytest.mark.parametrize("b,nk,h,d", [(2, 4096, 8, 40), (1, 4096, 1, 512)])
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
 def test_bf16_limit_rejects_planted_faults(device, b, nk, h, d):
-    """At the main path's two N = 4096 sites, the bf16 limit passes the kernel
-    and a faithful emulation of it, and fails a dropped KV tile and a missing
-    rescale. The CPU case keeps Nk = 4096 and takes 256 query rows: each row
-    sees the same statistics."""
+    """At the main path's two N = 4096 sites, the bf16 limit passes K1 and K5
+    and faithful emulations of them, and fails a dropped KV tile and a missing
+    rescale in either. The CPU case keeps Nk = 4096 and takes 256 query rows:
+    each row sees the same statistics."""
     if device == "cuda" and not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -139,15 +222,47 @@ def test_bf16_limit_rejects_planted_faults(device, b, nk, h, d):
     gen = torch.Generator(device=device).manual_seed(1)
     q, k, v = (torch.randn((b, n, h, d), generator=gen, device=device).to(torch.bfloat16)
                for n in (nq, nk, nk))
-    ref = A.attention_reference(q, k, v)
+    for kernel, plain, backend, rowsum_f32 in (
+            ("attention", A.pallas_attention_reference, "pallas", False),
+            ("flash_attention", A.flash_attention_reference, "flash", True)):
+        ref = plain(q, k, v)
+        honest = [_online_attention(q, k, v, rowsum_f32=rowsum_f32)]
+        if device == "cuda":
+            honest.append(A.attention(q, k, v, backend=backend))
+        for got in honest:
+            assert_within(got, ref, kernel)
+        for fault in ({"drop_tile": 17}, {"rescale": False}):
+            ok, err = tolerance.within(_online_attention(q, k, v, rowsum_f32=rowsum_f32,
+                                                         **fault), ref, kernel)
+            assert not ok, f"the {kernel} limit passed a planted fault {fault} (max err {err})"
+
+
+@pytest.mark.parametrize("b,nk,h,d", [(2, 4096, 8, 40), (2, 1024, 8, 80), (2, 77, 8, 160)])
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_placement_check_detects_f1(device, b, nk, h, d):
+    """``tolerance.placement`` passes K1's tiled algorithm with the Pallas
+    kernel's roundings (and, on the card, K1 itself) and fails the same
+    algorithm with the roundings K1 had before they were moved: the bf16 limit
+    alone passes both. The CPU case takes 128 query rows."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    nq = nk if device == "cuda" else 128
+    gen = torch.Generator(device=device).manual_seed(4)
+    q, k, v = (torch.randn((b, n, h, d), generator=gen, device=device).to(torch.bfloat16)
+               for n in (nq, nk, nk))
+    right, wrong = A.pallas_attention_reference(q, k, v), A.attention_reference(q, k, v)
     honest = [_online_attention(q, k, v)]
     if device == "cuda":
         honest.append(A.attention(q, k, v))
     for got in honest:
-        assert_within(got, ref, "attention")
-    for fault in ({"drop_tile": 17}, {"rescale": False}):
-        ok, err = tolerance.within(_online_attention(q, k, v, **fault), ref, "attention")
-        assert not ok, f"the bf16 limit passed a planted fault {fault} (max err {err})"
+        assert_within(got, right, "attention")
+        ok, r, w = tolerance.placement(got, right, wrong)
+        assert ok, (r, w)
+    moved = _online_attention(q, k, v, placement="f1")
+    assert_within(moved, right, "attention")
+    ok, r, w = tolerance.placement(moved, right, wrong)
+    assert not ok, f"the placement check passed the old roundings ({r} vs {w})"
 
 
 # ---------------------------------------------------------------------------

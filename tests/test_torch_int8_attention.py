@@ -141,10 +141,12 @@ def test_int8_attention_gradient_is_exact_attention():
 
 
 def test_unported_backends_raise():
+    """Every backend of the JAX package's ``attention`` is ported except its
+    interpret-mode test backends; those and unknown names raise."""
     q = torch.zeros((1, 8, 1, 16))
-    with pytest.raises(NotImplementedError, match="K5"):
-        ta.attention(q, q, q, backend="flash")
-    with pytest.raises(NotImplementedError, match="K6"):
-        ta.attention(q, q, q, backend="pallas_packed")
-    with pytest.raises(ValueError, match="Unknown"):
-        ta.attention(q, q, q, backend="int4")
+    for backend in ("flash", "pallas_packed"):
+        assert ta.attention(q, q, q, backend=backend).shape == q.shape
+    for backend in ("int4", "pallas_interpret", "flash_interpret", "int8_interpret",
+                    "pallas_packed_interpret"):
+        with pytest.raises(ValueError, match="Unknown"):
+            ta.attention(q, q, q, backend=backend)

@@ -198,5 +198,8 @@ def test_quant_mode_defers_to_env(monkeypatch):
     assert RestorationPipeline(device="cpu", quant="").quant.mode is None
     monkeypatch.delenv("IRET_QUANT")
     assert RestorationPipeline(device="cpu").quant.mode is None
-    with pytest.raises(NotImplementedError, match="K5"):
-        RestorationPipeline(device="cpu", attention_backend="flash")
+    # the backend is checked when the pipeline is built: K5's is ported, a
+    # JAX interpret-mode test backend is not
+    assert RestorationPipeline(device="cpu", attention_backend="flash").attention_backend == "flash"
+    with pytest.raises(ValueError, match="Unknown"):
+        RestorationPipeline(device="cpu", attention_backend="flash_interpret")
