@@ -19,14 +19,16 @@ Phases (each prints its seconds; any failure exits non-zero):
               default (strength 0.5, 20-step PLMS, gs 5.0, so CFG batch 2), one
               with guidance=1.0 (no CFG branch), then both again (steady state).
               Launch counts are zeroed just before and read just after; K1 and K2
-              must have launched.
+              must have launched, every bf16 attention launch at head_dim <= 160
+              through the "sm90" code (wgmma + TMA) and the VAE mid-block's
+              (d = 512) through "sm90_split" (ops/attention.py's kernel_path).
   serve_int8  the same stack served w8a8: calibrate a static table with
               make_calib_img2img_fn on the request image, write it as JSON, build
               RestorationPipeline(quant="int8_static", quant_calib=...,
               attention_backend="int8") and answer a first CFG request, a steady
               CFG request and a steady gs 1.0 request. Counts are zeroed just
               before and read just after: K3 and K4 must have launched, and K1
-              (VAE mid-block); no site may miss the table. Prints the PSNR of the
+              (VAE mid-block, through "sm90_split"); no site may miss the table. Prints the PSNR of the
               int8 output against the bf16 serve's output on the same input
               (random weights: no target, so no gate). Then one more CFG request
               captures the input and output of every quantized layer that K3
@@ -39,8 +41,9 @@ Phases (each prints its seconds; any failure exits non-zero):
   serve_packed "flash") and (attention_backend="pallas_packed"): a first and a
               steady CFG request each. Counts are zeroed just before and read
               just after: every UNet attention site must run K5 (K6b), 352
-              launches per CFG request (32 sites x 11 UNet calls), and K1 only
-              at the VAE mid-block (2 per request). Prints request seconds, peak
+              launches per CFG request (32 sites x 11 UNet calls), all through
+              "sm90", and K1 only at the VAE mid-block (2 per request, through
+              "sm90_split"). Prints request seconds, peak
               memory, the PSNR against the bf16 serve's output on the same
               image (K5 differs from K1 in its row sum; K6b runs K1's code on
               the same addresses, so inf; random weights, so no gate) and one
@@ -52,8 +55,10 @@ Phases (each prints its seconds; any failure exits non-zero):
               for the bf16 attention kernels (K1, K5, K6a, K6b) the placement
               check (more elements bitwise equal to the plain version than to
               attention_reference, by ops/tolerance.py's margin), and kernel /
-              plain / library times with CUDA events. K1 also runs once with
-              IRET_ATTN_SCORES_BF16=1 and once with IRET_ATTN_NORM_BOUND=1.
+              plain / library times with CUDA events, and for the attention
+              kernels the device code that served the launch ("path"). K1 also
+              runs once with IRET_ATTN_SCORES_BF16=1 and once with
+              IRET_ATTN_NORM_BOUND=1 (both "mma").
 
 Kernel-vs-plain limits are ops/tolerance.py's: fp32 1e-4 absolute and
 relative; bf16 |got - ref| <= share * max|ref| + 2**-7 * |ref| elementwise (one
@@ -115,6 +120,8 @@ PARITY_TOL = 2e-3     # fp32 end to end, images in [-1, 1]
 UNET_REL_TOL = 1e-3   # fp32 full-width UNet eps, relative to max |eps|
 INT8_PSNR_MIN = 25.0  # TINY_SD int8_static image, CUDA against CPU (docstring)
 INT8_UNET_REL_TOL = 0.15  # SD-1.5 int8_static eps, relative Frobenius (docstring)
+ATTENTION_KERNELS = ("attention", "flash_attention", "packed_attention",
+                     "packed_attention_grid")
 # Attention launches per 512x512 denoise request (strength 0.5, 20-step PLMS:
 # 10 steps plus PLMS's extra first call = 11 UNet calls): 16 transformer blocks x
 # 2 sites in the UNet, and the VAE's mid block once in the encoder and once in
@@ -408,7 +415,9 @@ def phase_parity():
 
 def _serve(pipe, image, requests):
     """Answer ``requests`` with launch counts zeroed just before and read just
-    after: (seconds, outputs, launches, shapes, peak bytes)."""
+    after: (seconds, outputs, launches, shapes, codes, peak bytes); ``codes``
+    counts the attention launches by device code, after checking them
+    (``_check_attention_paths``)."""
     import numpy as np
     import torch
 
@@ -430,7 +439,31 @@ def _serve(pipe, image, requests):
         outs.append(out)
     launches = dict(_build.launch_counts)
     shapes = dict(_build.launch_shapes)
-    return seconds, outs, launches, shapes, torch.cuda.max_memory_allocated()
+    codes = dict(_build.launch_paths)
+    _check_attention_paths(shapes, codes)
+    return seconds, outs, launches, shapes, codes, torch.cuda.max_memory_allocated()
+
+
+def _check_attention_paths(shapes, codes) -> None:
+    """Every attention launch of a serve went through the sm90 code: "sm90" at
+    head_dim <= 160, "sm90_split" above (the VAE mid-block, which every
+    request runs). ``shapes``: launches by (kernel, shape key); ``codes``: by
+    (kernel, path)."""
+    from image_restoration_and_enhancement_torch.ops import attention as A
+
+    want = collections.Counter()
+    for (kernel, key), n in shapes.items():
+        if kernel in ATTENTION_KERNELS:
+            d, dtype = key[4], key[5]
+            if dtype != "torch.bfloat16":
+                raise AssertionError(f"a {dtype} attention launch in a bf16 serve: {key}")
+            want[(kernel, "sm90" if d <= A.SM90_MAX_HEAD_DIM else "sm90_split")] += n
+    got = {k: n for k, n in codes.items() if k[0] in ATTENTION_KERNELS}
+    log(f"attention launches by path: { {f'{k}/{p}': n for (k, p), n in sorted(got.items())} }")
+    if got != dict(want):
+        raise AssertionError(f"attention launches by path {got}, not {dict(want)}")
+    if not want[("attention", "sm90_split")]:
+        raise AssertionError("the VAE mid-block's attention did not run sm90_split")
 
 
 def _pipeline(tmp, **kw):
@@ -472,7 +505,7 @@ def phase_serve(tmp):
                     ("guidance=1.0 (no CFG branch; first batch-1 call)", {"guidance": 1.0}),
                     ("default again (steady state)", {}),
                     ("guidance=1.0 again (steady state)", {"guidance": 1.0})]
-        seconds, outs, launches, shapes, peak = _serve(pipe, image, requests)
+        seconds, outs, launches, shapes, codes, peak = _serve(pipe, image, requests)
         log(f"serve launches: {launches}; peak memory {peak / 2**30:.3f} GiB")
         for k in ("attention", "group_norm"):
             if launches.get(k, 0) <= 0:
@@ -481,7 +514,7 @@ def phase_serve(tmp):
             {"request_seconds": seconds, "peak_memory_bytes": peak, "launches": launches}))
         _profile_request(pipe, image, seconds[2])
     return {"request_seconds": seconds, "peak_bytes": peak, "launches": launches,
-            "shapes": shapes, "image": image, "out_cfg": outs[2]}
+            "shapes": shapes, "codes": codes, "image": image, "out_cfg": outs[2]}
 
 
 def phase_serve_int8(tmp, bf16):
@@ -525,7 +558,7 @@ def phase_serve_int8(tmp, bf16):
         requests = [("int8 default (gs 5.0, CFG batch 2; includes the stack load)", {}),
                     ("int8 default again (steady state)", {}),
                     ("int8 guidance=1.0 (no CFG branch)", {"guidance": 1.0})]
-        seconds, outs, launches, shapes, peak = _serve(pipe, image, requests)
+        seconds, outs, launches, shapes, codes, peak = _serve(pipe, image, requests)
         log(f"serve_int8 launches: {launches}; peak memory {peak / 2**30:.3f} GiB")
         for k in ("conv3x3_int8", "int8_attention", "attention", "group_norm"):
             if launches.get(k, 0) <= 0:
@@ -541,7 +574,7 @@ def phase_serve_int8(tmp, bf16):
         _profile_request(pipe, image, seconds[1])
         _layer_parity(pipe, image)
     return {"request_seconds": seconds, "peak_bytes": peak, "launches": launches,
-            "shapes": shapes}
+            "shapes": shapes, "codes": codes}
 
 
 _VARIANT_KERNEL = {"flash": "flash_attention", "pallas_packed": "packed_attention_grid"}
@@ -561,7 +594,7 @@ def phase_serve_variant(tmp, bf16, backend):
         pipe = _pipeline(tmp, attention_backend=backend)
         requests = [(f"{backend} default (gs 5.0, CFG batch 2; includes the stack load)", {}),
                     (f"{backend} default again (steady state)", {})]
-        seconds, outs, launches, shapes, peak = _serve(pipe, image, requests)
+        seconds, outs, launches, shapes, codes, peak = _serve(pipe, image, requests)
         log(f"{name} launches: {launches}; peak memory {peak / 2**30:.3f} GiB")
         want = {kernel: UNET_ATTENTION_PER_REQUEST * len(requests),
                 "attention": VAE_ATTENTION_PER_REQUEST * len(requests)}
@@ -578,7 +611,7 @@ def phase_serve_variant(tmp, bf16, backend):
         del pipe
         torch.cuda.empty_cache()
     return {"request_seconds": seconds, "peak_bytes": peak, "launches": launches,
-            "shapes": shapes}
+            "shapes": shapes, "codes": codes}
 
 
 def _cpu_twin(mod):
@@ -667,17 +700,20 @@ def _layer_parity(pipe, image) -> None:
 
 
 def _kernel_group(name: str, mma_label: str) -> str:
-    """``mma_label``: what runs the tensor-core attention kernel in this serve
-    (K1, K5 and K6 share its device code; the UNet's sites decide)."""
+    """``mma_label``: what runs the tensor-core attention code at the UNet's
+    sites in this serve (K1, K5 and K6 share its device code; the backend
+    decides). The d = 512 instance is K1 at the VAE mid-block in every serve."""
     low = name.lower()
     if "conv3x3_int8_kernel" in name:
         return "K3 conv3x3_int8"
     if "int8_attention_kernel" in name:
         return "K4 int8_attention"
-    if "attention_mma_kernel" in name:
+    if "attention_sm90_kernel<512," in name:
+        return "K1 attention (VAE d 512, sm90_split)"
+    if "attention_sm90_kernel" in name or "attention_mma_kernel" in name:
         return mma_label
     if "attention_kernel" in name:
-        return "K1 attention"
+        return "K1 attention (simt)"
     if "gn_stats" in name or "gn_finalize" in name or "gn_apply" in name:
         return "K2 group_norm"
     if any(w in low for w in ("fprop", "conv", "implicit", "dgrad")):
@@ -732,10 +768,38 @@ def _dtype(name: str):
     return getattr(torch, name.split(".")[-1])
 
 
+def _bare_call(q, k, v, path):
+    """K1's function through one device code ("sm90", or "mma": the design the
+    sm90 code replaced at the served sites, which still serves K1's opt-in
+    branches) on the same inputs, straight through the C entry without the
+    Python wrapper: timed beside the kernel as an in-call comparison of the
+    two codes (their host cost is the C entry's alone, tensor-map encodes
+    included for sm90) and not counted as a launch."""
+    import torch
+
+    from image_restoration_and_enhancement_torch.ops import _build
+    from image_restoration_and_enhancement_torch.ops import attention as A
+
+    b, nq, h, d = q.shape
+    out = torch.empty_like(q)
+    lib, scale = _build.library(), A._scale(d, q.dtype)
+    strides = [t.stride(i) for t in (q, k, v) for i in range(3)]
+
+    def run():
+        err = lib.iret_attention(1, A._PATH_CODES[path], q.data_ptr(), k.data_ptr(),
+                                 v.data_ptr(), out.data_ptr(), b, h, nq, k.shape[1], d,
+                                 *strides, scale, 0, torch.cuda.current_stream().cuda_stream)
+        _build.check(err, f"attention ({path})")
+        return out
+    return run
+
+
 def _attention_case(kernel):
     """K1, K5, K6a or K6b on random q, k, v of one shape: (kernel, plain
     version, SDPA, operations seconds, bytes, attention_reference for the
-    placement check). K6 takes the [B, N, H*D] views of the same tensors."""
+    placement check, and for bf16 K1 at head_dim <= 160 bare calls of the sm90
+    and mma.sync codes on the same inputs, ``_bare_call``). K6 takes the
+    [B, N, H*D] views of the same tensors."""
     def case(key, gen):
         import torch
         import torch.nn.functional as F
@@ -754,7 +818,10 @@ def _attention_case(kernel):
             run, plain = {"attention": (A.pallas_attention, A.pallas_attention_reference),
                           "flash_attention": (A.flash_attention,
                                               A.flash_attention_reference)}[kernel]
-            return (lambda: run(q, k, v), lambda: plain(q, k, v), lib, ops_s, nbytes, wrong)
+            bare = {p: _bare_call(q, k, v, p) for p in ("sm90", "mma")} \
+                if kernel == "attention" and dtype == "torch.bfloat16" \
+                and d <= A.SM90_MAX_HEAD_DIM else None
+            return (lambda: run(q, k, v), lambda: plain(q, k, v), lib, ops_s, nbytes, wrong, bare)
         qp, kp, vp = (t.flatten(2) for t in (q, k, v))
         run = A.pallas_attention_packed if kernel == "packed_attention" \
             else A.pallas_attention_packed_grid
@@ -887,13 +954,17 @@ def phase_kernels(main):
               for name in ("IRET_ATTN_SCORES_BF16", "IRET_ATTN_NORM_BOUND")]
     with _Phase("kernels"):
         for kernel, key, count, env in cases:
-            run, plain, lib, ops_s, nbytes, wrong = _CASES[kernel](key, gen)
+            case = _CASES[kernel](key, gen)
+            run, plain, lib, ops_s, nbytes, wrong = case[:6]
+            bare = case[6] if len(case) > 6 and not env else None
             with torch.inference_mode(), mock.patch.dict(os.environ, env):
                 before = _build.launch_counts[kernel]
+                before_codes = collections.Counter(_build.launch_paths)
                 got, ref = run(), plain()
                 torch.cuda.synchronize()
                 if _build.launch_counts[kernel] != before + 1:
                     raise AssertionError(f"{kernel} {key}: the wrapper did not launch its kernel")
+                code = [c for (_, c) in collections.Counter(_build.launch_paths) - before_codes]
                 tol = tolerance.limits(ref, kernel)
                 ok, err = tolerance.within(got, ref, kernel)
                 placed = None
@@ -902,11 +973,21 @@ def phase_kernels(main):
                                       tolerance.placement(got, ref, wrong())))
                 iters = 5 if ops_s > 2e-5 else 20
                 ms, plain_ms, lib_ms = (_time_ms(f, iters) for f in (run, plain, lib))
+                if bare is not None:
+                    bare_rows = {}
+                    for p, f in bare.items():
+                        bare_ok, bare_err = tolerance.within(f(), ref, kernel)
+                        bare_rows[p] = {"ms": _time_ms(f, iters), "max_abs_err": bare_err,
+                                        "within": bare_ok}
             bound = max(ops_s, nbytes / PEAK_BYTES) * 1e3
             bound_by = "operations" if ops_s > nbytes / PEAK_BYTES else "bytes"
             row = {"kernel": kernel, "shape": list(key), "main_path_launches": count,
                    "max_abs_err": err, "atol_rtol": list(tol), "ms": ms, "plain_ms": plain_ms,
                    "library_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by}
+            if code:
+                row["path"] = code[0]
+            if bare is not None:
+                row["bare"] = bare_rows
             if placed is not None:
                 row["placement"] = placed
             if env:
@@ -918,7 +999,7 @@ def phase_kernels(main):
                                      f"max abs err {err}")
             if placed is not None and not placed["ok"]:
                 raise AssertionError(f"{kernel} {key} {env} fails the placement check: {placed}")
-            del run, plain, lib, got, ref, wrong
+            del run, plain, lib, got, ref, wrong, bare, case
 
         # Large-mean GroupNorm: E[x^2]-E[x]^2 cancels in fp32 in both versions
         # (by design), so only finiteness is checked here.
@@ -955,12 +1036,13 @@ _SOURCES = {
 _WEIGHTED_BY = {"packed_attention": "packed_attention_grid"}
 
 
-def _kernel_line(rows, paths):
+def _kernel_line(rows, paths, codes):
     """Per kernel: its launches on the main paths, and kernel / plain / bound /
     library times summed over those launches (each shape's time x its
     launches; K6a's over K6b's, see ``_WEIGHTED_BY``), for all paths together
     and under ``by_path`` for each. ``paths``: {path: {(kernel, shape key):
-    launches}}."""
+    launches}}; ``codes``: {(kernel, device code): launches} over all paths,
+    given as ``codes`` for the attention kernels."""
     def totals(name, counts):
         weight = _WEIGHTED_BY.get(name, name)
         mine = [(r, counts.get((weight, tuple(r["shape"])), 0)) for r in rows
@@ -984,6 +1066,8 @@ def _kernel_line(rows, paths):
             **totals(name, everything),
             "by_path": {path: totals(name, counts) for path, counts in paths.items()},
         })
+        if name in ATTENTION_KERNELS:
+            out[-1]["codes"] = {c: n for (k, c), n in sorted(codes.items()) if k == name}
         if name in _WEIGHTED_BY:
             out[-1]["times_weighted_by"] = f"{_WEIGHTED_BY[name]} launches"
     return {"kernels": out}
@@ -1022,11 +1106,14 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     paths = {name: r["shapes"] for name, r in results.items()}
     launches = {name: r["launches"] for name, r in results.items()}
+    codes = collections.Counter()
+    for r in results.values():
+        codes.update(r["codes"])
     main_shapes = collections.Counter()
     for counts in paths.values():
         main_shapes.update(counts)
     rows = phase_kernels(dict(main_shapes))
-    line = _kernel_line(rows, paths)
+    line = _kernel_line(rows, paths, codes)
     for k in line["kernels"]:
         counted = sum(p[k["name"]] for p in launches.values() if k["name"] in p)
         if k["launches"] != counted:

@@ -28,40 +28,60 @@
 // What bounds it on the H100: at the UNet's N = 4096 self-attention sites the
 // work is 4*N*N*D operations per (batch, head) against 4*N*D elements moved, far
 // above the card's ~295 operations per byte, so the bound is arithmetic (bf16
-// tensor cores, 989 TFLOP/s). The TPU kernels keep K and V resident per
-// (batch*head) (K1, K6) or chunk KV by 1024 keys over a sequential grid axis so
-// that Mosaic overlaps one chunk's VPU softmax with the next chunk's MXU work
-// (K5). On Hopper blocks run in parallel and in no order, so that sequential
-// axis becomes a loop inside each block, and a block's 227 KB of shared memory
-// holds far less than K and V at N = 4096 and D = 512 (8 MB). So one block
-// takes one Q tile of BQ rows, walks the KV sequence in tiles of BK keys with
+// tensor cores, 989 TFLOP/s): 0.0434 ms at 2 x 4096 x 4096 x 8 x 40. At d = 40
+// the exponentials are a floor of their own: 2*8*4096^2 ~ 268 M exp2 on the
+// MUFU units (16 a clock per SM, ~4.2e12 a second over 132 SMs at 1.98 GHz)
+// take ~0.064 ms, above the tensor cores' bound; only a softmax that runs
+// while another warpgroup's products run can approach it. The TPU kernels keep
+// K and V resident per (batch*head) (K1, K6) or chunk KV by 1024 keys over a
+// sequential grid axis so that Mosaic overlaps one chunk's VPU softmax with the
+// next chunk's MXU work (K5). On Hopper blocks run in parallel and in no order,
+// so that sequential axis becomes a loop inside each block, and a block's 227 KB
+// of shared memory holds far less than K and V at N = 4096 and D = 512 (8 MB).
+// So one block takes one Q tile, walks the KV sequence in tiles of BK keys with
 // an online softmax (running max m, sum l and the output accumulator in
 // registers), and never writes the score matrix to device memory: K5's chunked
-// walk is exactly what K1 already does here, and K5 differs from K1 only in
-// the row sum. K6a (in-kernel lane slices of one [block, H*D] block) and K6b
-// (grid BlockSpecs that cut D-wide lane blocks) are two ways of reading the
-// projection layout [B, N, H*D] on the TPU; here a block computes its own
-// addresses from strides, so both are the [B, N, H, D] code with head stride
-// D and row stride H*D.
+// walk is exactly what K1 already does here, and K5 differs from K1 only in the
+// row sum. K6a (in-kernel lane slices of one [block, H*D] block) and K6b (grid
+// BlockSpecs that cut D-wide lane blocks) are two ways of reading the
+// projection layout [B, N, H*D] on the TPU; here a block addresses its tiles
+// from strides, so both are the [B, N, H, D] code with head stride D and row
+// stride H*D.
 //
-// Two paths, one function:
-// - bf16 with head_dim <= 160 (every UNet site): tensor cores through
-//   mma.sync m16n8k16 (bf16 in, fp32 accumulate), one warp per 16 query rows,
-//   the score tile and P kept in registers (see attention_mma_kernel below).
-// - fp32, and bf16 with head_dim up to 512 (the VAE mid block): CUDA cores in
-//   fp32. 256 threads form a 16 x 16 grid; each thread owns RT = BQ/16 query
-//   rows, BK/16 score columns and DMAX/16 output dims. Q and K sit in shared
-//   memory transposed ([d][row], odd row stride so the transposing stores do
-//   not hit one bank), V row-major; a row's 16 owners are 16 adjacent lanes of
-//   one warp, so the row max and row sum reduce with __shfl_xor_sync.
-//   At d = 512 this path is slower than the plain PyTorch version, which runs
-//   on cuBLAS's tensor cores (PERF.md); a tensor-core d = 512 path is queued.
-// The tiles here are 64 keys (the TPU's are 1024 or all of Nk), so P is rounded
-// against other running maxima than the plain versions': the two agree to the
-// bf16 rounding of P. Ragged edges (Nq, Nk not a multiple of the tile, Nk = 77
-// for text cross-attention, D = 40/80/160/512) are masked: keys past Nk score
-// -inf, padded dims are zero, dims past D are never stored. A wgmma/TMA
-// version with pipelined tile loads is later work.
+// Four paths, one function. ops/attention.py's kernel_path() picks the path
+// from the layout, the dtype, D and the flags, and passes it in; an entry
+// returns cudaErrorInvalidValue for a path its arguments cannot take, and
+// never picks another one itself.
+// - kSm90 (bf16, head_dim <= 160, no opt-in branch, rows TMA can address:
+//   16-byte aligned base and strides; every UNet site): warp-specialised
+//   wgmma + TMA, see attention_sm90_kernel. A block of 128 query rows: one
+//   producer warp keeps a ring of 3-4 K/V tiles in flight through TMA on
+//   full/empty mbarriers; two consumer warpgroups own 64 rows each and take
+//   turns on the tensor cores (named barriers), so one's exp2 and row sums
+//   run while the other's wgmma runs. KV tiles of 128 keys (64 at d 160).
+// - kSm90Split (bf16, 160 < head_dim <= 512, no opt-in branch, TMA rows: the
+//   VAE mid-block, d = 512): the same kernel with one consumer warpgroup of
+//   64 rows, KV tiles of 32 keys, and the output's D split in two slices of
+//   256 over a grid axis (a 64 x 512 fp32 accumulator would need 256
+//   registers a thread). Each slice recomputes S over all 512 dims: 1.5x the
+//   bound's work, 128 blocks for 132 SMs at N = 4096.
+// - kMma (bf16, head_dim <= 160, an opt-in branch or rows TMA cannot
+//   address): mma.sync m16n8k16 (see attention_mma_kernel).
+// - kSimt (fp32 at head_dim <= 512, and bf16 above 160 with an opt-in branch
+//   or rows TMA cannot address; on no served path): CUDA cores in fp32.
+//   256 threads form a 16 x 16 grid; each thread owns RT = BQ/16 query rows,
+//   BK/16 score columns and DMAX/16 output dims. Q and K sit in shared memory
+//   transposed ([d][row], odd row stride so the transposing stores do not hit
+//   one bank), V row-major; a row's 16 owners are 16 adjacent lanes of one
+//   warp, so the row max and row sum reduce with __shfl_xor_sync.
+// The KV tiles here are 32-128 keys (the TPU's are 1024 or all of Nk), so P is
+// rounded against other running maxima than the plain versions': the two
+// agree to the bf16 rounding of P. Ragged edges (Nq, Nk not a multiple of the
+// tile, Nk = 77 for text cross-attention, D = 40/80/160/512) come in as zeros
+// (TMA's out-of-bounds fill on the sm90 paths, masked loads on the others);
+// keys past Nk then score 0, so they are masked to -inf; dims past D are
+// never stored.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -312,9 +332,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
                    cudaStream_t stream) {
   const size_t bytes = sizeof(float) * (size_t)smem_floats<BQ, BK>(D);
   auto kernel = attention_kernel<T, BQ, BK, DMAX>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
+  // Once per instance: the largest size it takes (D = DMAX).
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)(sizeof(float) * (size_t)smem_floats<BQ, BK>(DMAX)));
+  if (attr != cudaSuccess) return attr;
   dim3 grid((Nq + BQ - 1) / BQ, B * H);
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -324,7 +346,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
 }
 
 // fp32 at any head_dim <= 512 (the fp32 tests and parity runs use the small
-// widths). bf16 takes this path only above kMmaMaxHeadDim, at DMAX 512.
+// widths). bf16 takes the simt path only above kMmaMaxHeadDim with an opt-in
+// branch or rows TMA cannot address, at DMAX 512 (run, below).
 cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
                          int B, int H, int Nq, int Nk, int D, const int64_t* qs,
                          const int64_t* ks, const int64_t* vs, float scale, int flags,
@@ -345,7 +368,8 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core path (head_dim <= 160): mma.sync m16n8k16, fp32 accumulate.
+// kMma path (bf16, head_dim <= 160, K1's opt-in branches or rows TMA cannot
+// address): mma.sync m16n8k16, fp32 accumulate.
 //
 // A block of 4 warps takes 64 query rows; each warp owns 16 of them for the
 // whole KV walk. Its Q fragments are loaded once, each pair multiplied by
@@ -678,9 +702,9 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int
                        cudaStream_t stream) {
   constexpr int bytes = mma_smem_bytes<DP>();
   auto kernel = attention_mma_kernel<DP, VEC>;
-  cudaError_t err = cudaFuncSetAttribute(
+  static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
+  if (attr != cudaSuccess) return attr;
   dim3 grid((Nq + kMmaBQ - 1) / kMmaBQ, B * H);
   kernel<<<grid, kMmaThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
@@ -716,26 +740,596 @@ cudaError_t dispatch_mma_dp(const void* q, const void* k, const void* v, void* o
   return launch_mma<160, VEC>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, flags, stream);
 }
 
+// ---------------------------------------------------------------------------
+// sm90 paths (bf16): warp-specialised wgmma + TMA.
+//
+// Shared memory holds every tile in 64-column boxes (128 bytes of a row), the
+// layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B: box x of a tile of R rows
+// is R x 128 bytes at x * R * 128, each 8-row group a 1024-byte swizzle atom.
+// The wgmma descriptors below name the same 128-byte swizzle (layout type 1):
+// - Q (A of S = q'K^T) and K (its B) are K-major: rows 128 bytes apart, 8-row
+//   groups 1024 apart (SBO), a k-step of 16 dims is 32 bytes inside a box and
+//   the next box past every 4th step.
+// - V (B of O += P.V, N = the output dims) is MN-major (transposed): 64 dims
+//   contiguous in a row, the next 64 dims in the next box (LBO = BK * 128),
+//   8-key groups 1024 apart (SBO), a k-step of 16 keys 2048 bytes. N is a
+//   multiple of 64 (whole boxes), so D = 40 and 80 compute 64 and 128 output
+//   columns of which the zero-filled ones are never stored.
+// - P is the register A operand of P.V: the wgmma accumulator layout of S
+//   (per warp 16 rows, per 8 columns c0..c3 as mma.sync's m16n8) is the
+//   register A layout of m64nNk16 once two column blocks are packed to bf16.
+// Q' is made in place: each consumer warpgroup scales and rounds its 64 rows
+// of the Q tile in shared memory (an elementwise pass, so the swizzle does not
+// matter), then fence.proxy.async makes the stores visible to wgmma.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D tensor map (coordinates d, h, n, b) into shared memory.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int d, int h, int n, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(h), "r"(n), "r"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving register reads and writes across an
+// asynchronous wgmma that owns these registers.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// 2^x on the MUFU unit alone (exp2f adds range fixups for subnormal results).
+// Results below 2^-126 flush to 0: such a P or rescale factor changes no fp32
+// row sum of at least 1 (the row max contributes 1).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// Operand lists of the wgmma instructions: WG_Sx names accumulator registers
+// 8x .. 8x + 7, WG_F8 binds eight of them.
+#define WG_S0 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define WG_S1 "%8, %9, %10, %11, %12, %13, %14, %15"
+#define WG_S2 "%16, %17, %18, %19, %20, %21, %22, %23"
+#define WG_S3 "%24, %25, %26, %27, %28, %29, %30, %31"
+#define WG_S4 "%32, %33, %34, %35, %36, %37, %38, %39"
+#define WG_S5 "%40, %41, %42, %43, %44, %45, %46, %47"
+#define WG_S6 "%48, %49, %50, %51, %52, %53, %54, %55"
+#define WG_S7 "%56, %57, %58, %59, %60, %61, %62, %63"
+#define WG_S8 "%64, %65, %66, %67, %68, %69, %70, %71"
+#define WG_S9 "%72, %73, %74, %75, %76, %77, %78, %79"
+#define WG_S10 "%80, %81, %82, %83, %84, %85, %86, %87"
+#define WG_S11 "%88, %89, %90, %91, %92, %93, %94, %95"
+#define WG_S12 "%96, %97, %98, %99, %100, %101, %102, %103"
+#define WG_S13 "%104, %105, %106, %107, %108, %109, %110, %111"
+#define WG_S14 "%112, %113, %114, %115, %116, %117, %118, %119"
+#define WG_S15 "%120, %121, %122, %123, %124, %125, %126, %127"
+#define WG_R16 WG_S0 ", " WG_S1
+#define WG_R32 WG_R16 ", " WG_S2 ", " WG_S3
+#define WG_R64 WG_R32 ", " WG_S4 ", " WG_S5 ", " WG_S6 ", " WG_S7
+#define WG_R96 WG_R64 ", " WG_S8 ", " WG_S9 ", " WG_S10 ", " WG_S11
+#define WG_R128 WG_R96 ", " WG_S12 ", " WG_S13 ", " WG_S14 ", " WG_S15
+#define WG_F8(d, i)                                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),              \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_C16(d) WG_F8(d, 0), WG_F8(d, 8)
+#define WG_C32(d) WG_C16(d), WG_F8(d, 16), WG_F8(d, 24)
+#define WG_C64(d) WG_C32(d), WG_F8(d, 32), WG_F8(d, 40), WG_F8(d, 48), WG_F8(d, 56)
+#define WG_C96(d) WG_C64(d), WG_F8(d, 64), WG_F8(d, 72), WG_F8(d, 80), WG_F8(d, 88)
+#define WG_C128(d) WG_C96(d), WG_F8(d, 96), WG_F8(d, 104), WG_F8(d, 112), WG_F8(d, 120)
+
+// d (+)= A.B, m64nNk16, bf16 in, fp32 accumulate; A and B K-major in shared
+// memory (S = q'K^T). acc = 0 overwrites d.
+#define IRET_WGMMA_SS(N, REGS, CONS, A, B, C)                                            \
+  __device__ __forceinline__ void wgmma_ss(float(&d)[N / 2], uint64_t da, uint64_t db,   \
+                                           int acc) {                                    \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #C ", 0;\n"                          \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" REGS        \
+                 "}, %" #A ", %" #B ", p, 1, 1, 0, 0;\n}\n"                               \
+                 : CONS(d)                                                                \
+                 : "l"(da), "l"(db), "r"(acc));                                           \
+  }
+IRET_WGMMA_SS(32, WG_R16, WG_C16, 16, 17, 18)
+IRET_WGMMA_SS(64, WG_R32, WG_C32, 32, 33, 34)
+IRET_WGMMA_SS(128, WG_R64, WG_C64, 64, 65, 66)
+
+// d (+)= A.B, m64nNk16; A (P) from registers, B (V) MN-major in shared memory.
+#define IRET_WGMMA_RS(N, REGS, CONS, A0, A1, A2, A3, B, C)                                \
+  __device__ __forceinline__ void wgmma_rs(float(&d)[N / 2], const uint32_t(&a)[4],      \
+                                           uint64_t db, int acc) {                        \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #C ", 0;\n"                          \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" REGS        \
+                 "}, {%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #B ", p, 1, 1, 1;\n}\n"    \
+                 : CONS(d)                                                                \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));        \
+  }
+IRET_WGMMA_RS(64, WG_R32, WG_C32, 32, 33, 34, 35, 36, 37)
+IRET_WGMMA_RS(128, WG_R64, WG_C64, 64, 65, 66, 67, 68, 69)
+IRET_WGMMA_RS(192, WG_R96, WG_C96, 96, 97, 98, 99, 100, 101)
+IRET_WGMMA_RS(256, WG_R128, WG_C128, 128, 129, 130, 131, 132, 133)
+
+// One instance of the sm90 kernel: DQ the padded Q/K depth (a multiple of 16),
+// DV the output columns a block computes (a multiple of 64; the slice of D at
+// d = 512), BK keys per KV tile, NCONS consumer warpgroups of 64 query rows,
+// STAGES K/V tiles in the ring.
+template <int DQ, int DV, int BK, int NCONS, int STAGES>
+struct Sm90 {
+  static constexpr int BQ = 64 * NCONS;
+  static constexpr int QBOX = (DQ + 63) / 64;  // 64-column boxes of a Q or K row
+  static constexpr int VBOX = DV / 64;
+  static constexpr int Q_BYTES = BQ * 128 * QBOX;
+  static constexpr int K_BYTES = BK * 128 * QBOX;
+  static constexpr int V_BYTES = BK * 128 * VBOX;
+  static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
+  static constexpr int THREADS = 128 * (NCONS + 1);  // consumers, then the producer
+  // 1024 for aligning the swizzle atoms, then the barriers.
+  static constexpr int SMEM_BYTES =
+      1024 + Q_BYTES + STAGES * STAGE_BYTES + 8 * (2 * STAGES + 1);
+  static_assert(DQ % 16 == 0 && DV % 64 == 0 && BK % 16 == 0, "tile shapes");
+  static_assert(SMEM_BYTES <= 232448, "shared memory");
+  // With two consumers one block must hold its SM alone, so that setmaxnreg
+  // always finds the registers the producer gave back.
+  static_assert(NCONS == 1 || 2 * SMEM_BYTES > 232448, "one block per SM");
+};
+
+template <int DQ, int DV, int BK, int NCONS, int STAGES>
+__global__ void __launch_bounds__(Sm90<DQ, DV, BK, NCONS, STAGES>::THREADS, 1)
+attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                      int H, int Nq, int Nk, int D, float scale, int flags) {
+  using C = Sm90<DQ, DV, BK, NCONS, STAGES>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t qs = (raw + 1023) & ~1023u;  // the Q tile; then the K/V stages
+  unsigned char* qs_ptr = smem_raw + (qs - raw);
+  const uint32_t kv0 = qs + C::Q_BYTES;       // stage s: K at kv0 + s * STAGE_BYTES, then V
+  const uint32_t bars = kv0 + STAGES * C::STAGE_BYTES;
+  const uint32_t qbar = bars + 16 * STAGES;   // full[s] at bars + 8s, empty[s] after them
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.x * C::BQ;
+  const int dv0 = blockIdx.z * DV;
+  const int ntiles = (Nk + BK - 1) / BK;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (STAGES + s), 4 * NCONS);  // one arrival per consumer warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == NCONS) {
+    // Producer: one thread keeps the ring full.
+    if constexpr (NCONS > 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == NCONS * 128) {
+      mbar_expect_tx(qbar, C::Q_BYTES);
+      for (int x = 0; x < C::QBOX; ++x) tma_load(qs + x * C::BQ * 128, &tq, qbar, 64 * x, h, q0, b);
+      for (int j = 0; j < ntiles; ++j) {
+        const int s = j % STAGES;
+        const uint32_t kst = kv0 + s * C::STAGE_BYTES;
+        const uint32_t full = bars + 8 * s;
+        mbar_wait(bars + 8 * (STAGES + s), ((j / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full, C::STAGE_BYTES);
+        for (int x = 0; x < C::QBOX; ++x) tma_load(kst + x * BK * 128, &tk, full, 64 * x, h, j * BK, b);
+        for (int x = 0; x < C::VBOX; ++x)
+          tma_load(kst + C::K_BYTES + x * BK * 128, &tv, full, dv0 + 64 * x, h, j * BK, b);
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: query rows q0 + 64 wg .. + 63.
+    if constexpr (NCONS > 1) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const bool rowsum_f32 = flags & kRowSumF32;
+    // Turns on the tensor cores: warpgroup wg waits on barrier 1 + wg, and
+    // after issuing its products lets the other one go (barrier 2 - wg).
+    // Warpgroup 1 opens barrier 1 once, so warpgroup 0 goes first, and skips
+    // its arrival after its last turn, so every arrival is waited for.
+    auto turn_begin = [&]() {
+      if constexpr (NCONS > 1) named_sync(1 + wg, 256);
+    };
+    auto turn_end = [&](bool last) {
+      if constexpr (NCONS > 1) {
+        if (!(last && wg == 1)) named_arrive(2 - wg, 256);
+      }
+    };
+    if (NCONS > 1 && wg == 1) named_arrive(1, 256);
+
+    mbar_wait(qbar, 0);
+    for (int x = 0; x < C::QBOX; ++x) {
+      uint4* rows = reinterpret_cast<uint4*>(qs_ptr + x * C::BQ * 128 + wg * 64 * 128);
+      for (int i = tid; i < 64 * 8; i += 128) {
+        uint4 w = rows[i];
+        w.x = scale_bf16x2(w.x, scale);
+        w.y = scale_bf16x2(w.y, scale);
+        w.z = scale_bf16x2(w.z, scale);
+        w.w = scale_bf16x2(w.w, scale);
+        rows[i] = w;
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    named_sync(3 + wg, 128);
+
+    const uint32_t qa = qs + wg * 64 * 128;
+    float oacc[DV / 2];
+    float s[BK / 2];
+    uint32_t p[BK / 16][4];
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) oacc[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY;  // shift of rows g and g + 8 of this warp
+    float l0 = 0.f, l1 = 0.f;              // this thread's part of their row sums
+    float a0 = 0.f, a1 = 0.f;              // the rescale of the latest tile
+
+    auto mma_s = [&](int st) {
+      const uint32_t kst = kv0 + st * C::STAGE_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < DQ / 16; ++kk)
+        wgmma_ss(s, gmma_desc(qa + (kk >> 2) * C::BQ * 128 + (kk & 3) * 32, 16, 1024),
+                 gmma_desc(kst + (kk >> 2) * BK * 128 + (kk & 3) * 32, 16, 1024), kk > 0);
+    };
+    auto mma_pv = [&](int st) {
+      const uint32_t vst = kv0 + st * C::STAGE_BYTES + C::K_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs(oacc, p[kk], gmma_desc(vst + kk * 16 * 128, BK * 128, 1024), 1);
+    };
+    auto release = [&](int st) {
+      if (lane == 0) mbar_arrive(bars + 8 * (STAGES + st));
+    };
+    // Mask, row max, new shift and rescale (a0, a1) of the score tile at k0.
+    auto shift = [&](int k0) {
+      if (k0 + BK > Nk) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i)
+          if (k0 + (i >> 2) * 8 + 2 * t + (i & 1) >= Nk) s[i] = -INFINITY;
+      }
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      // Every tile holds at least one key < Nk, so the new maxima are finite.
+      const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
+      a0 = exp2_ftz((m0 - n0) * kLog2e);
+      a1 = exp2_ftz((m1 - n1) * kLog2e);
+      m0 = n0;
+      m1 = n1;
+    };
+    // s = exp(s - m) in fp32 and the row sums over P rounded to bf16 (or over
+    // the fp32 P); runs while the previous tile's P.V may still read p.
+    auto exponentiate = [&]() {
+      const float ml0 = m0 * kLog2e, ml1 = m1 * kLog2e;
+      float r0 = 0.f, r1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < BK / 2; i += 2) {
+        const float ml = (i & 2) ? ml1 : ml0;
+        s[i] = exp2_ftz(fmaf(s[i], kLog2e, -ml));
+        s[i + 1] = exp2_ftz(fmaf(s[i + 1], kLog2e, -ml));
+        float x;
+        if (rowsum_f32) {
+          x = s[i] + s[i + 1];
+        } else {
+          const float2 f = unpack_bf16(pack_bf16(s[i], s[i + 1]));
+          x = f.x + f.y;
+        }
+        if (i & 2)
+          r1 += x;
+        else
+          r0 += x;
+      }
+      l0 = l0 * a0 + r0;
+      l1 = l1 * a1 + r1;
+    };
+    // P packed to bf16 as the A operand of P.V (once the previous P.V is done).
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    };
+
+    // Tile 0: S only. Then per tile j: S_j and P_{j-1}.V_{j-1} in one turn;
+    // the softmax of S_j runs while the other warpgroup's turn runs.
+    mbar_wait(bars, 0);
+    turn_begin();
+    fence_regs(s);
+    wgmma_fence();
+    mma_s(0);
+    wgmma_commit();
+    turn_end(false);
+    wgmma_wait<0>();
+    fence_regs(s);
+    shift(0);
+    exponentiate();
+    pack_p();
+    for (int j = 1; j < ntiles; ++j) {
+      const int st = j % STAGES;
+      const int pst = (j - 1) % STAGES;
+      mbar_wait(bars + 8 * st, (j / STAGES) & 1);
+      turn_begin();
+      fence_regs(s);
+      fence_regs(oacc);
+      fence_regs(p);
+      wgmma_fence();
+      mma_s(st);
+      wgmma_commit();
+      mma_pv(pst);
+      wgmma_commit();
+      turn_end(false);
+      wgmma_wait<1>();
+      fence_regs(s);
+      shift(j * BK);
+      exponentiate();
+      wgmma_wait<0>();
+      fence_regs(oacc);
+      fence_regs(p);
+      release(pst);
+#pragma unroll
+      for (int i = 0; i < DV / 8; ++i) {
+        oacc[4 * i] *= a0;
+        oacc[4 * i + 1] *= a0;
+        oacc[4 * i + 2] *= a1;
+        oacc[4 * i + 3] *= a1;
+      }
+      pack_p();
+    }
+    const int last = (ntiles - 1) % STAGES;
+    turn_begin();
+    fence_regs(oacc);
+    fence_regs(p);
+    wgmma_fence();
+    mma_pv(last);
+    wgmma_commit();
+    turn_end(true);
+    wgmma_wait<0>();
+    fence_regs(oacc);
+    release(last);
+
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+    const int row0 = q0 + wg * 64 + warp * 16 + g;
+    const int row1 = row0 + 8;
+    __nv_bfloat16* o0 = o + (((int64_t)b * Nq + row0) * H + h) * D;
+    __nv_bfloat16* o1 = o + (((int64_t)b * Nq + row1) * H + h) * D;
+#pragma unroll
+    for (int i = 0; i < DV / 8; ++i) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int d = dv0 + i * 8 + t * 2 + c;
+        if (d < D) {
+          if (row0 < Nq) o0[d] = __float2bfloat16(oacc[4 * i + c] * inv0);
+          if (row1 < Nq) o1[d] = __float2bfloat16(oacc[4 * i + 2 + c] * inv1);
+        }
+      }
+    }
+  }
+}
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, looked up through the runtime (no -lcuda).
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = []() -> EncodeTiledFn {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// The 4-D map (d, h, n, b) of a [B, N, H, D] bf16 view with element strides
+// st = (b, n, h), boxes of 64 dims x `rows` rows, 128-byte swizzle; reads past
+// an edge are zero-filled.
+bool make_map(CUtensorMap* map, const void* ptr, int B, int N, int H, int D,
+              const int64_t* st, int rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+template <int DQ, int DV, int BK, int NCONS, int STAGES>
+cudaError_t launch_sm90(const void* q, const void* k, const void* v, void* o, int B, int H,
+                        int Nq, int Nk, int D, const int64_t* qs, const int64_t* ks,
+                        const int64_t* vs, float scale, int flags, cudaStream_t stream) {
+  using C = Sm90<DQ, DV, BK, NCONS, STAGES>;
+  auto kernel = attention_sm90_kernel<DQ, DV, BK, NCONS, STAGES>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, B, Nq, H, D, qs, C::BQ) || !make_map(&tk, k, B, Nk, H, D, ks, BK) ||
+      !make_map(&tv, v, B, Nk, H, D, vs, BK))
+    return cudaErrorInvalidValue;
+  dim3 grid((Nq + C::BQ - 1) / C::BQ, B * H, (D + DV - 1) / DV);
+  kernel<<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, Nq, Nk, D, scale, flags);
+  return cudaGetLastError();
+}
+
+// Instances: padded widths 32 (test widths), 48, 64 (SDXL), 80 and 160 (SD-1.5's
+// 40, 80, 160); any other head_dim <= 160 runs zero-padded at the next of them.
+// The ring holds as many K/V stages as shared memory allows (4, 3 and 3 of
+// 32, 64 and 48 KB): the P.V of a tile is issued with the next tile's S, so a
+// stage is freed one tile late, and two stages would leave a load's latency
+// in the open.
+cudaError_t dispatch_sm90(const void* q, const void* k, const void* v, void* o, int B, int H,
+                          int Nq, int Nk, int D, const int64_t* qs, const int64_t* ks,
+                          const int64_t* vs, float scale, int flags, cudaStream_t stream) {
+  if (D <= 32)
+    return launch_sm90<32, 64, 128, 2, 4>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale,
+                                          flags, stream);
+  if (D <= 48)
+    return launch_sm90<48, 64, 128, 2, 4>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale,
+                                          flags, stream);
+  if (D <= 64)
+    return launch_sm90<64, 64, 128, 2, 4>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale,
+                                          flags, stream);
+  if (D <= 80)
+    return launch_sm90<80, 128, 128, 2, 3>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale,
+                                           flags, stream);
+  return launch_sm90<160, 192, 64, 2, 3>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, flags,
+                                         stream);
+}
+
+// TMA needs a 16-byte aligned base and 16-byte multiple strides (positive).
+bool tma_rows(const void* p, const int64_t* strides) {
+  if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  for (int i = 0; i < 3; ++i)
+    if (strides[i] <= 0 || strides[i] % 8 != 0) return false;
+  return true;
+}
+
+// Paths, as ops/attention.py's kernel_path() names them.
+enum Path { kSimt = 0, kMma = 1, kSm90 = 2, kSm90Split = 3 };
 constexpr int kMmaMaxHeadDim = 160;
+constexpr int kMaxHeadDim = 512;
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements, for the b, n and h
 // axes of q, k and v; the d axis has stride 1. o is a contiguous [B, Nq, H, D].
-// scale is 1/sqrt(D) as the input dtype holds it.
-int run(int dtype, const void* q, const void* k, const void* v, void* o, int B, int H,
-        int Nq, int Nk, int D, const int64_t* qs, const int64_t* ks, const int64_t* vs,
+// scale is 1/sqrt(D) as the input dtype holds it. A path the arguments cannot
+// take is cudaErrorInvalidValue; no other path is tried.
+int run(int dtype, int path, const void* q, const void* k, const void* v, void* o, int B,
+        int H, int Nq, int Nk, int D, const int64_t* qs, const int64_t* ks, const int64_t* vs,
         float scale, int flags, void* stream) {
-  if (B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0 || D <= 0) return cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0 || D <= 0 || D > kMaxHeadDim)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_f32(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, flags, s);
-  if (dtype == 1 && D <= kMmaMaxHeadDim) {
-    if (rows_aligned(q, qs, D) && rows_aligned(k, ks, D) && rows_aligned(v, vs, D))
-      return dispatch_mma_dp<true>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, flags, s);
-    return dispatch_mma_dp<false>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, flags, s);
+  const bool plain_flags = (flags & ~kRowSumF32) == 0;
+  const bool tma = tma_rows(q, qs) && tma_rows(k, ks) && tma_rows(v, vs);
+  switch (path) {
+    case kSimt:
+      if (dtype == 0)
+        return dispatch_f32(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, flags, s);
+      if (dtype == 1 && D > kMmaMaxHeadDim && !(plain_flags && tma))
+        return launch<__nv_bfloat16, 32, 32, 512>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs,
+                                                  scale, flags, s);
+      break;
+    case kMma:
+      if (dtype == 1 && D <= kMmaMaxHeadDim) {
+        if (rows_aligned(q, qs, D) && rows_aligned(k, ks, D) && rows_aligned(v, vs, D))
+          return dispatch_mma_dp<true>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, flags, s);
+        return dispatch_mma_dp<false>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, flags, s);
+      }
+      break;
+    case kSm90:
+      if (dtype == 1 && D <= kMmaMaxHeadDim && plain_flags && tma)
+        return dispatch_sm90(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, flags, s);
+      break;
+    case kSm90Split:
+      if (dtype == 1 && D > kMmaMaxHeadDim && plain_flags && tma)
+        return launch_sm90<512, 256, 32, 1, 3>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale,
+                                               flags, s);
+      break;
   }
-  if (dtype == 1 && D <= 512)
-    return launch<__nv_bfloat16, 32, 32, 512>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs,
-                                              scale, flags, s);
   return cudaErrorInvalidValue;
 }
 
@@ -745,7 +1339,8 @@ extern "C" {
 
 // K1 on [B, N, H, D] views. flags: kScoresBf16 | kNormBound | kRowSumF32, as
 // ops/attention.py sets them from IRET_ATTN_SCORES_BF16 and IRET_ATTN_NORM_BOUND.
-int iret_attention(int dtype, const void* q, const void* k, const void* v,
+// path: ops/attention.py's kernel_path() (enum Path).
+int iret_attention(int dtype, int path, const void* q, const void* k, const void* v,
                    void* o, int B, int H, int Nq, int Nk, int D, int64_t qsb,
                    int64_t qsn, int64_t qsh, int64_t ksb, int64_t ksn,
                    int64_t ksh, int64_t vsb, int64_t vsn, int64_t vsh,
@@ -753,11 +1348,11 @@ int iret_attention(int dtype, const void* q, const void* k, const void* v,
   const int64_t qs[3] = {qsb, qsn, qsh};
   const int64_t ks[3] = {ksb, ksn, ksh};
   const int64_t vs[3] = {vsb, vsn, vsh};
-  return run(dtype, q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, flags, stream);
+  return run(dtype, path, q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, flags, stream);
 }
 
 // K5 on [B, N, H, D] views: K1's walk with the row sum over the fp32 P.
-int iret_flash_attention(int dtype, const void* q, const void* k, const void* v,
+int iret_flash_attention(int dtype, int path, const void* q, const void* k, const void* v,
                          void* o, int B, int H, int Nq, int Nk, int D, int64_t qsb,
                          int64_t qsn, int64_t qsh, int64_t ksb, int64_t ksn,
                          int64_t ksh, int64_t vsb, int64_t vsn, int64_t vsh,
@@ -765,26 +1360,26 @@ int iret_flash_attention(int dtype, const void* q, const void* k, const void* v,
   const int64_t qs[3] = {qsb, qsn, qsh};
   const int64_t ks[3] = {ksb, ksn, ksh};
   const int64_t vs[3] = {vsb, vsn, vsh};
-  return run(dtype, q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, kRowSumF32, stream);
+  return run(dtype, path, q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, kRowSumF32, stream);
 }
 
 // K6a and K6b on the projection layout [B, N, H*D]: strides of the b and n
 // axes; head h starts at column h*D. o is a contiguous [B, Nq, H*D].
-int iret_packed_attention(int dtype, const void* q, const void* k, const void* v,
+int iret_packed_attention(int dtype, int path, const void* q, const void* k, const void* v,
                           void* o, int B, int H, int Nq, int Nk, int D, int64_t qsb,
                           int64_t qsn, int64_t ksb, int64_t ksn, int64_t vsb,
                           int64_t vsn, float scale, void* stream) {
   const int64_t qs[3] = {qsb, qsn, D};
   const int64_t ks[3] = {ksb, ksn, D};
   const int64_t vs[3] = {vsb, vsn, D};
-  return run(dtype, q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, 0, stream);
+  return run(dtype, path, q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, 0, stream);
 }
 
-int iret_packed_attention_grid(int dtype, const void* q, const void* k, const void* v,
-                               void* o, int B, int H, int Nq, int Nk, int D, int64_t qsb,
-                               int64_t qsn, int64_t ksb, int64_t ksn, int64_t vsb,
-                               int64_t vsn, float scale, void* stream) {
-  return iret_packed_attention(dtype, q, k, v, o, B, H, Nq, Nk, D, qsb, qsn, ksb, ksn,
+int iret_packed_attention_grid(int dtype, int path, const void* q, const void* k,
+                               const void* v, void* o, int B, int H, int Nq, int Nk, int D,
+                               int64_t qsb, int64_t qsn, int64_t ksb, int64_t ksn,
+                               int64_t vsb, int64_t vsn, float scale, void* stream) {
+  return iret_packed_attention(dtype, path, q, k, v, o, B, H, Nq, Nk, D, qsb, qsn, ksb, ksn,
                                vsb, vsn, scale, stream);
 }
 

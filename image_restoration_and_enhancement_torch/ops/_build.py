@@ -17,7 +17,9 @@ that catch errors to serve a fallback let ``KernelError`` through.
 ``launch_counts`` counts kernel launches by kernel name; a wrapper increments it
 right after a launch succeeds and nowhere else. ``launch_shapes`` records the
 same launches keyed by (kernel, shape description), so a caller can replay the
-shapes a run used.
+shapes a run used, and ``launch_paths`` keyed by (kernel, path) for the kernels
+with more than one device code (the attention kernels: ``ops/attention.py``'s
+``kernel_path``), so a run can show which code served.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ NVCC_FLAGS = (
 
 launch_counts: "collections.Counter[str]" = collections.Counter()
 launch_shapes: "collections.Counter[Tuple[str, tuple]]" = collections.Counter()
+launch_paths: "collections.Counter[Tuple[str, str]]" = collections.Counter()
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -53,18 +56,18 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
 _ARGTYPES = {
-    # dtype, q, k, v, o, B, H, Nq, Nk, D, q strides (b, n, h), k strides, v strides,
-    # scale, flags, stream
-    "iret_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    # dtype, path, q, k, v, o, B, H, Nq, Nk, D, q strides (b, n, h), k strides,
+    # v strides, scale, flags, stream
+    "iret_attention": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P],
     # as iret_attention, without flags
-    "iret_flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    "iret_flash_attention": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
-    # dtype, q, k, v, o, B, H, Nq, Nk, D, q strides (b, n), k strides, v strides,
-    # scale, stream
-    "iret_packed_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    # dtype, path, q, k, v, o, B, H, Nq, Nk, D, q strides (b, n), k strides,
+    # v strides, scale, stream
+    "iret_packed_attention": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _L, _L, _L, _L, _L, _L, _F, _P],
-    "iret_packed_attention_grid": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    "iret_packed_attention_grid": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _L, _L, _L, _L, _L, _L, _F, _P],
     # dtype, wdtype, x, scale, bias, y, partial, wb, B, HW, C, G, chunks,
     # rows_per_chunk, eps, silu, stream
@@ -81,15 +84,19 @@ class KernelError(RuntimeError):
     """A kernel could not be built, loaded or launched."""
 
 
-def record_launch(kernel: str, shape: tuple) -> None:
-    """Count one launch of ``kernel`` (called by a wrapper after its launch)."""
+def record_launch(kernel: str, shape: tuple, path: Optional[str] = None) -> None:
+    """Count one launch of ``kernel`` (called by a wrapper after its launch),
+    and of its ``path`` where it has more than one."""
     launch_counts[kernel] += 1
     launch_shapes[(kernel, shape)] += 1
+    if path is not None:
+        launch_paths[(kernel, path)] += 1
 
 
 def reset_launch_counts() -> None:
     launch_counts.clear()
     launch_shapes.clear()
+    launch_paths.clear()
 
 
 def _nvcc() -> str:

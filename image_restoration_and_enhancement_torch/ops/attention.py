@@ -35,12 +35,21 @@ backend)`` picks the function as the JAX package's ``attention`` does:
   variants (s8 Q.K^T; s8 Q.K^T and s8 P.V), in plain PyTorch on any device.
 
 For a kernel's backend a CUDA tensor goes to the kernel and a CPU tensor to
-its plain version; there is no other branch. Gradients recompute through
+its plain version; there is no other branch. Which device code of
+``csrc/attention.cu`` serves K1, K5, K6a and K6b is ``kernel_path``'s answer,
+from the layout, the dtype, head_dim and the flags alone: "sm90" (wgmma + TMA,
+bf16 at head_dim <= 160), "sm90_split" (the same at 160 < head_dim <= 512, the
+output's dims split over the grid: the VAE mid-block), "mma" (mma.sync: K1's
+opt-in branches, or rows TMA cannot address) or "simt" (CUDA cores: fp32, and
+bf16 above 160 where sm90_split cannot go). The wrapper passes it to the C
+entry, which raises (``KernelError``) for a path its arguments cannot take and
+never picks another. Gradients recompute through
 ``attention_reference``, as the JAX package's custom_vjp recomputes through
 ``xla_attention`` for every backend (rounding has no useful gradient).
 """
 from __future__ import annotations
 
+import functools
 import math
 import os
 from typing import Callable, Optional, Tuple
@@ -53,6 +62,9 @@ from .quant import EPS, div127, round_clip_s8
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 512
+SM90_MAX_HEAD_DIM = 160  # above it the output dims are split over the grid
+# csrc/attention.cu's paths (its enum Path)
+_PATH_CODES = {"simt": 0, "mma": 1, "sm90": 2, "sm90_split": 3}
 LOG2E = 1.4426950408889634
 # K4's padded widths, as csrc/int8_attention.cu instantiates them:
 # (largest head_dim, s8 Q/K width DP (a multiple of 32), V width DV).
@@ -186,9 +198,53 @@ def _check_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int)
     _check(*(t.unsqueeze(2) for t in (q, k, v)))
 
 
-def _kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d: int):
-    """(dtype code, scale) for the csrc/attention.cu entries, after checking what
-    they take. The scale is 1/sqrt(D) as q's dtype holds it."""
+def _tma_rows(ptr: int, strides) -> bool:
+    """Whether TMA can address the rows of a [B, N, H, D] bf16 view at ``ptr``
+    with element ``strides`` (b, n, h): a 16-byte aligned base and positive
+    strides of a 16-byte multiple."""
+    return ptr % 16 == 0 and all(s > 0 and s % 8 == 0 for s in strides)
+
+
+def _path(dtype: torch.dtype, d: int, flags: int, views) -> str:
+    """``kernel_path`` on ``views``, (data_ptr, (b, n, h) strides) of q, k, v."""
+    if dtype == torch.float32:
+        return "simt"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"the attention kernel takes float32 or bfloat16, not {dtype}")
+    plain = not flags & (_SCORES_BF16 | _NORM_BOUND)
+    tma = all(_tma_rows(ptr, strides) for ptr, strides in views)
+    if d <= SM90_MAX_HEAD_DIM:
+        return "sm90" if plain and tma else "mma"
+    return "sm90_split" if plain and tma else "simt"
+
+
+def kernel_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, flags: int = 0) -> str:
+    """The device code of ``csrc/attention.cu`` that serves K1, K5, K6a or K6b on
+    these [B, N, H, D] views (K6's [B, N, H*D] views split into heads) with
+    these function flags (``_k1_flags``, or ``_ROWSUM_F32`` for K5):
+
+    - "sm90": bf16, head_dim <= 160, no opt-in branch, rows TMA can address;
+    - "sm90_split": the same at 160 < head_dim <= 512;
+    - "mma": bf16, head_dim <= 160, an opt-in branch or rows TMA cannot address;
+    - "simt": fp32, or bf16 above 160 with an opt-in branch or such rows.
+
+    Decided by the arguments alone, never by a failed build or launch; the C
+    entry refuses a path its arguments cannot take."""
+    return _path(q.dtype, q.shape[-1], flags,
+                 [(t.data_ptr(), t.stride()[:3]) for t in (q, k, v)])
+
+
+@functools.lru_cache(maxsize=None)
+def _scale(d: int, dtype: torch.dtype) -> float:
+    """1/sqrt(d) as ``dtype`` holds it."""
+    return float(torch.tensor(1.0 / math.sqrt(d), dtype=dtype))
+
+
+def _kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d: int, flags: int,
+                 head_stride: Optional[int] = None):
+    """(dtype code, path, path code, scale) for the csrc/attention.cu entries,
+    after checking what they take: [B, N, H, D] views, or [B, N, H*D] views
+    with ``head_stride`` D. The scale is 1/sqrt(D) as q's dtype holds it."""
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"the attention kernel takes float32 or bfloat16, not {q.dtype}")
     if d > MAX_HEAD_DIM:
@@ -196,23 +252,27 @@ def _kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d: int):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must have a unit stride on its head_dim axis")
-    return _DTYPE_CODES[q.dtype], float(torch.tensor(1.0 / math.sqrt(d), dtype=q.dtype))
+    views = [(t.data_ptr(), t.stride()[:3] if head_stride is None
+              else (t.stride(0), t.stride(1), head_stride)) for t in (q, k, v)]
+    path = _path(q.dtype, d, flags, views)
+    return _DTYPE_CODES[q.dtype], path, _PATH_CODES[path], _scale(d, q.dtype)
 
 
 def _launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """K1 (``"attention"``) or K5 (``"flash_attention"``) on [B, N, H, D] views."""
     b, nq, h, d = q.shape
     nk = k.shape[1]
-    code, scale = _kernel_args(q, k, v, d)
-    flags = (_k1_flags(),) if kernel == "attention" else ()
+    flags = _k1_flags() if kernel == "attention" else _ROWSUM_F32
+    code, path, path_code, scale = _kernel_args(q, k, v, d, flags)
     out = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
     err = getattr(_build.library(), f"iret_{kernel}")(
-        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, nq, nk, d,
-        *(t.stride(i) for t in (q, k, v) for i in range(3)),
-        scale, *flags, torch.cuda.current_stream(q.device).cuda_stream,
+        code, path_code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, h, nq, nk, d, *(t.stride(i) for t in (q, k, v) for i in range(3)),
+        scale, *((flags,) if kernel == "attention" else ()),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(err, kernel)
-    _build.record_launch(kernel, (b, nq, nk, h, d, str(q.dtype)))
+    _build.check(err, f"{kernel} ({path})")
+    _build.record_launch(kernel, (b, nq, nk, h, d, str(q.dtype)), path)
     return out
 
 
@@ -222,15 +282,15 @@ def _launch_packed(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     [B, N, H*D] views."""
     b, nq, hd = q.shape
     nk, d = k.shape[1], hd // heads
-    code, scale = _kernel_args(q, k, v, d)
+    code, path, path_code, scale = _kernel_args(q, k, v, d, 0, head_stride=d)
     out = torch.empty((b, nq, hd), dtype=q.dtype, device=q.device)
     err = getattr(_build.library(), f"iret_{kernel}")(
-        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, heads, nq, nk, d,
-        *(t.stride(i) for t in (q, k, v) for i in range(2)),
+        code, path_code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, heads, nq, nk, d, *(t.stride(i) for t in (q, k, v) for i in range(2)),
         scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(err, kernel)
-    _build.record_launch(kernel, (b, nq, nk, heads, d, str(q.dtype)))
+    _build.check(err, f"{kernel} ({path})")
+    _build.record_launch(kernel, (b, nq, nk, heads, d, str(q.dtype)), path)
     return out
 
 

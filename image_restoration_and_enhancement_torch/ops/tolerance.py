@@ -12,14 +12,16 @@ absolute term covers that as a share of the largest output:
 
 - attention (K1), share 2**-8 (half a step of the largest value): the plain
   version (``pallas_attention_reference``) rounds P to bf16 against the row
-  max, the kernel against the running max of its 64-key tiles, each to 2**-9
-  of itself with random sign. Self-attention over 4096 random keys averages
-  to |out| ~ 0.03, and a kernel that dropped one 64-key tile or skipped the
-  online-softmax rescale moves it by far more than this limit
-  (tests/test_torch_cuda.py holds both faults against it).
+  max, the kernel against the running max of its KV tiles, each to 2**-9 of
+  itself with random sign. The tiles are the device code's: 128 keys on the
+  sm90 path up to head_dim 80, 64 at 160, 32 at the d = 512 split path, 64
+  on the mma path. Self-attention over 4096 random keys averages to
+  |out| ~ 0.03, and a kernel that dropped one KV tile (of 32, 64 or 128 keys)
+  or skipped the online-softmax rescale moves it by far more than this limit
+  (tests/test_torch_cuda.py holds both faults against it at each tile).
 - flash_attention (K5), share 2**-8, as attention: the plain version rounds
   P against the running max of 1024-key chunks, the kernel against that of
-  64-key tiles; the row sum is the fp32 P's on both sides.
+  its KV tiles; the row sum is the fp32 P's on both sides.
 - packed_attention and packed_attention_grid (K6a, K6b), share 2**-8: K1's
   function and K1's device code on another layout, so K1's difference.
 - attention_scores_bf16: K1 with IRET_ATTN_SCORES_BF16=1, in either input
@@ -40,13 +42,15 @@ of rounding Q*(1/sqrt(D)), or sums the fp32 P), so ``placement`` adds a check:
 the share of output elements bitwise equal to the right plain version must
 beat the share bitwise equal to a plain version with other roundings
 (``attention_reference``, xla_attention's) by ``PLACEMENT_MARGIN``. On the CPU
-(bf16 inputs from a seed, 128 query rows at the served shapes) a plain emulation
-of the kernel's 64-key tiles with the Pallas roundings equals
-``pallas_attention_reference`` on 62-100% of elements and
-``attention_reference`` on 43-47%; the same emulation with the roundings K1
-had before (fp32 scores scaled after the dot, row sum over the fp32 P) equals
-them on 44-49% and 50-52%. A margin of 0.1 share lies between: the right
-placement clears it by 0.09 or more, the wrong one misses it by 0.13 or more.
+(bf16 inputs from a seed, 128 query rows at 2x4096x8x40, 2x1024x8x80 and
+2x77x8x160) a plain emulation of the kernel's tiles with the Pallas roundings
+equals ``pallas_attention_reference`` on 62.6-93.5% of elements at 64-key
+tiles and 63.0-93.5% at the sm90 tiles (128, 128, 64 keys), and
+``attention_reference`` on 43.4-46.6% at either; the same emulation with the
+roundings K1 had before (fp32 scores scaled after the dot, row sum over the
+fp32 P) equals them on 43.9-48.7% and 49.8-52.2% at either tile. A margin of
+0.1 share lies between: the right placement clears it by 0.09 or more, the
+wrong one misses it by 0.13 or more.
 
 conv3x3_int8 (K3): both sides take the same exact int32 sums, convert each
 to fp32 with one rounding and multiply by the same fp32 scale, so they agree

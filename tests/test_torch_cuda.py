@@ -16,7 +16,12 @@ roundings) than to ``attention_reference`` (xla_attention's roundings).
 K1 had before they were moved (its CPU case runs anywhere).
 ``test_bf16_limit_rejects_planted_faults`` shows that the bf16 limit catches a
 K1 or K5 that drops a KV tile or skips the online-softmax rescale at the
-N = 4096 shapes; its CPU case runs anywhere, with fewer query rows.
+N = 4096 shapes; its CPU case runs anywhere, with fewer query rows. Both run
+their CPU cases at the KV tile of each device code (``_kv_tile``: the mma
+path's 64 keys, the sm90 paths' 128, 64 or 32).
+``test_kernel_path`` holds ``kernel_path`` (which device code serves an
+attention call) to its rule on the CPU; on the card every attention test
+checks that its launch went through the path ``kernel_path`` names.
 
 K3 (int8 conv) is held to one rounding of the output dtype (the integer sums
 are exact) and K4 (int8 attention) to attention's bf16 limit (share 2**-8);
@@ -54,18 +59,33 @@ def cuda():
 
 def assert_attention_kernel(got, kernel, right_ref, q, k, v):
     """The kernel's output within its limit of its plain version and, in bf16,
-    placed: nearer bitwise to it than to ``attention_reference``."""
+    placed: nearer bitwise to it than to ``attention_reference``. Where the two
+    plain versions are bitwise equal (Nk = 1: P is 1), no placement can be told
+    apart, and the kernel must equal them bitwise instead."""
     assert_within(got, right_ref, kernel)
     if got.dtype == torch.bfloat16:
         wrong = A.attention_reference(q, k, v).reshape(got.shape)
+        if torch.equal(right_ref, wrong):
+            assert torch.equal(got, right_ref)
+            return
         ok, right_share, wrong_share = tolerance.placement(got, right_ref, wrong)
         assert ok, (right_share, wrong_share)
+
+
+def assert_launched(kernel, before, path):
+    """Exactly one launch since ``before`` (a copy of ``launch_paths``), of
+    ``kernel`` through ``path``."""
+    launched = collections.Counter(_build.launch_paths) - before
+    assert launched == {(kernel, path): 1}, launched
 
 
 ATTN_SHAPES = [
     (2, 4096, 4096, 8, 40), (2, 1024, 77, 8, 80), (2, 256, 256, 8, 160),
     (2, 64, 77, 8, 160), (1, 4096, 4096, 1, 512), (1, 100, 37, 3, 24),
-    (1, 77, 50, 2, 20),   # head_dim not a multiple of 8: the unvectorised tile loads
+    (1, 77, 50, 2, 20),   # head_dim not a multiple of 8: rows TMA cannot address
+    # TMA's edges: Nq not a multiple of the 128-row tile, Nk = 77 and Nk = 1,
+    # d = 512 with a ragged Nq
+    (2, 200, 77, 8, 40), (1, 64, 1, 2, 40), (1, 300, 300, 1, 512),
 ]
 
 
@@ -74,26 +94,41 @@ ATTN_SHAPES = [
 def test_attention_kernel_matches_plain(cuda, b, nq, nk, h, d, dtype):
     q, k, v = (torch.randn((b, n, h, d), generator=cuda, device="cuda").to(dtype)
                for n in (nq, nk, nk))
-    before = _build.launch_counts["attention"]
+    before = collections.Counter(_build.launch_paths)
     got = A.attention(q, k, v)
-    assert _build.launch_counts["attention"] == before + 1
+    assert_launched("attention", before, A.kernel_path(q, k, v))
     assert_attention_kernel(got, "attention", A.pallas_attention_reference(q, k, v), q, k, v)
     # "xla" is the plain xla_attention function on every device
     assert torch.equal(A.attention(q, k, v, backend="xla"), A.attention_reference(q, k, v))
-    assert _build.launch_counts["attention"] == before + 1
+    assert_launched("attention", before, A.kernel_path(q, k, v))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_attention_kernel_takes_strided_views(cuda, dtype):
     qkv = torch.randn((2, 300, 3, 4, 40), generator=cuda, device="cuda").to(dtype)
     q, k, v = qkv.unbind(2)
+    before = collections.Counter(_build.launch_paths)
     assert_within(A.attention(q, k, v), A.pallas_attention_reference(q, k, v), "attention")
+    assert_launched("attention", before, "sm90" if dtype == torch.bfloat16 else "simt")
+
+
+def test_attention_unaligned_rows_take_mma(cuda):
+    """A bf16 view whose rows start 2 bytes past a 16-byte boundary: TMA cannot
+    address it, so kernel_path names the mma.sync code, and the launch says so."""
+    base = torch.randn((2, 300, 4, 48), generator=cuda, device="cuda").to(torch.bfloat16)
+    q, k, v = (base[:, :, :, i:i + 40] for i in (1, 2, 3))
+    assert A.kernel_path(q, k, v) == "mma"
+    before = collections.Counter(_build.launch_paths)
+    got = A.attention(q, k, v)
+    assert_launched("attention", before, "mma")
+    assert_attention_kernel(got, "attention", A.pallas_attention_reference(q, k, v), q, k, v)
 
 
 VARIANT_SHAPES = [  # the UNet's shapes at CFG batch 2, then the JAX tests' edge cases
     (2, 4096, 4096, 8, 40), (2, 4096, 77, 8, 40), (2, 1024, 1024, 8, 80),
     (2, 1024, 77, 8, 80), (2, 256, 256, 8, 160), (2, 64, 77, 8, 160),
     (1, 256, 256, 2, 40), (1, 200, 200, 1, 80), (1, 100, 100, 2, 160), (1, 77, 50, 2, 20),
+    (1, 200, 77, 2, 40), (1, 64, 1, 2, 40),  # TMA's edges, D = 40 in both layouts
 ]
 
 
@@ -118,9 +153,12 @@ def test_attention_variant_kernels_match_plain(cuda, kernel, b, nq, nk, h, d, dt
     q, k, v = (torch.randn((b, n, h, d), generator=cuda, device="cuda").to(dtype)
                for n in (nq, nk, nk))
     before = collections.Counter(_build.launch_counts)
+    before_paths = collections.Counter(_build.launch_paths)
     got, ref = _variant(kernel, q, k, v)
     launched = collections.Counter(_build.launch_counts) - before
     assert launched == {kernel: 1}, launched
+    flags = A._ROWSUM_F32 if kernel == "flash_attention" else 0
+    assert_launched(kernel, before_paths, A.kernel_path(q, k, v, flags))
     assert got.shape == q.shape and got.dtype == dtype
     assert_attention_kernel(got, kernel, ref, q, k, v)
 
@@ -137,8 +175,11 @@ def test_attention_kernel_branches_match_plain(cuda, monkeypatch, env, b, nq, nk
     monkeypatch.setenv(env, "1")
     q, k, v = (torch.randn((b, n, h, d), generator=cuda, device="cuda").to(dtype)
                for n in (nq, nk, nk))
+    before = collections.Counter(_build.launch_paths)
     assert_within(A.attention(q, k, v, backend="pallas"), A.pallas_attention_reference(q, k, v),
                   "attention_scores_bf16" if env == "IRET_ATTN_SCORES_BF16" else "attention")
+    path = "simt" if dtype == torch.float32 or d > A.SM90_MAX_HEAD_DIM else "mma"
+    assert_launched("attention", before, path)
     if env == "IRET_ATTN_NORM_BOUND":  # the underflow cliff: finite, no 0/0
         assert torch.isfinite(A.attention(q * 12, k * 12, v, backend="pallas")).all()
 
@@ -208,17 +249,28 @@ def _online_attention(q, k, v, tile=64, drop_tile=None, rescale=True, rowsum_f32
     return (acc / l).to(q.dtype).transpose(1, 2)
 
 
+def _kv_tile(design, d):
+    """Keys per KV tile of a bf16 device code of csrc/attention.cu at head_dim
+    ``d``: the mma.sync path's 64, or the sm90 paths' (Sm90's BK: 128 up to
+    d 80, 64 at 160, 32 above)."""
+    if design == "mma":
+        return 64
+    return 128 if d <= 80 else 64 if d <= A.SM90_MAX_HEAD_DIM else 32
+
+
 @pytest.mark.parametrize("b,nk,h,d", [(2, 4096, 8, 40), (1, 4096, 1, 512)])
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
-def test_bf16_limit_rejects_planted_faults(device, b, nk, h, d):
+@pytest.mark.parametrize("design", ["mma", "sm90"])
+def test_bf16_limit_rejects_planted_faults(design, device, b, nk, h, d):
     """At the main path's two N = 4096 sites, the bf16 limit passes K1 and K5
-    and faithful emulations of them, and fails a dropped KV tile and a missing
-    rescale in either. The CPU case keeps Nk = 4096 and takes 256 query rows:
-    each row sees the same statistics."""
+    and faithful emulations of them at the device code's KV tile, and fails a
+    dropped KV tile and a missing rescale in either. The CPU case keeps
+    Nk = 4096 and takes 256 query rows: each row sees the same statistics."""
     if device == "cuda" and not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     nq = nk if device == "cuda" else 256
+    tile = _kv_tile(design, d)
     gen = torch.Generator(device=device).manual_seed(1)
     q, k, v = (torch.randn((b, n, h, d), generator=gen, device=device).to(torch.bfloat16)
                for n in (nq, nk, nk))
@@ -226,43 +278,110 @@ def test_bf16_limit_rejects_planted_faults(device, b, nk, h, d):
             ("attention", A.pallas_attention_reference, "pallas", False),
             ("flash_attention", A.flash_attention_reference, "flash", True)):
         ref = plain(q, k, v)
-        honest = [_online_attention(q, k, v, rowsum_f32=rowsum_f32)]
+        honest = [_online_attention(q, k, v, tile=tile, rowsum_f32=rowsum_f32)]
         if device == "cuda":
             honest.append(A.attention(q, k, v, backend=backend))
         for got in honest:
             assert_within(got, ref, kernel)
         for fault in ({"drop_tile": 17}, {"rescale": False}):
-            ok, err = tolerance.within(_online_attention(q, k, v, rowsum_f32=rowsum_f32,
-                                                         **fault), ref, kernel)
+            ok, err = tolerance.within(_online_attention(q, k, v, tile=tile,
+                                                         rowsum_f32=rowsum_f32, **fault),
+                                       ref, kernel)
             assert not ok, f"the {kernel} limit passed a planted fault {fault} (max err {err})"
 
 
 @pytest.mark.parametrize("b,nk,h,d", [(2, 4096, 8, 40), (2, 1024, 8, 80), (2, 77, 8, 160)])
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
-def test_placement_check_detects_f1(device, b, nk, h, d):
+@pytest.mark.parametrize("design", ["mma", "sm90"])
+def test_placement_check_detects_f1(design, device, b, nk, h, d):
     """``tolerance.placement`` passes K1's tiled algorithm with the Pallas
-    kernel's roundings (and, on the card, K1 itself) and fails the same
-    algorithm with the roundings K1 had before they were moved: the bf16 limit
-    alone passes both. The CPU case takes 128 query rows."""
+    kernel's roundings at the device code's KV tile (and, on the card, K1
+    itself) and fails the same algorithm with the roundings K1 had before they
+    were moved: the bf16 limit alone passes both. The CPU case takes 128 query
+    rows."""
     if device == "cuda" and not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     nq = nk if device == "cuda" else 128
+    tile = _kv_tile(design, d)
     gen = torch.Generator(device=device).manual_seed(4)
     q, k, v = (torch.randn((b, n, h, d), generator=gen, device=device).to(torch.bfloat16)
                for n in (nq, nk, nk))
     right, wrong = A.pallas_attention_reference(q, k, v), A.attention_reference(q, k, v)
-    honest = [_online_attention(q, k, v)]
+    honest = [_online_attention(q, k, v, tile=tile)]
     if device == "cuda":
         honest.append(A.attention(q, k, v))
     for got in honest:
         assert_within(got, right, "attention")
         ok, r, w = tolerance.placement(got, right, wrong)
         assert ok, (r, w)
-    moved = _online_attention(q, k, v, placement="f1")
+    moved = _online_attention(q, k, v, tile=tile, placement="f1")
     assert_within(moved, right, "attention")
     ok, r, w = tolerance.placement(moved, right, wrong)
     assert not ok, f"the placement check passed the old roundings ({r} vs {w})"
+
+
+_SERVED = [(2, 4096, 4096, 8, 40), (2, 4096, 77, 8, 40), (2, 1024, 1024, 8, 80),
+           (2, 1024, 77, 8, 80), (2, 256, 256, 8, 160), (2, 256, 77, 8, 160),
+           (2, 64, 64, 8, 160), (2, 64, 77, 8, 160)]
+
+
+def _qkv(b, nq, nk, h, d, dtype=torch.bfloat16):
+    return tuple(torch.empty((b, n, h, d), dtype=dtype) for n in (nq, nk, nk))
+
+
+@pytest.mark.parametrize("b,nq,nk,h,d", _SERVED + [(1, 4096, 4096, 1, 512)])
+@pytest.mark.parametrize("layout", ["bnhd", "packed", "projection_views"])
+def test_kernel_path_served(layout, b, nq, nk, h, d):
+    """Every served shape takes an sm90 path, in K1's and K5's [B, N, H, D]
+    layout, as K6's [B, N, H*D] views split into heads (head stride D, row
+    stride H*D), and as views of one fused [B, N, 3, H, D] projection."""
+    if layout == "bnhd":
+        q, k, v = _qkv(b, nq, nk, h, d)
+    elif layout == "packed":
+        q, k, v = (t.flatten(2).unflatten(-1, (h, d)) for t in _qkv(b, nq, nk, h, d))
+        assert q.stride() == (nq * h * d, h * d, d, 1)
+    else:
+        q = torch.empty((b, nq, 3, h, d), dtype=torch.bfloat16)[:, :, 0]
+        k, v = torch.empty((b, nk, 3, h, d), dtype=torch.bfloat16).unbind(2)[1:]
+    want = "sm90" if d <= A.SM90_MAX_HEAD_DIM else "sm90_split"
+    assert A.kernel_path(q, k, v) == want
+    assert A.kernel_path(q, k, v, A._ROWSUM_F32) == want  # K5's flag
+
+
+@pytest.mark.parametrize("d", [40, 80, 160, 512])
+@pytest.mark.parametrize("case", ["fp32", "scores_bf16", "norm_bound", "both_branches",
+                                  "unaligned_base", "head_dim_20", "zero_stride"])
+def test_kernel_path_other_cases(case, d):
+    """What leaves the sm90 paths: fp32 (simt), K1's opt-in branches, a base
+    that is not 16-byte aligned, strides that are not a 16-byte multiple or are
+    zero: mma at head_dim <= 160, simt above."""
+    off = "mma" if d <= A.SM90_MAX_HEAD_DIM else "simt"
+    flags = 0
+    q, k, v = _qkv(1, 100, 77, 2, d)
+    if case == "fp32":
+        q, k, v = _qkv(1, 100, 77, 2, d, torch.float32)
+        off = "simt"
+    elif case == "scores_bf16":
+        flags = A._SCORES_BF16 | A._ROWSUM_F32
+    elif case == "norm_bound":
+        flags = A._NORM_BOUND
+    elif case == "both_branches":
+        flags = A._SCORES_BF16 | A._NORM_BOUND
+    elif case == "unaligned_base":
+        q = torch.empty((1, 100, 2, d + 8), dtype=torch.bfloat16)[..., 1:d + 1]
+        assert q.data_ptr() % 16 == 2
+    elif case == "head_dim_20":  # rows of 40 bytes: strides not a 16-byte multiple
+        q, k, v = _qkv(1, 77, 50, 2, 20)
+        off = "mma"
+    else:
+        k = torch.empty((1, 1, 2, d), dtype=torch.bfloat16).expand(1, 77, 2, d)
+    assert A.kernel_path(q, k, v, flags) == off
+
+
+def test_kernel_path_rejects_other_dtypes():
+    with pytest.raises(TypeError):
+        A.kernel_path(*_qkv(1, 8, 8, 1, 16, torch.float16))
 
 
 # ---------------------------------------------------------------------------
