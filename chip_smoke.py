@@ -21,14 +21,19 @@ Phases (each prints its seconds; any failure exits non-zero):
               Launch counts are zeroed just before and read just after; K1 and K2
               must have launched, every bf16 attention launch at head_dim <= 160
               through the "sm90" code (wgmma + TMA) and the VAE mid-block's
-              (d = 512) through "sm90_split" (ops/attention.py's kernel_path).
+              (d = 512) through "sm90_split" (ops/attention.py's kernel_path),
+              and every GroupNorm (K2) through the path groupnorm.plan names,
+              "onchip" (one launch) at every UNet-sized shape (H*W <= 4096);
+              the same path checks hold in the three serves below.
   serve_int8  the same stack served w8a8: calibrate a static table with
               make_calib_img2img_fn on the request image, write it as JSON, build
               RestorationPipeline(quant="int8_static", quant_calib=...,
               attention_backend="int8") and answer a first CFG request, a steady
               CFG request and a steady gs 1.0 request. Counts are zeroed just
-              before and read just after: K3 and K4 must have launched, and K1
-              (VAE mid-block, through "sm90_split"); no site may miss the table. Prints the PSNR of the
+              before and read just after: K3 and K4 must have launched, every
+              K3 launch through "sm90" (s8 wgmma + TMA, split-K where
+              conv_int8.split_k says), and K1 (VAE mid-block, through
+              "sm90_split"); no site may miss the table. Prints the PSNR of the
               int8 output against the bf16 serve's output on the same input
               (random weights: no target, so no gate). Then one more CFG request
               captures the input and output of every quantized layer that K3
@@ -56,8 +61,12 @@ Phases (each prints its seconds; any failure exits non-zero):
               check (more elements bitwise equal to the plain version than to
               attention_reference, by ops/tolerance.py's margin), and kernel /
               plain / library times with CUDA events, and for the attention
-              kernels the device code that served the launch ("path"). K1 also
-              runs once with IRET_ATTN_SCORES_BF16=1 and once with
+              kernels, K2 and K3 the device code that served the launch
+              ("path") and "bare" times of the C entry alone (no Python
+              wrapper): for K1 the sm90 and mma codes, for K2 its plan and the
+              twophase cut, for K3 its path and split, the mma code and, where
+              K is split, no split and twice the split, each held to its limit.
+              K1 also runs once with IRET_ATTN_SCORES_BF16=1 and once with
               IRET_ATTN_NORM_BOUND=1 (both "mma").
 
 Kernel-vs-plain limits are ops/tolerance.py's: fp32 1e-4 absolute and
@@ -177,6 +186,14 @@ def phase_build():
         if regs:
             log(f"ptxas: {len(regs)} kernels, at most {max(regs)} registers a thread, "
                 f"{sum(spills)} bytes of spill stores and loads in all")
+        # registers and spills of K2's and K3's instances, by (mangled) name
+        entries = re.findall(r"Compiling entry function '\w*?((?:gn_|conv3x3_int8_)\w+)'"
+                             r".*?(\d+) bytes spill stores, (\d+) bytes spill loads"
+                             r".*?Used (\d+) registers", str(info["log"]), re.S)
+        if entries:
+            log("ptxas_kernels " + json.dumps(
+                {name.split("Ev")[0]: {"registers": int(r), "spill_bytes": int(st) + int(ld)}
+                 for name, st, ld, r in entries}))
 
 
 def _psnr(a, b, peak: float) -> float:
@@ -441,6 +458,7 @@ def _serve(pipe, image, requests):
     shapes = dict(_build.launch_shapes)
     codes = dict(_build.launch_paths)
     _check_attention_paths(shapes, codes)
+    _check_k2_k3_paths(shapes, codes)
     return seconds, outs, launches, shapes, codes, torch.cuda.max_memory_allocated()
 
 
@@ -464,6 +482,38 @@ def _check_attention_paths(shapes, codes) -> None:
         raise AssertionError(f"attention launches by path {got}, not {dict(want)}")
     if not want[("attention", "sm90_split")]:
         raise AssertionError("the VAE mid-block's attention did not run sm90_split")
+
+
+def _check_k2_k3_paths(shapes, codes) -> None:
+    """Every GroupNorm (K2) and int8 conv (K3) launch of a serve went through
+    the path its plan names (``groupnorm.plan``, ``conv_int8.conv_path``),
+    every GroupNorm at the UNet's latent sizes (H*W <= 4096) through "onchip"
+    (one launch a call), and every K3 launch through "sm90" (each served 3x3
+    conv is one of SD-1.5's UNet or VAE)."""
+    import torch
+
+    from image_restoration_and_enhancement_torch.ops import conv_int8 as K3
+    from image_restoration_and_enhancement_torch.ops import groupnorm as G
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want = collections.Counter()
+    for (kernel, key), n in shapes.items():
+        if kernel == "group_norm":
+            b, h, w, c = key[:4]
+            path = G.plan(b, h * w, c, torch.empty((), dtype=_dtype(key[7])).element_size(),
+                          sms).path
+            if h * w <= 4096 and path != "onchip":
+                raise AssertionError(f"a UNet-sized GroupNorm is planned {path}: {key}")
+            want[(kernel, path)] += n
+        elif kernel == "conv3x3_int8":
+            path = K3.conv_path(*key[:5])
+            if path != "sm90":
+                raise AssertionError(f"an int8 conv of the serve is planned {path}: {key}")
+            want[(kernel, path)] += n
+    got = {k: n for k, n in codes.items() if k[0] in ("group_norm", "conv3x3_int8")}
+    log(f"K2/K3 launches by path: { {f'{k}/{p}': n for (k, p), n in sorted(got.items())} }")
+    if got != dict(want):
+        raise AssertionError(f"K2/K3 launches by path {got}, not {dict(want)}")
 
 
 def _pipeline(tmp, **kw):
@@ -704,8 +754,10 @@ def _kernel_group(name: str, mma_label: str) -> str:
     sites in this serve (K1, K5 and K6 share its device code; the backend
     decides). The d = 512 instance is K1 at the VAE mid-block in every serve."""
     low = name.lower()
-    if "conv3x3_int8_kernel" in name:
-        return "K3 conv3x3_int8"
+    if "conv3x3_int8_sm90_kernel" in name:
+        return "K3 conv3x3_int8 (sm90)"
+    if "conv3x3_int8_mma_kernel" in name:
+        return "K3 conv3x3_int8 (mma)"
     if "int8_attention_kernel" in name:
         return "K4 int8_attention"
     if "attention_sm90_kernel<512," in name:
@@ -714,8 +766,10 @@ def _kernel_group(name: str, mma_label: str) -> str:
         return mma_label
     if "attention_kernel" in name:
         return "K1 attention (simt)"
-    if "gn_stats" in name or "gn_finalize" in name or "gn_apply" in name:
-        return "K2 group_norm"
+    if "gn_onchip_kernel" in name:
+        return "K2 group_norm (onchip)"
+    if "gn_stats_kernel" in name or "gn_apply_kernel" in name:
+        return "K2 group_norm (twophase)"
     if any(w in low for w in ("fprop", "conv", "implicit", "dgrad")):
         return "convolution (cuDNN)"
     if any(w in low for w in ("gemm", "cutlass", "nvjet")):
@@ -830,6 +884,28 @@ def _attention_case(kernel):
     return case
 
 
+def _bare_gn(x, scale, bias, groups, eps, act, p):
+    """K2's function through the C entry alone on plan ``p`` (no Python
+    wrapper; not counted as a launch): the wrapper's plan, and beside an
+    onchip plan the twophase cut of the same call, timed in the same call."""
+    import torch
+
+    from image_restoration_and_enhancement_torch.ops import _build
+    from image_restoration_and_enhancement_torch.ops import groupnorm as G
+
+    b, h, w, c = x.shape
+    out = torch.empty_like(x)
+    fn = _build.entry("iret_group_norm")
+    args = (G._PATH_CODES[p.path], G._DTYPE_CODES[x.dtype], G._DTYPE_CODES[scale.dtype],
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h * w, c,
+            groups, p.rows_per_block, eps, 1 if act == "silu" else 0)
+
+    def run():
+        _build.check(fn(*args, _build.raw_stream(0)), f"group_norm ({p.path})")
+        return out
+    return run
+
+
 def _gn_case(key, gen):
     import torch
     import torch.nn.functional as F
@@ -848,9 +924,43 @@ def _gn_case(key, gen):
         y = F.group_norm(x.permute(0, 3, 1, 2), groups, scale.to(x.dtype), bias.to(x.dtype), eps)
         return F.silu(y) if act == "silu" else y
 
+    p = G.plan(b, hh * ww, c, x.element_size(), torch.cuda.get_device_properties(0)
+               .multi_processor_count)
+    plans = [p] if p.path == "twophase" else [p, G.twophase_plan(b, hh * ww)]
+    bare = {q.path: _bare_gn(x, scale, bias, groups, eps, act, q) for q in plans}
     return (lambda: G.group_norm(x, scale, bias, groups, eps, act),
             lambda: G.group_norm_reference(x, scale, bias, groups, eps, act), lib, ops_s, nbytes,
-            None)
+            None, bare)
+
+
+def _bare_conv(x, wq, scale, dt, path, splits):
+    """K3 through the C entry alone on ``path`` with ``splits`` (no Python
+    wrapper; not counted as a launch): the wrapper's path and split, and
+    beside the sm90 path the mma.sync code it replaced at the served shapes
+    and, where the rule splits K, the sm90 code without a split and with
+    twice the rule's splits, all timed in the same call."""
+    import torch
+
+    from image_restoration_and_enhancement_torch.ops import _build
+    from image_restoration_and_enhancement_torch.ops import conv_int8 as K3
+
+    b, hp, wp, c = x.shape
+    n = wq.shape[3]
+    out = torch.empty((b, hp - 2, wp - 2, n), dtype=dt, device="cuda")
+    tiles = K3.tiles(b, hp - 2, wp - 2, n)
+    ws = torch.empty(tiles * splits * K3.TILE * K3.tile_n(n), dtype=torch.int32, device="cuda")
+    counters = torch.zeros(tiles, dtype=torch.int32, device="cuda")
+    w_nhwc = wq.permute(3, 0, 1, 2).contiguous()
+    fn = _build.entry("iret_conv3x3_int8")
+    args = (K3._PATH_CODES[path], K3._OUT_CODES[dt], x.data_ptr(), w_nhwc.data_ptr(),
+            scale.data_ptr(), out.data_ptr(), ws.data_ptr(), counters.data_ptr(), b, hp - 2,
+            wp - 2, c, n, splits)
+
+    def run():
+        keep = (ws, counters, w_nhwc)  # noqa: F841 (alive while the closure is)
+        _build.check(fn(*args, _build.raw_stream(0)), f"conv3x3_int8 ({path}, {splits} splits)")
+        return out
+    return run
 
 
 def _conv_int8_case(key, gen):
@@ -873,9 +983,17 @@ def _conv_int8_case(key, gen):
     wb = wq.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
     ops_s = 2.0 * b * h * w * n * 9 * c / PEAK_FLOPS["int8"]
     nbytes = x.numel() + wq.numel() + 4 * n + b * h * w * n * torch.empty((), dtype=dt).element_size()
+    path = K3.conv_path(b, h, w, c, n)
+    splits = K3.split_k(b, h, w, c, n, torch.cuda.get_device_properties(0).multi_processor_count)
+    bare = {path: _bare_conv(x, wq, scale, dt, path, splits)}
+    if path == "sm90":
+        bare["mma"] = _bare_conv(x, wq, scale, dt, "mma", 1)
+    if splits > 1:  # the rule's split against none and against twice as many
+        for s in (1, 2 * splits):
+            bare[f"sm90 splits={s}"] = _bare_conv(x, wq, scale, dt, "sm90", s)
     return (lambda: K3.conv3x3_same_int8(x, wq, scale, dt),
             lambda: K3.conv3x3_same_int8_reference(x, wq, scale, dt),
-            lambda: F.conv2d(xb, wb, padding=1), ops_s, nbytes, None)
+            lambda: F.conv2d(xb, wb, padding=1), ops_s, nbytes, None, bare)
 
 
 def _int8_attention_case(key, gen):
@@ -926,6 +1044,8 @@ def phase_kernels(main):
         ("conv3x3_int8", (1, 8, 8, 2560, 1280, "torch.bfloat16")),
         ("conv3x3_int8", (1, 16, 16, 320, 320, "torch.float32")),
         ("conv3x3_int8", (1, 5, 7, 24, 20, "torch.float32")),
+        ("conv3x3_int8", (2, 8, 8, 1280, 1280, "torch.bfloat16")),
+        ("group_norm", (1, 3, 5, 40, 8, 1e-5, "silu", "torch.bfloat16")),
         ("int8_attention", (1, 4096, 77, 8, 40, "torch.bfloat16")),
         ("int8_attention", (1, 256, 77, 8, 40, "torch.float32")),
         ("int8_attention", (1, 1024, 1024, 8, 80, "torch.float32")),
@@ -979,6 +1099,9 @@ def phase_kernels(main):
                         bare_ok, bare_err = tolerance.within(f(), ref, kernel)
                         bare_rows[p] = {"ms": _time_ms(f, iters), "max_abs_err": bare_err,
                                         "within": bare_ok}
+                        if kernel in ("group_norm", "conv3x3_int8") and not bare_ok:
+                            raise AssertionError(f"{kernel} {key} through the C entry on "
+                                                 f"path {p} disagrees: {bare_err}")
             bound = max(ops_s, nbytes / PEAK_BYTES) * 1e3
             bound_by = "operations" if ops_s > nbytes / PEAK_BYTES else "bytes"
             row = {"kernel": kernel, "shape": list(key), "main_path_launches": count,
@@ -1050,10 +1173,18 @@ def _kernel_line(rows, paths, codes):
         total = lambda key: sum(r[key] * n for r, n in mine)  # noqa: E731
         ops_bound = sum(r["bound_ms"] * n for r, n in mine if r["bound_by"] == "operations")
         launches = sum(n for (k, _), n in counts.items() if k == name)
-        return {"launches": launches, "ms": total("ms"),
-                "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
-                "bound_by": "operations" if ops_bound > total("bound_ms") / 2 else "bytes",
-                "library_ms": total("library_ms")}
+        out = {"launches": launches, "ms": total("ms"),
+               "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+               "bound_by": "operations" if ops_bound > total("bound_ms") / 2 else "bytes",
+               "library_ms": total("library_ms")}
+        if name in ("group_norm", "conv3x3_int8"):
+            # the C entry alone on the wrapper's path: the difference to "ms" is
+            # the wrapper's host time
+            out["bare_ms"] = sum(r["bare"][r["path"]]["ms"] * n for r, n in mine if n)
+        if name == "group_norm":  # device launches: twophase takes two a call
+            out["device_launches"] = sum(
+                n * (2 if r["path"] == "twophase" else 1) for r, n in mine)
+        return out
 
     everything = collections.Counter()
     for counts in paths.values():

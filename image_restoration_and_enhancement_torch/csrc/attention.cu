@@ -87,6 +87,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -763,67 +765,6 @@ cudaError_t dispatch_mma_dp(const void* q, const void* k, const void* v, void* o
 // matter), then fence.proxy.async makes the stores visible to wgmma.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of a 4-D tensor map (coordinates d, h, n, b) into shared memory.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int d, int h, int n, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(h), "r"(n), "r"(b)
-      : "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void named_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
 // Keeps the compiler from moving register reads and writes across an
 // asynchronous wgmma that owns these registers.
 template <int N>
@@ -849,36 +790,8 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes.
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-// Operand lists of the wgmma instructions: WG_Sx names accumulator registers
-// 8x .. 8x + 7, WG_F8 binds eight of them.
-#define WG_S0 "%0, %1, %2, %3, %4, %5, %6, %7"
-#define WG_S1 "%8, %9, %10, %11, %12, %13, %14, %15"
-#define WG_S2 "%16, %17, %18, %19, %20, %21, %22, %23"
-#define WG_S3 "%24, %25, %26, %27, %28, %29, %30, %31"
-#define WG_S4 "%32, %33, %34, %35, %36, %37, %38, %39"
-#define WG_S5 "%40, %41, %42, %43, %44, %45, %46, %47"
-#define WG_S6 "%48, %49, %50, %51, %52, %53, %54, %55"
-#define WG_S7 "%56, %57, %58, %59, %60, %61, %62, %63"
-#define WG_S8 "%64, %65, %66, %67, %68, %69, %70, %71"
-#define WG_S9 "%72, %73, %74, %75, %76, %77, %78, %79"
-#define WG_S10 "%80, %81, %82, %83, %84, %85, %86, %87"
-#define WG_S11 "%88, %89, %90, %91, %92, %93, %94, %95"
-#define WG_S12 "%96, %97, %98, %99, %100, %101, %102, %103"
-#define WG_S13 "%104, %105, %106, %107, %108, %109, %110, %111"
-#define WG_S14 "%112, %113, %114, %115, %116, %117, %118, %119"
-#define WG_S15 "%120, %121, %122, %123, %124, %125, %126, %127"
-#define WG_R16 WG_S0 ", " WG_S1
-#define WG_R32 WG_R16 ", " WG_S2 ", " WG_S3
-#define WG_R64 WG_R32 ", " WG_S4 ", " WG_S5 ", " WG_S6 ", " WG_S7
-#define WG_R96 WG_R64 ", " WG_S8 ", " WG_S9 ", " WG_S10 ", " WG_S11
-#define WG_R128 WG_R96 ", " WG_S12 ", " WG_S13 ", " WG_S14 ", " WG_S15
+// WG_Sx (sm90.cuh) names accumulator registers 8x .. 8x + 7; WG_F8 binds
+// eight of them as fp32 operands.
 #define WG_F8(d, i)                                                                       \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),              \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
@@ -1193,29 +1106,6 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
   }
-}
-
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, looked up through the runtime (no -lcuda).
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = []() -> EncodeTiledFn {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    return reinterpret_cast<EncodeTiledFn>(p);
-  }();
-  return fn;
 }
 
 // The 4-D map (d, h, n, b) of a [B, N, H, D] bf16 view with element strides

@@ -5,35 +5,54 @@
 // Computes, for a pre-padded s8 input x [B, H+2, W+2, C], an s8 weight
 // w [N, 3, 3, C] and an fp32 scale [N]:
 //   out[b, y, x, n] = float(sum_{dy, dx, c} x[b, y+dy, x+dx, c] * w[n, dy, dx, c]) * scale[n]
-// with the sum in int32 (exact) and out in fp32 or bf16, [B, H, W, N].
+// with the sum in int32 (exact) and out in fp32 or bf16, [B, H, W, N]. The
+// epilogue converts each int32 sum to fp32 (round to nearest, as XLA's convert
+// does), multiplies by scale[n] and rounds once to the output dtype, so every
+// path is bitwise equal to the plain version.
 //
 // As a GEMM: M = B*H*W output pixels, N output channels, K = 9*C taps. What
 // bounds it on the H100: at the UNet's widths (C, N = 320..2560) it does
 // 2*M*N*9*C operations against about M*C + 9*C*N + 2*M*N bytes, hundreds of
-// operations per byte, so the bound is the s8 tensor-core rate. So the kernel
-// runs on the tensor cores with mma.sync m16n8k32 (s8 in, s32 accumulate) and
-// keeps every tile in shared memory through a 3-stage cp.async pipeline.
+// operations per byte, so the bound is the s8 tensor-core rate (1,979 TOP/s),
+// except at the 8x8 level, where reading the weight once (up to 29 MB) takes
+// longer than the products.
 //
 // The TPU kernel flattens the padded image so that each tap of an output row
 // block is one contiguous input row range (computing two garbage columns per
-// image row), and DMAs a [tile_m + halo, C] window per tile. Here each output
-// pixel keeps its own input address instead: a thread computes the padded
-// address of its pixel once per block, and tap (dy, dx) adds (dy*(W+2)+dx)*C.
-// So no output is computed twice and the input needs no extra padding; the
-// 1-pixel border of x makes the edges need no mask.
+// image row), and DMAs a [tile_m + halo, C] window per tile. Here no output is
+// computed twice and the input needs no extra padding. Two paths, named by
+// ops/conv_int8.py's conv_path() from the shape and passed in; the entry
+// refuses a path its arguments cannot take and never picks another:
 //
-// Tiling: a block of 8 warps computes a 128 x 128 output tile; warp (wm, wn)
-// owns 64 x 32 of it (4 x 4 m16n8 accumulators). K advances 64 bytes a stage:
-// two 32-channel chunks, each (tap, c0) with c0 a multiple of 32; channels
-// past C are zero-filled by cp.async, so C need only be a multiple of 8 (the
-// copy width: 16 bytes when C % 16 == 0, else 8). Fragments are read from
-// shared memory with 32-bit loads; rows are padded to 80 bytes so the eight
-// rows a load touches fall in eight different bank groups. The epilogue
-// converts each int32 sum to fp32 (round to nearest, as XLA's convert does),
-// multiplies by scale[n] and writes the output dtype.
+// - kSm90 (C a multiple of 64, N of 8, and 128-pixel output tiles that are
+//   one rectangle of the image: W a multiple of 128, or W dividing 128 with
+//   whole rows or whole images in a tile; every 3x3 conv of SD-1.5's UNet and
+//   VAE): warp-specialised s8 wgmma + TMA, see conv3x3_int8_sm90_kernel. A
+//   block computes a 128 x BN output tile. One producer thread walks the
+//   K blocks (tap, 64- or 128-channel slice) and keeps a ring of stages full
+//   with two TMA loads each: A is one box of a 4-D tensor map over the padded
+//   x [B, H+2, W+2, C] at coordinates (c0, x0+dx, y0+dy, b0), so tap (dy, dx)
+//   of the tile's pixels lands as a [128 pixels][KB] K-major tile with no
+//   im2col; B is one box of a 2-D map over w viewed as [N, 9C]. Both use the
+//   128-byte swizzle at KB = 128 (C % 128 == 0) and the 64-byte one at KB = 64
+//   (C % 128 == 64: 320 and 960), so no box is padded with zeros. Two consumer
+//   warpgroups of 64 rows each issue wgmma m64nBNk32 s32.s8.s8 from shared
+//   memory and free a stage when the next stage's products are issued.
+//   Split-K: where the M x N tiles give fewer blocks than the card has SMs (the
+//   UNet's 8x8 and 16x16 levels: 10-40 tiles), conv_path's split factor S
+//   divides the K blocks over S blocks of a third grid axis. Each writes its
+//   int32 partial tile to a workspace; the last to arrive (a per-tile counter,
+//   reset by that block) adds the others' partials, which is exact in any
+//   order, and runs the epilogue, all in the one launch.
+// - kMma (any C that is a multiple of 8; the shapes sm90's boxes cannot
+//   address, such as TINY_SD's 8- and 16-channel convs): mma.sync m16n8k32 with
+//   a 3-stage cp.async ring, see conv3x3_int8_mma_kernel.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -95,11 +114,24 @@ __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p, float a,
   if (second) p[1] = __float2bfloat16(b);
 }
 
+// The mma path. Each output pixel keeps its own input address: a thread
+// computes the padded address of its pixel once per block, and tap (dy, dx)
+// adds (dy*(W+2)+dx)*C, so the 1-pixel border of x makes the edges need no
+// mask. Tiling: a block of 8 warps computes a 128 x 128 output tile; warp
+// (wm, wn) owns 64 x 32 of it (4 x 4 m16n8 accumulators). K advances 64
+// bytes a stage: two 32-channel chunks, each (tap, c0) with c0 a multiple of
+// 32; channels
+// past C are zero-filled by cp.async, so C need only be a multiple of 8 (the
+// copy width: 16 bytes when C % 16 == 0, else 8). Fragments are read from
+// shared memory with 32-bit loads; rows are padded to 80 bytes so the eight
+// rows a load touches fall in eight different bank groups. The epilogue
+// converts each int32 sum to fp32 (round to nearest, as XLA's convert does),
+// multiplies by scale[n] and writes the output dtype.
 template <typename OutT, int VEC>
 __global__ void __launch_bounds__(kThreads)
-conv3x3_int8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                    const float* __restrict__ scale, OutT* __restrict__ out,
-                    int H, int W, int C, int N, int M) {
+conv3x3_int8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                        const float* __restrict__ scale, OutT* __restrict__ out,
+                        int H, int W, int C, int N, int M) {
   constexpr int PPR = kBK / VEC;                 // copies per tile row and stage
   constexpr int PER = kBM * PPR / kThreads;      // copies per thread per tile
   static_assert(kBM == kBN, "A and B tiles share the copy layout");
@@ -237,12 +269,12 @@ conv3x3_int8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 }
 
 template <typename OutT, int VEC>
-cudaError_t launch(const void* x, const void* w, const float* scale, void* out, int B,
-                   int H, int W, int C, int N, cudaStream_t stream) {
-  auto kernel = conv3x3_int8_kernel<OutT, VEC>;
-  cudaError_t err = cudaFuncSetAttribute(
+cudaError_t launch_mma(const void* x, const void* w, const float* scale, void* out, int B,
+                       int H, int W, int C, int N, cudaStream_t stream) {
+  auto kernel = conv3x3_int8_mma_kernel<OutT, VEC>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err != cudaSuccess) return err;
+  if (attr != cudaSuccess) return attr;
   const int M = B * H * W;
   dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
   kernel<<<grid, kThreads, kSmemBytes, stream>>>(
@@ -252,13 +284,308 @@ cudaError_t launch(const void* x, const void* w, const float* scale, void* out, 
 }
 
 template <typename OutT>
-cudaError_t dispatch(const void* x, const void* w, const float* scale, void* out, int B,
-                     int H, int W, int C, int N, cudaStream_t stream) {
+cudaError_t dispatch_mma(const void* x, const void* w, const float* scale, void* out, int B,
+                         int H, int W, int C, int N, cudaStream_t stream) {
   const uintptr_t align = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w);
   if (C % 16 == 0 && align % 16 == 0)
-    return launch<OutT, 16>(x, w, scale, out, B, H, W, C, N, stream);
+    return launch_mma<OutT, 16>(x, w, scale, out, B, H, W, C, N, stream);
   if (C % 8 == 0 && align % 8 == 0)
-    return launch<OutT, 8>(x, w, scale, out, B, H, W, C, N, stream);
+    return launch_mma<OutT, 8>(x, w, scale, out, B, H, W, C, N, stream);
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// sm90 path: warp-specialised s8 wgmma + TMA (see the top of the file).
+//
+// Shared memory holds STAGES stages, each an A tile [128 pixels][KB bytes]
+// then a B tile [BN output channels][KB bytes], as TMA writes them with the
+// KB-byte swizzle: rows KB bytes apart, 8-row swizzle atoms 8*KB bytes apart
+// (the descriptors' SBO). Both operands are K-major, as s8 wgmma requires; a
+// k-step of 32 channels is 32 bytes inside the atom. Consumer warpgroup wg
+// takes A rows 64*wg .. 64*wg + 63. Its m64nBN s32 accumulator is BN/2
+// registers a thread, laid out as mma.sync's m16n8 per warp: warp w, lane
+// (g = lane/4, t = lane%4) holds rows 16w + g and 16w + g + 8, columns
+// 8j + 2t and 8j + 2t + 1 of column block j in registers 4j .. 4j + 3.
+// BN is 160 where N is a multiple of 160 (the UNet's 320, 640 and 1280: no
+// column of a tile is wasted, and 2x64x64 -> 320 and 2x32x32 -> 1280 fill
+// the card in one wave of 128 blocks), else 128 (the VAE's 128, 256, 512).
+// ---------------------------------------------------------------------------
+
+constexpr int kSmThreads = 384;      // two consumer warpgroups, then the producer's
+constexpr int kSmConsumers = 256;
+
+template <int KB, int BN>
+struct Sm90 {
+  static constexpr int STAGES = KB == 128 ? 4 : 8;
+  static constexpr int ACC = BN / 2;  // s32 accumulators a consumer thread holds
+  static constexpr int A_BYTES = kBM * KB;
+  static constexpr int B_BYTES = BN * KB;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  // 1024 for aligning the swizzle atoms, then the full and empty barriers.
+  static constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + 16 * STAGES;
+  static constexpr uint64_t LAYOUT = KB == 128 ? 1 : 2;  // 128- or 64-byte swizzle
+  static constexpr int SBO = 8 * KB;
+  static_assert(SMEM_BYTES <= 232448, "shared memory");
+};
+
+#define WG_I8(d, i)                                                                       \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]),              \
+      "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+#define WG_CI64(d)                                                                        \
+  WG_I8(d, 0), WG_I8(d, 8), WG_I8(d, 16), WG_I8(d, 24), WG_I8(d, 32), WG_I8(d, 40),       \
+      WG_I8(d, 48), WG_I8(d, 56)
+#define WG_CI80(d) WG_CI64(d), WG_I8(d, 64), WG_I8(d, 72)
+
+// d += A.B, m64nNk32, s8 in, s32 accumulate; A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {" WG_R64
+               "}, %64, %65, p;\n}\n"
+               : WG_CI64(d)
+               : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[80], uint64_t da, uint64_t db) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n160k32.s32.s8.s8 {" WG_R64 ", " WG_S8
+               ", " WG_S9 "}, %80, %81, p;\n}\n"
+               : WG_CI80(d)
+               : "l"(da), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Grid: (M tiles, N tiles, splits). ws: int32 partial tiles [tiles][splits]
+// [ACC][kSmConsumers]; counters: one int per tile, 0 between launches.
+template <int KB, int BN, typename OutT>
+__global__ void __launch_bounds__(kSmThreads, 1)
+conv3x3_int8_sm90_kernel(const __grid_constant__ CUtensorMap tx,
+                         const __grid_constant__ CUtensorMap tw,
+                         const float* __restrict__ scale, OutT* __restrict__ out,
+                         int* __restrict__ ws, int* __restrict__ counters, int H, int W,
+                         int C, int N, int M, int splits) {
+  using Cf = Sm90<KB, BN>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int last;
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t bars = base + Cf::STAGES * Cf::STAGE_BYTES;  // full[s], then empty[s]
+  const int m0 = blockIdx.x * kBM;
+  const int n0 = blockIdx.y * BN;
+  const int split = blockIdx.z;
+  const int cpt = C / KB;  // K blocks per tap
+  const int nkb = 9 * cpt;
+  const int kb0 = (int)((int64_t)split * nkb / splits);
+  const int kb1 = (int)((int64_t)(split + 1) * nkb / splits);
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Cf::STAGES; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (Cf::STAGES + s), kSmConsumers / 32);  // one arrival per warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // Producer: one thread keeps the ring full.
+    if (threadIdx.x == kSmConsumers) {
+      const int hw = H * W;
+      const int b0 = m0 / hw;
+      const int y0 = (m0 - b0 * hw) / W;
+      const int x0 = m0 - b0 * hw - y0 * W;
+      for (int kb = kb0; kb < kb1; ++kb) {
+        const int i = kb - kb0;
+        const int s = i % Cf::STAGES;
+        const uint32_t full = bars + 8 * s;
+        mbar_wait(bars + 8 * (Cf::STAGES + s), ((i / Cf::STAGES) & 1) ^ 1);
+        mbar_expect_tx(full, Cf::STAGE_BYTES);
+        const int tap = kb / cpt;
+        const int dy = tap / 3;
+        const int dx = tap - 3 * dy;
+        const uint32_t st = base + s * Cf::STAGE_BYTES;
+        tma_load(st, &tx, full, (kb - tap * cpt) * KB, x0 + dx, y0 + dy, b0);
+        tma_load_2d(st + Cf::A_BYTES, &tw, full, kb * KB, n0);
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroup wg: output rows m0 + 64 wg .. + 63.
+  const int ctid = threadIdx.x;
+  const int lane = ctid & 31;
+  int acc[Cf::ACC];
+#pragma unroll
+  for (int i = 0; i < Cf::ACC; ++i) acc[i] = 0;
+  const int nk = kb1 - kb0;
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % Cf::STAGES;
+    mbar_wait(bars + 8 * s, (i / Cf::STAGES) & 1);
+    const uint32_t a = base + s * Cf::STAGE_BYTES + wg * 64 * KB;
+    const uint32_t b = base + s * Cf::STAGE_BYTES + Cf::A_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KB / 32; ++ks)
+      wgmma_s8(acc, gmma_desc(a + ks * 32, 16, Cf::SBO, Cf::LAYOUT),
+               gmma_desc(b + ks * 32, 16, Cf::SBO, Cf::LAYOUT));
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done: free it
+    fence_acc(acc);
+    if (i > 0 && lane == 0) mbar_arrive(bars + 8 * (Cf::STAGES + (i - 1) % Cf::STAGES));
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+
+  if (splits > 1) {
+    // Every split stores its partial tile; the last to arrive adds the others'.
+    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+    const int64_t per = (int64_t)Cf::ACC * kSmConsumers;
+    int* mine = ws + ((int64_t)tile * splits + split) * per;
+#pragma unroll
+    for (int j = 0; j < Cf::ACC; ++j) __stcg(mine + j * kSmConsumers + ctid, acc[j]);
+    __threadfence();
+    named_sync(1, kSmConsumers);
+    if (ctid == 0) last = atomicAdd(counters + tile, 1) == splits - 1;
+    named_sync(1, kSmConsumers);
+    if (!last) return;
+    __threadfence();
+    for (int sp = 0; sp < splits; ++sp) {
+      if (sp == split) continue;
+      const int* p = ws + ((int64_t)tile * splits + sp) * per;
+#pragma unroll
+      for (int j = 0; j < Cf::ACC; ++j) acc[j] += __ldcg(p + j * kSmConsumers + ctid);
+    }
+    if (ctid == 0) counters[tile] = 0;
+  }
+
+  const int warp = (ctid & 127) >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row0 = m0 + wg * 64 + warp * 16 + g;
+  const int row1 = row0 + 8;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int n = n0 + j * 8 + t * 2;  // N is a multiple of 8: n < N means n + 1 < N
+    if (n >= N) continue;
+    const float s0 = scale[n];
+    const float s1 = scale[n + 1];
+    if (row0 < M)
+      store_pair(out + (int64_t)row0 * N + n, (float)acc[4 * j] * s0, (float)acc[4 * j + 1] * s1);
+    if (row1 < M)
+      store_pair(out + (int64_t)row1 * N + n, (float)acc[4 * j + 2] * s0,
+                 (float)acc[4 * j + 3] * s1);
+  }
+}
+
+// The box of 128 output pixels a tile covers, (bw, bh, bb) pixels x rows x
+// images, or false where no box is one rectangle of the image
+// (ops/conv_int8.py sm90_box).
+bool sm90_box(int H, int W, int* box) {
+  if (W % kBM == 0) {
+    box[0] = kBM, box[1] = 1, box[2] = 1;
+    return true;
+  }
+  if (kBM % W != 0) return false;
+  const int rows = kBM / W;
+  if (rows <= H && H % rows == 0) {
+    box[0] = W, box[1] = rows, box[2] = 1;
+    return true;
+  }
+  if (kBM % (H * W) != 0) return false;
+  box[0] = W, box[1] = H, box[2] = kBM / (H * W);
+  return true;
+}
+
+CUtensorMapSwizzle swizzle(int KB) {
+  return KB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+}
+
+// x as the 4-D map (c, x, y, b) of [B, H+2, W+2, C] s8, boxes (KB, bw, bh, bb);
+// w as the 2-D map (k, n) of [N, 9C] s8, boxes (KB, BN).
+bool make_maps(CUtensorMap* tx, CUtensorMap* tw, const void* x, const void* w, int B, int H,
+               int W, int C, int N, int KB, int BN, const int* box) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t xdims[4] = {(cuuint64_t)C, (cuuint64_t)W + 2, (cuuint64_t)H + 2,
+                               (cuuint64_t)B};
+  const cuuint64_t xstrides[3] = {(cuuint64_t)C, (cuuint64_t)C * (W + 2),
+                                  (cuuint64_t)C * (W + 2) * (H + 2)};
+  const cuuint32_t xbox[4] = {(cuuint32_t)KB, (cuuint32_t)box[0], (cuuint32_t)box[1],
+                              (cuuint32_t)box[2]};
+  const cuuint64_t wdims[2] = {(cuuint64_t)9 * C, (cuuint64_t)N};
+  const cuuint64_t wstrides[1] = {(cuuint64_t)9 * C};
+  const cuuint32_t wbox[2] = {(cuuint32_t)KB, (cuuint32_t)BN};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(tx, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(x), xdims, xstrides, xbox,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle(KB), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS &&
+         fn(tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(w), wdims, wstrides, wbox,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle(KB), CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int KB, int BN, typename OutT>
+cudaError_t launch_sm90(const void* x, const void* w, const float* scale, void* out, int* ws,
+                        int* counters, int B, int H, int W, int C, int N, int splits,
+                        const int* box, cudaStream_t stream) {
+  using Cf = Sm90<KB, BN>;
+  auto kernel = conv3x3_int8_sm90_kernel<KB, BN, OutT>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cf::SMEM_BYTES);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap tx, tw;
+  if (!make_maps(&tx, &tw, x, w, B, H, W, C, N, KB, BN, box)) return cudaErrorInvalidValue;
+  const int M = B * H * W;
+  dim3 grid((M + kBM - 1) / kBM, (N + BN - 1) / BN, splits);
+  kernel<<<grid, kSmThreads, Cf::SMEM_BYTES, stream>>>(
+      tx, tw, scale, static_cast<OutT*>(out), ws, counters, H, W, C, N, M, splits);
+  return cudaGetLastError();
+}
+
+template <typename OutT>
+cudaError_t dispatch_sm90(const void* x, const void* w, const float* scale, void* out, int* ws,
+                          int* counters, int B, int H, int W, int C, int N, int splits,
+                          cudaStream_t stream) {
+  int box[3];
+  const int KB = C % 128 == 0 ? 128 : 64;
+  if (C % 64 != 0 || N % 8 != 0 || !sm90_box(H, W, box) || splits < 1 ||
+      splits > 9 * C / KB || (splits > 1 && (ws == nullptr || counters == nullptr)) ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) % 16 != 0)
+    return cudaErrorInvalidValue;
+#define IRET_LAUNCH_SM90(KB_, BN_)                                                        \
+  return launch_sm90<KB_, BN_, OutT>(x, w, scale, out, ws, counters, B, H, W, C, N, splits, \
+                                     box, stream)
+  if (N % 160 == 0) {
+    if (KB == 128) IRET_LAUNCH_SM90(128, 160);
+    IRET_LAUNCH_SM90(64, 160);
+  }
+  if (KB == 128) IRET_LAUNCH_SM90(128, 128);
+  IRET_LAUNCH_SM90(64, 128);
+#undef IRET_LAUNCH_SM90
+}
+
+// Paths, as ops/conv_int8.py's conv_path() names them.
+enum Path { kMma = 0, kSm90 = 1 };
+
+template <typename OutT>
+cudaError_t dispatch(int path, const void* x, const void* w, const float* scale, void* out,
+                     int* ws, int* counters, int B, int H, int W, int C, int N, int splits,
+                     cudaStream_t stream) {
+  if (path == kSm90)
+    return dispatch_sm90<OutT>(x, w, scale, out, ws, counters, B, H, W, C, N, splits, stream);
+  if (path == kMma && splits == 1)
+    return dispatch_mma<OutT>(x, w, scale, out, B, H, W, C, N, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -266,17 +593,27 @@ cudaError_t dispatch(const void* x, const void* w, const float* scale, void* out
 
 extern "C" {
 
-// out_dtype: 0 = float32, 1 = bfloat16. x is a contiguous [B, H+2, W+2, C] s8,
-// w a contiguous [N, 3, 3, C] s8, scale a contiguous [N] fp32, out a
-// contiguous [B, H, W, N]. C must be a multiple of 8.
-int iret_conv3x3_int8(int out_dtype, const void* x, const void* w, const void* scale,
-                      void* out, int B, int H, int W, int C, int N, void* stream) {
+// path: ops/conv_int8.py's conv_path() (enum Path); out_dtype: 0 = float32,
+// 1 = bfloat16. x is a contiguous [B, H+2, W+2, C] s8, w a contiguous
+// [N, 3, 3, C] s8, scale a contiguous [N] fp32, out a contiguous [B, H, W, N].
+// splits: the K split of the sm90 path (1 on the mma path); with splits > 1,
+// ws is int32 scratch of (M tiles x N tiles x splits x 128 x BN) and counters
+// (M tiles x N tiles) int32 zeros, which the launch leaves zero; BN is 160
+// where N % 160 == 0, else 128 (ops/conv_int8.py tile_n). A path the
+// arguments cannot take is cudaErrorInvalidValue; no other path is tried.
+int iret_conv3x3_int8(int path, int out_dtype, const void* x, const void* w, const void* scale,
+                      void* out, void* ws, void* counters, int B, int H, int W, int C, int N,
+                      int splits, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || N <= 0) return cudaErrorInvalidValue;
   if ((int64_t)B * H * W >= (1LL << 31)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
-  if (out_dtype == 0) return dispatch<float>(x, w, sc, out, B, H, W, C, N, s);
-  if (out_dtype == 1) return dispatch<__nv_bfloat16>(x, w, sc, out, B, H, W, C, N, s);
+  int* wsp = static_cast<int*>(ws);
+  int* cnt = static_cast<int*>(counters);
+  if (out_dtype == 0)
+    return dispatch<float>(path, x, w, sc, out, wsp, cnt, B, H, W, C, N, splits, s);
+  if (out_dtype == 1)
+    return dispatch<__nv_bfloat16>(path, x, w, sc, out, wsp, cnt, B, H, W, C, N, splits, s);
   return cudaErrorInvalidValue;
 }
 

@@ -4,208 +4,464 @@
 //   (called from _pallas_group_norm / group_norm).
 // Computes the function of _reference_group_norm there: per-channel fp32 sum
 // and sum of squares, combined per group; var = E[x^2] - E[x]^2 clamped at 0;
-// rstd = rsqrt(var + eps); the affine folded into y = x * w + b per channel;
-// optional SiLU; y written in the input dtype.
+// rstd = 1 / sqrt(var + eps); the affine folded into y = x * w + b per channel
+// (w = rstd * scale, b = bias - mean * w, each product and sum rounded as the
+// plain version rounds it); optional SiLU y / (1 + exp(-y)) (fast exponential
+// and divide, see fast_silu()); y written in the input dtype.
 //
 // What bounds it on the H100: a handful of operations per element against
 // reading x once and writing y once, so the bound is memory bytes. The TPU
-// kernel holds one sample's whole (H*W, C) tensor in VMEM; the VAE's
-// [1, 512, 512, 128] and [1, 256, 256, 512] activations exceed that budget, and
-// one block per (batch, group) would leave most of the card's 132 SMs idle. So
-// the reduction is split over a grid of row chunks:
-//   pass 1 (stats):    one block per (chunk of rows, batch) writes fp32
-//                      per-channel partial sums and sums of squares;
-//   pass 2 (finalize): one block per (group, batch) combines the partials and
-//                      writes the folded per-channel (w, b);
-//   pass 3 (apply):    an elementwise grid-stride pass y = x * w + b (+ SiLU).
-// x is read twice (pass 1 and 3); at these sizes the second read often comes
-// from the 50 MB L2. Partial sums go through device memory in a fixed order, so
-// the result does not depend on scheduling (no atomics).
+// kernel holds one sample's whole (H*W, C) tensor in VMEM and reads it once.
+// The card's 132 SMs hold 132 x 227 KB of shared memory, about 30 MB, and every
+// UNet GroupNorm at batch 2 fits in that (the largest, 2x64x64x960 bf16, is
+// 15.7 MB), so the same one-read design is had here by spreading a sample over
+// many blocks, each holding its slab of rows on chip. Two paths, chosen by
+// ops/groupnorm.py's plan() and passed in; the entry refuses a path its
+// arguments cannot take and never picks another itself:
+//
+// - kOnchip (one launch): a block per (slab of rows_per_block rows, sample).
+//   One thread pulls the slab (contiguous rows x C) into shared memory with
+//   bulk copies on one mbarrier. The block takes per-channel fp32 sums and
+//   sums of squares of its rows, combines them per group in channel order, and
+//   writes one (sum, sum of squares) pair per group to a partials buffer. One
+//   grid-wide barrier; then every block reduces its sample's partials over the
+//   blocks in a fixed order, folds the affine per channel and writes y from the
+//   slab it kept, with 16-byte stores. x is read from HBM once, y written once.
+//   The exchange is a cooperative launch (cudaLaunchCooperativeKernel) with one
+//   grid barrier, not a thread-block cluster: a cluster holds at most 16 CTAs,
+//   about 3.6 MB, less than one sample of the largest UNet norm, so a cluster
+//   would have to split the channels into group-aligned slabs (a 240-byte slab
+//   of each 1920-byte row at C = 960) and read x with strided rows; whole rows
+//   keep every copy and store contiguous, and the blocks of a sample need no
+//   scheduling on neighbouring SMs. The cooperative launch guarantees that all
+//   blocks are resident, which the barrier needs (at most one block per SM).
+// - kTwoPhase (two launches), for shapes whose slabs exceed shared memory (the
+//   VAE's 1x512x512x{128,256} and 1x256x256x{256,512}): a stats kernel over
+//   about two blocks an SM writes the same per-group partials from 16-byte
+//   loads; then an apply kernel over the same slabs reduces its sample's
+//   partials in the same fixed order (the finalize is folded into it) and
+//   writes y from a second read of x.
+//
+// A thread owns one 16-byte vector of channels (8 bf16 or 4 fp32) and walks
+// every rsplit-th row of the slab, so no index is divided per element and a
+// warp reads or writes contiguous bytes. A vector may straddle two groups
+// (gc = C/32 is 10, 30 or 60 in the UNet), so sums stay per channel until the
+// block has reduced its rows, as the TPU kernel keeps them (its one-hot cmap).
+// Every reduction runs in a fixed order (no atomics), so the result does not
+// depend on scheduling.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kStatThreads = 128;
-constexpr int kFinalizeThreads = 256;  // a power of two (tree reduction)
-constexpr int kApplyThreads = 256;
+constexpr int kThreads = 512;
+constexpr int kMaxChannels = 4096;
+constexpr int kMaxGroups = 128;
+// Per-channel (sum, sum of squares) of each row slice: rsplit x C float2, at
+// most kThreads vectors of 8 channels (or C <= kMaxChannels at one slice).
+constexpr int kRedBytes = kThreads * 8 * 8;
+static_assert(kRedBytes >= kMaxChannels * 8, "reduction buffer");
+// A slab's bytes on the onchip path (ops/groupnorm.py ONCHIP_SLAB_BYTES).
+constexpr int kMaxSlabBytes = 192 * 1024;
+constexpr int kCopyChunk = 32 * 1024;
+// (sum, sum of squares) per (block, group) of one launch, in one buffer per
+// device: launches that use it must be ordered, as on one stream (the port
+// issues every kernel on PyTorch's current stream).
+constexpr int kMaxPartials = 1 << 16;
+__device__ float2 g_partials[kMaxPartials];
+
+enum Path { kOnchip = 0, kTwoPhase = 1 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
+// 16 bytes of T as floats, and back.
 template <typename T>
-__device__ __forceinline__ T from_f(float x);
+struct Vec;
 template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
+struct Vec<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&f)[4]) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                      __float_as_uint(f[3]));
+  }
+};
 template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+    }
+  }
+  static __device__ __forceinline__ uint32_t pack2(float a, float b) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);  // a in the low half
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&f)[8]) {
+    return make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]), pack2(f[4], f[5]),
+                      pack2(f[6], f[7]));
+  }
+};
 
-// partial: [B, chunks, C, 2] (sum, sum of squares) over the chunk's rows. A
-// thread owns one channel at a time and walks the chunk's rows, so a warp reads
-// 32 neighbouring channels of a row and no block-level reduction is needed.
-template <typename T>
-__global__ void __launch_bounds__(kStatThreads)
-gn_stats_kernel(const T* __restrict__ x, float* __restrict__ partial, int HW,
-                int C, int chunks, int rows_per_chunk) {
-  const int chunk = blockIdx.x;
-  const int b = blockIdx.y;
-  const int r0 = chunk * rows_per_chunk;
-  const int r1 = min(HW, r0 + rows_per_chunk);
-  const T* xb = x + (int64_t)b * HW * C;
-  float* pb = partial + ((int64_t)b * chunks + chunk) * C * 2;
-  for (int c = threadIdx.x; c < C; c += kStatThreads) {
-    float s = 0.f, ss = 0.f;
+// The thread's place in a slab walk: vector column v0 (then v0 + kThreads, ...
+// when a row has more vectors than the block has threads) and row slice rs of
+// rsplit; rs >= rsplit leaves the thread idle.
+struct Walk {
+  int nvec, rsplit, rs, v0;
+  __device__ __forceinline__ Walk(int C, int vec) {
+    nvec = C / vec;
+    rsplit = max(1, kThreads / nvec);
+    rs = threadIdx.x / nvec;
+    v0 = threadIdx.x - rs * nvec;
+  }
+};
+
+// Per-channel (sum, sum of squares) of the slab's `rows` rows into red[0 .. C),
+// each a fixed-order sum over the row slices. load(r, v) gives vector v of row r.
+template <typename T, typename Load>
+__device__ __forceinline__ void channel_sums(Load load, int rows, int C, float2* red) {
+  constexpr int VE = Vec<T>::N;
+  const Walk wk(C, VE);
+  if (wk.rs < wk.rsplit) {
+    for (int v = wk.v0; v < wk.nvec; v += kThreads) {
+      float s[VE], ss[VE];
+#pragma unroll
+      for (int e = 0; e < VE; ++e) s[e] = ss[e] = 0.f;
 #pragma unroll 4
-    for (int r = r0; r < r1; ++r) {
-      const float val = to_f(xb[(int64_t)r * C + c]);
-      s += val;
-      ss = fmaf(val, val, ss);
+      for (int r = wk.rs; r < rows; r += wk.rsplit) {
+        float f[VE];
+        Vec<T>::unpack(load(r, v), f);
+#pragma unroll
+        for (int e = 0; e < VE; ++e) {
+          s[e] += f[e];
+          ss[e] = fmaf(f[e], f[e], ss[e]);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < VE; ++e) red[wk.rs * C + v * VE + e] = make_float2(s[e], ss[e]);
     }
-    pb[c * 2] = s;
-    pb[c * 2 + 1] = ss;
   }
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    float2 a = red[c];
+    for (int i = 1; i < wk.rsplit; ++i) {
+      const float2 p = red[i * C + c];
+      a.x += p.x;
+      a.y += p.y;
+    }
+    red[c] = a;
+  }
+  __syncthreads();
 }
 
-// One block per (group, batch): a fixed-order tree reduction of the group's
-// partials, then the folded per-channel (w, b) of y = x * w + b into
-// wb: [B, C, 2]. W is the type of scale and bias (float or bf16).
-template <typename W>
-__global__ void __launch_bounds__(kFinalizeThreads)
-gn_finalize_kernel(const float* __restrict__ partial, const W* __restrict__ scale,
-                   const W* __restrict__ bias, float* __restrict__ wb,
-                   int HW, int C, int G, int chunks, float eps) {
-  __shared__ float red_s[kFinalizeThreads];
-  __shared__ float red_ss[kFinalizeThreads];
-  __shared__ float stat[2];  // mean, rstd
-  const int g = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
+// The block's per-group pair: a warp per group, lane l summing the group's
+// channels l, l + 32, ... in order, then a butterfly over the 32 lanes.
+__device__ __forceinline__ void group_partials(const float2* red, int C, int G,
+                                               float2* __restrict__ out) {
   const int gc = C / G;
-  const float* pb = partial + (int64_t)b * chunks * C * 2 + (int64_t)g * gc * 2;
-  float s = 0.f, ss = 0.f;
-  for (int i = tid; i < chunks * gc; i += kFinalizeThreads) {
-    const int ch = i / gc;
-    const float* p = pb + ((int64_t)ch * C + (i - ch * gc)) * 2;
-    s += p[0];
-    ss += p[1];
-  }
-  red_s[tid] = s;
-  red_ss[tid] = ss;
-  __syncthreads();
-  for (int off = kFinalizeThreads / 2; off > 0; off >>= 1) {
-    if (tid < off) {
-      red_s[tid] += red_s[tid + off];
-      red_ss[tid] += red_ss[tid + off];
+  const int lane = threadIdx.x & 31;
+  for (int g = threadIdx.x >> 5; g < G; g += kThreads / 32) {
+    float2 a = make_float2(0.f, 0.f);
+    for (int j = lane; j < gc; j += 32) {
+      const float2 p = red[g * gc + j];
+      a.x += p.x;
+      a.y += p.y;
     }
-    __syncthreads();
+    for (int off = 16; off > 0; off >>= 1) {
+      a.x += __shfl_xor_sync(0xFFFFFFFFu, a.x, off);
+      a.y += __shfl_xor_sync(0xFFFFFFFFu, a.y, off);
+    }
+    if (lane == 0) out[g] = a;
   }
-  if (tid == 0) {
-    const float count = (float)HW * (float)gc;
-    const float mean = red_s[0] / count;
+}
+
+// The thread's channels c = threadIdx.x + k * kThreads of scale and bias,
+// loaded ahead of the partials (onchip: before the grid barrier), so their
+// latency is not paid after it. W is the type of scale and bias.
+constexpr int kAffinePerThread = kMaxChannels / kThreads;
+struct Affine {
+  float scale[kAffinePerThread], bias[kAffinePerThread];
+};
+
+template <typename W>
+__device__ __forceinline__ Affine load_affine(const W* __restrict__ scale,
+                                              const W* __restrict__ bias, int C) {
+  Affine a;
+#pragma unroll
+  for (int k = 0; k < kAffinePerThread; ++k) {
+    const int c = threadIdx.x + k * kThreads;
+    a.scale[k] = c < C ? to_f(scale[c]) : 0.f;
+    a.bias[k] = c < C ? to_f(bias[c]) : 0.f;
+  }
+  return a;
+}
+
+// Reduces one sample's partials [nblocks][G] over its blocks in a fixed order
+// (lane l of a group's L lanes sums blocks l, l + L, ... in order, its loads
+// issued kBatch at a time; then a butterfly over the L lanes), and writes the
+// per-channel (w, b) of y = x * w + b into wb[C].
+__device__ __forceinline__ void fold_affine(const float2* __restrict__ part, int nblocks, int C,
+                                            int G, float count, float eps, const Affine& af,
+                                            float2* wb, float2* stat) {
+  constexpr int kBatch = 8;
+  int L = 1;
+  while (L < 32 && 2 * L * G <= kThreads) L *= 2;
+  const int g = threadIdx.x / L;
+  const int l = threadIdx.x - g * L;
+  float2 a = make_float2(0.f, 0.f);
+  if (g < G) {
+    for (int i0 = l; i0 < nblocks; i0 += kBatch * L) {
+      float2 p[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int i = i0 + k * L;
+        p[k] = i < nblocks ? __ldcg(&part[i * G + g]) : make_float2(0.f, 0.f);
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        a.x += p[k].x;
+        a.y += p[k].y;
+      }
+    }
+  }
+  for (int off = L / 2; off > 0; off >>= 1) {
+    a.x += __shfl_xor_sync(0xFFFFFFFFu, a.x, off);
+    a.y += __shfl_xor_sync(0xFFFFFFFFu, a.y, off);
+  }
+  if (g < G && l == 0) {
+    const float mean = __fdiv_rn(a.x, count);
     // E[x^2] - E[x]^2 can cancel below zero in fp32 at a large mean/std ratio.
-    const float var = fmaxf(red_ss[0] / count - mean * mean, 0.f);
-    stat[0] = mean;
-    stat[1] = rsqrtf(var + eps);
+    const float var = fmaxf(__fsub_rn(__fdiv_rn(a.y, count), __fmul_rn(mean, mean)), 0.f);
+    stat[g] = make_float2(mean, __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps))));
   }
   __syncthreads();
-  for (int j = tid; j < gc; j += kFinalizeThreads) {
-    const int c = g * gc + j;
-    const float w = stat[1] * to_f(scale[c]);
-    wb[((int64_t)b * C + c) * 2] = w;
-    wb[((int64_t)b * C + c) * 2 + 1] = to_f(bias[c]) - stat[0] * w;
+  const int gc = C / G;
+#pragma unroll
+  for (int k = 0; k < kAffinePerThread; ++k) {
+    const int c = threadIdx.x + k * kThreads;
+    if (c < C) {
+      const float2 st = stat[c / gc];
+      const float w = __fmul_rn(st.y, af.scale[k]);
+      wb[c] = make_float2(w, __fsub_rn(af.bias[k], __fmul_rn(st.x, w)));
+    }
   }
+  __syncthreads();
 }
 
-// Index is uint32_t whenever the tensor has fewer than 2^31 elements (every SD
-// shape), which keeps the per-element division and modulo cheap.
-template <typename T, bool kSilu, typename Index>
-__global__ void __launch_bounds__(kApplyThreads)
-gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ wb,
-                T* __restrict__ y, Index total, Index per_batch, Index C) {
-  const Index stride = (Index)gridDim.x * blockDim.x;
-  for (Index i = (Index)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += stride) {
-    const Index b = i / per_batch;
-    const Index c = i % C;
-    const float* p = wb + (b * C + c) * 2;
-    float val = fmaf(to_f(x[i]), p[0], p[1]);
-    if (kSilu) val = val / (1.f + expf(-val));
-    y[i] = from_f<T>(val);
-  }
-}
+// y / (1 + exp(-y)) with the MUFU exponential and reciprocal (a few fp32 ulps
+// from the correctly rounded value, far inside the "group_norm" limit and
+// below one bf16 step). With expf and an IEEE division the SiLU took most of
+// the kernel's time: ~40 instructions an element against the slab's ~10 of
+// loads, sums and stores. y below -88 gives exp(-y) = inf and -0, as silu's
+// true value rounds to in either output dtype.
+__device__ __forceinline__ float fast_silu(float y) { return __fdividef(y, 1.f + __expf(-y)); }
 
-template <typename T, bool kSilu>
-void apply(const T* x, const float* wb, T* y, int64_t total, int64_t per_batch,
-           int C, cudaStream_t stream) {
-  int64_t blocks = (total + kApplyThreads - 1) / kApplyThreads;
-  if (blocks > 132 * 32) blocks = 132 * 32;
-  if (total < ((int64_t)1 << 31))
-    gn_apply_kernel<T, kSilu, uint32_t><<<(int)blocks, kApplyThreads, 0, stream>>>(
-        x, wb, y, (uint32_t)total, (uint32_t)per_batch, (uint32_t)C);
-  else
-    gn_apply_kernel<T, kSilu, int64_t><<<(int)blocks, kApplyThreads, 0, stream>>>(
-        x, wb, y, total, per_batch, (int64_t)C);
+// y rows of the slab from its x rows (load(r, v) as in channel_sums).
+template <typename T, bool kSilu, typename Load>
+__device__ __forceinline__ void apply_rows(Load load, T* __restrict__ y, int rows, int C,
+                                           const float2* wb) {
+  constexpr int VE = Vec<T>::N;
+  const Walk wk(C, VE);
+  if (wk.rs >= wk.rsplit) return;
+  for (int v = wk.v0; v < wk.nvec; v += kThreads) {
+    float w[VE], b[VE];
+#pragma unroll
+    for (int e = 0; e < VE; ++e) {
+      const float2 p = wb[v * VE + e];
+      w[e] = p.x;
+      b[e] = p.y;
+    }
+#pragma unroll 4
+    for (int r = wk.rs; r < rows; r += wk.rsplit) {
+      float f[VE];
+      Vec<T>::unpack(load(r, v), f);
+#pragma unroll
+      for (int e = 0; e < VE; ++e) {
+        const float val = __fadd_rn(__fmul_rn(f[e], w[e]), b[e]);
+        f[e] = kSilu ? fast_silu(val) : val;
+      }
+      *reinterpret_cast<uint4*>(y + (int64_t)r * C + v * VE) = Vec<T>::pack(f);
+    }
+  }
 }
 
 template <typename T>
-cudaError_t run(const void* xv, int wdtype, const void* scale, const void* bias,
-                void* yv, float* partial, float* wb, int B, int HW, int C, int G,
-                int chunks, int rows_per_chunk, float eps, int silu,
-                cudaStream_t stream) {
+__device__ __forceinline__ uint4 load_global(const T* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// Dynamic shared memory: the reduction buffer (kRedBytes, reused for the
+// per-channel (w, b)), then the slab.
+template <typename T, typename W, bool kSilu>
+__global__ void __launch_bounds__(kThreads, 1)
+gn_onchip_kernel(const T* __restrict__ x, const W* __restrict__ scale,
+                 const W* __restrict__ bias, T* __restrict__ y, int HW, int C, int G,
+                 int rows_per_block, float eps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t bar;
+  __shared__ float2 stat[kMaxGroups];
+  float2* red = reinterpret_cast<float2*>(smem);
+  const T* xs = reinterpret_cast<const T*>(smem + kRedBytes);
+  const int nblocks = gridDim.x;
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * rows_per_block;
+  const int rows = min(rows_per_block, HW - r0);
+  const int64_t off = ((int64_t)b * HW + r0) * C;
+  const uint32_t barp = smem_u32(&bar);
+  if (threadIdx.x == 0) {
+    mbar_init(barp, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const uint32_t bytes = (uint32_t)rows * C * sizeof(T);
+    const uint32_t dst = smem_u32(xs);
+    const char* src = reinterpret_cast<const char*>(x + off);
+    mbar_expect_tx(barp, bytes);
+    for (uint32_t o = 0; o < bytes; o += kCopyChunk)
+      bulk_load(dst + o, src + o, min((uint32_t)kCopyChunk, bytes - o), barp);
+  }
+  mbar_wait(barp, 0);
+  constexpr int VE = Vec<T>::N;
+  auto from_smem = [&](int r, int v) {
+    return *reinterpret_cast<const uint4*>(xs + r * C + v * VE);
+  };
+  channel_sums<T>(from_smem, rows, C, red);
+  group_partials(red, C, G, g_partials + ((int64_t)b * nblocks + blockIdx.x) * G);
+  const Affine af = load_affine(scale, bias, C);
+  cg::this_grid().sync();
+  fold_affine(g_partials + (int64_t)b * nblocks * G, nblocks, C, G, (float)HW * (C / G), eps,
+              af, red, stat);
+  apply_rows<T, kSilu>(from_smem, y + off, rows, C, red);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gn_stats_kernel(const T* __restrict__ x, int HW, int C, int G, int rows_per_block) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float2* red = reinterpret_cast<float2*>(smem);
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * rows_per_block;
+  const int rows = min(rows_per_block, HW - r0);
+  const T* xb = x + ((int64_t)b * HW + r0) * C;
+  constexpr int VE = Vec<T>::N;
+  channel_sums<T>([&](int r, int v) { return load_global(xb + (int64_t)r * C + v * VE); },
+                  rows, C, red);
+  group_partials(red, C, G, g_partials + ((int64_t)b * gridDim.x + blockIdx.x) * G);
+}
+
+template <typename T, typename W, bool kSilu>
+__global__ void __launch_bounds__(kThreads)
+gn_apply_kernel(const T* __restrict__ x, const W* __restrict__ scale,
+                const W* __restrict__ bias, T* __restrict__ y, int HW, int C, int G,
+                int rows_per_block, float eps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float2 stat[kMaxGroups];
+  float2* wb = reinterpret_cast<float2*>(smem);
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * rows_per_block;
+  const int rows = min(rows_per_block, HW - r0);
+  const int64_t off = ((int64_t)b * HW + r0) * C;
+  fold_affine(g_partials + (int64_t)b * gridDim.x * G, gridDim.x, C, G, (float)HW * (C / G),
+              eps, load_affine(scale, bias, C), wb, stat);
+  const T* xb = x + off;
+  constexpr int VE = Vec<T>::N;
+  apply_rows<T, kSilu>([&](int r, int v) { return load_global(xb + (int64_t)r * C + v * VE); },
+                       y + off, rows, C, wb);
+}
+
+template <typename T, typename W, bool kSilu>
+cudaError_t launch(int path, const void* xv, const void* sv, const void* bv, void* yv, int B,
+                   int HW, int C, int G, int rows_per_block, float eps, cudaStream_t stream) {
   const T* x = static_cast<const T*>(xv);
+  const W* scale = static_cast<const W*>(sv);
+  const W* bias = static_cast<const W*>(bv);
   T* y = static_cast<T*>(yv);
-  gn_stats_kernel<T><<<dim3(chunks, B), kStatThreads, 0, stream>>>(
-      x, partial, HW, C, chunks, rows_per_chunk);
+  const dim3 grid((HW + rows_per_block - 1) / rows_per_block, B);
+  if (path == kOnchip) {
+    auto kernel = gn_onchip_kernel<T, W, kSilu>;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kRedBytes + kMaxSlabBytes);
+    if (attr != cudaSuccess) return attr;
+    const size_t smem = kRedBytes + (size_t)rows_per_block * C * sizeof(T);
+    void* args[] = {&x, &scale, &bias, &y, &HW, &C, &G, &rows_per_block, &eps};
+    return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), grid,
+                                       dim3(kThreads), args, smem, stream);
+  }
+  gn_stats_kernel<T><<<grid, kThreads, kRedBytes, stream>>>(x, HW, C, G, rows_per_block);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if (wdtype == 0)
-    gn_finalize_kernel<float><<<dim3(G, B), kFinalizeThreads, 0, stream>>>(
-        partial, static_cast<const float*>(scale), static_cast<const float*>(bias), wb,
-        HW, C, G, chunks, eps);
-  else
-    gn_finalize_kernel<__nv_bfloat16><<<dim3(G, B), kFinalizeThreads, 0, stream>>>(
-        partial, static_cast<const __nv_bfloat16*>(scale),
-        static_cast<const __nv_bfloat16*>(bias), wb, HW, C, G, chunks, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int64_t per_batch = (int64_t)HW * C;
-  if (silu)
-    apply<T, true>(x, wb, y, per_batch * B, per_batch, C, stream);
-  else
-    apply<T, false>(x, wb, y, per_batch * B, per_batch, C, stream);
+  gn_apply_kernel<T, W, kSilu><<<grid, kThreads, C * sizeof(float2), stream>>>(
+      x, scale, bias, y, HW, C, G, rows_per_block, eps);
   return cudaGetLastError();
+}
+
+template <typename T, typename W>
+cudaError_t dispatch_silu(int path, const void* x, const void* s, const void* b, void* y, int B,
+                          int HW, int C, int G, int rows, float eps, int silu,
+                          cudaStream_t stream) {
+  if (silu) return launch<T, W, true>(path, x, s, b, y, B, HW, C, G, rows, eps, stream);
+  return launch<T, W, false>(path, x, s, b, y, B, HW, C, G, rows, eps, stream);
+}
+
+template <typename T>
+cudaError_t dispatch(int wdtype, int path, const void* x, const void* s, const void* b, void* y,
+                     int B, int HW, int C, int G, int rows, float eps, int silu,
+                     cudaStream_t stream) {
+  if (wdtype == 0)
+    return dispatch_silu<T, float>(path, x, s, b, y, B, HW, C, G, rows, eps, silu, stream);
+  return dispatch_silu<T, __nv_bfloat16>(path, x, s, b, y, B, HW, C, G, rows, eps, silu,
+                                         stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype (of x and y) and wdtype (of scale and bias): 0 = float32, 1 = bfloat16.
-// x and y are contiguous [B, HW, C]; scale and bias are [C]; partial is fp32
-// scratch [B, chunks, C, 2] and wb fp32 scratch [B, C, 2], both allocated by
-// the caller. Rows [k * rows_per_chunk, (k + 1) * rows_per_chunk) form chunk k.
-int iret_group_norm(int dtype, int wdtype, const void* x, const void* scale,
-                    const void* bias, void* y, void* partial, void* wb, int B,
-                    int HW, int C, int G, int chunks, int rows_per_chunk,
-                    float eps, int silu, void* stream) {
-  if (B <= 0 || HW <= 0 || C <= 0 || G <= 0 || C % G != 0 || chunks <= 0 ||
-      rows_per_chunk <= 0 || (int64_t)chunks * rows_per_chunk < HW ||
-      (wdtype != 0 && wdtype != 1))
+// path: ops/groupnorm.py's plan() (enum Path). dtype (of x and y) and wdtype
+// (of scale and bias): 0 = float32, 1 = bfloat16. x and y are contiguous
+// [B, HW, C] with 16-byte aligned bases; scale and bias are [C]. Rows
+// [k * rows_per_block, (k + 1) * rows_per_block) of a sample form slab k. A
+// path the arguments cannot take is cudaErrorInvalidValue; no other is tried.
+int iret_group_norm(int path, int dtype, int wdtype, const void* x, const void* scale,
+                    const void* bias, void* y, int B, int HW, int C, int G,
+                    int rows_per_block, float eps, int silu, void* stream) {
+  const int elt = dtype == 0 ? 4 : 2;
+  if (B <= 0 || HW <= 0 || C <= 0 || G <= 0 || G > kMaxGroups || C > kMaxChannels ||
+      C % G != 0 || (C * elt) % 16 != 0 || rows_per_block <= 0 ||
+      (dtype != 0 && dtype != 1) || (wdtype != 0 && wdtype != 1) ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16 != 0)
     return cudaErrorInvalidValue;
+  const int64_t slabs = (int64_t)B * ((HW + rows_per_block - 1) / rows_per_block);
+  if (slabs * G > kMaxPartials || slabs > 65535LL * 65535LL) return cudaErrorInvalidValue;
+  if (path == kOnchip) {
+    if ((int64_t)rows_per_block * C * elt > kMaxSlabBytes) return cudaErrorInvalidValue;
+  } else if (path != kTwoPhase) {
+    return cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* pa = static_cast<float*>(partial);
-  float* w = static_cast<float*>(wb);
   if (dtype == 0)
-    return run<float>(x, wdtype, scale, bias, y, pa, w, B, HW, C, G, chunks,
-                      rows_per_chunk, eps, silu, s);
-  if (dtype == 1)
-    return run<__nv_bfloat16>(x, wdtype, scale, bias, y, pa, w, B, HW, C, G, chunks,
-                              rows_per_chunk, eps, silu, s);
-  return cudaErrorInvalidValue;
+    return dispatch<float>(wdtype, path, x, scale, bias, y, B, HW, C, G, rows_per_block, eps,
+                           silu, s);
+  return dispatch<__nv_bfloat16>(wdtype, path, x, scale, bias, y, B, HW, C, G, rows_per_block,
+                                 eps, silu, s);
 }
 
 }  // extern "C"

@@ -4,11 +4,11 @@ Every source in ``csrc/`` is compiled to an object by its own
 ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c``
 process, all started together, and one more nvcc call links the objects into a
 shared library in ``_build/`` inside the package (listed in ``.gitignore``).
-The library name carries a hash of the sources and flags, so an edited source
-is rebuilt and an unchanged one is loaded as it is. No PyTorch headers are
-compiled in: each kernel has an ``extern "C"`` launcher that takes raw
-pointers, sizes and strides and a ``cudaStream_t``, and returns
-``cudaGetLastError()``.
+The library name carries a hash of the flags and of every file in ``csrc/``
+(the sources and the headers they include), so an edited file is rebuilt and
+an unchanged one is loaded as it is. No PyTorch headers are compiled in: each
+kernel has an ``extern "C"`` launcher that takes raw pointers, sizes and
+strides and a ``cudaStream_t``, and returns ``cudaGetLastError()``.
 
 A failed build raises ``KernelError``, and so does a launcher that returns
 non-zero; nothing here falls back to the plain PyTorch versions, and callers
@@ -19,7 +19,8 @@ right after a launch succeeds and nowhere else. ``launch_shapes`` records the
 same launches keyed by (kernel, shape description), so a caller can replay the
 shapes a run used, and ``launch_paths`` keyed by (kernel, path) for the kernels
 with more than one device code (the attention kernels: ``ops/attention.py``'s
-``kernel_path``), so a run can show which code served.
+``kernel_path``; K2: ``ops/groupnorm.py``'s ``plan``; K3: ``ops/conv_int8.py``'s
+``conv_path``), so a run can show which code served.
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ launch_paths: "collections.Counter[Tuple[str, str]]" = collections.Counter()
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_entries: Dict[str, object] = {}
 # What the last build in this process did: seconds, library path, compiler log.
 build_info: Dict[str, object] = {}
 
@@ -69,12 +71,12 @@ _ARGTYPES = {
                               _L, _L, _L, _L, _L, _L, _F, _P],
     "iret_packed_attention_grid": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _L, _L, _L, _L, _L, _L, _F, _P],
-    # dtype, wdtype, x, scale, bias, y, partial, wb, B, HW, C, G, chunks,
-    # rows_per_chunk, eps, silu, stream
-    "iret_group_norm": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _F, _I, _P],
-    # out dtype, x, w, scale, out, B, H, W, C, N, stream
-    "iret_conv3x3_int8": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # path, dtype, wdtype, x, scale, bias, y, B, HW, C, G, rows_per_block, eps,
+    # silu, stream
+    "iret_group_norm": [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    # path, out dtype, x, w, scale, out, split-K workspace, tile counters, B, H,
+    # W, C, N, splits, stream
+    "iret_conv3x3_int8": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # v dtype, q8, k8, v, scale, o, B, H, Nq, Nk, D, DP, DV, stream
     "iret_int8_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
@@ -110,8 +112,10 @@ def _nvcc() -> str:
 
 
 def _source_hash() -> str:
+    """A hash of the flags and of every file under ``csrc/`` (the sources and
+    the headers they include)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in sorted(os.listdir(CSRC_DIR)):
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]
@@ -176,6 +180,23 @@ def library() -> ctypes.CDLL:
             )
             _lib = lib
         return _lib
+
+
+def raw_stream(device_index: int) -> int:
+    """PyTorch's current stream on a CUDA device as a ``cudaStream_t`` (what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without building a
+    Stream object: a wrapper's host time counts in every launch)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
+def entry(name: str):
+    """The C entry ``name`` of the library (built at first use)."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = getattr(library(), name)
+    return fn
 
 
 def check(err: int, kernel: str) -> None:

@@ -8,10 +8,20 @@ the hand-written kernel (``csrc/groupnorm.cu``) for a CUDA tensor and uses
 per-channel fp32 sum and sum of squares, combined per group, the variance
 E[x^2] - E[x]^2 clamped at 0, rsqrt(var + eps), the affine folded into
 y = x * w + b, an optional SiLU, and y in the input dtype.
+
+``plan`` names how the kernel cuts a call, from the shape alone: "onchip"
+(one launch; each block holds a slab of rows in shared memory, the statistics
+meet in one grid-wide barrier, x is read once) wherever a sample's slabs fit,
+which is every UNet shape at batch 1 and 2, and "twophase" (a stats launch,
+then an apply launch that folds the finalize in) for the VAE's largest
+shapes. The wrapper passes the path to the C entry, which raises
+(``KernelError``) for a path its arguments cannot take and never picks
+another; ``_build.launch_paths`` counts calls by path.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -19,10 +29,52 @@ import torch.nn.functional as F
 from . import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# Pass 1 of the kernel splits each sample's rows into chunks so that a batch
-# gives the card about this many blocks (132 SMs).
-_TARGET_STAT_BLOCKS = 1024
-_MIN_ROWS_PER_CHUNK = 16
+_PATH_CODES = {"onchip": 0, "twophase": 1}
+# An H100 SXM's SMs; the wrapper reads the card's own count.
+H100_SMS = 132
+# Bytes of x a block of the onchip path holds in shared memory (its slab of
+# rows): 192 KiB of the 227 KiB a block can have, beside 32 KiB of reduction
+# buffer (csrc/groupnorm.cu kMaxSlabBytes).
+ONCHIP_SLAB_BYTES = 192 * 1024
+# Blocks per SM of the twophase path's stats and apply kernels.
+TWOPHASE_BLOCKS_PER_SM = 2
+# Bytes of x a block of the onchip path takes at least: a small call (2x8x8x1280,
+# 160 KB a sample) spreads over 10 blocks a sample, not 66, so fewer blocks
+# meet at the grid barrier and each reduces fewer partials.
+MIN_SLAB_BYTES = 16 * 1024
+
+
+class Plan(NamedTuple):
+    """How the kernel cuts one call: ``path`` ("onchip": one launch, every
+    slab held on chip; "twophase": a stats launch and an apply launch), rows
+    per block (the slab) and blocks per sample."""
+    path: str
+    rows_per_block: int
+    blocks_per_sample: int
+
+
+def _cut(hw: int, per_sample: int) -> Tuple[int, int]:
+    rows = -(-hw // max(1, min(per_sample, hw)))
+    return rows, -(-hw // rows)
+
+
+def twophase_plan(b: int, hw: int, sms: int = H100_SMS) -> Plan:
+    """The twophase cut: about TWOPHASE_BLOCKS_PER_SM blocks an SM."""
+    return Plan("twophase", *_cut(hw, TWOPHASE_BLOCKS_PER_SM * sms // b))
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, hw: int, c: int, itemsize: int, sms: int = H100_SMS) -> Plan:
+    """The launch plan of a [b, hw, c] GroupNorm in a dtype of ``itemsize``
+    bytes on a card of ``sms`` SMs. Onchip when a sample spread over
+    ``sms // b`` blocks (one block per SM, as the cooperative launch needs)
+    gives slabs of at most ONCHIP_SLAB_BYTES (and fewer blocks where slabs
+    would fall below MIN_SLAB_BYTES); else twophase."""
+    if b <= sms:
+        rows, blocks = _cut(hw, min(sms // b, -(-hw * c * itemsize // MIN_SLAB_BYTES)))
+        if rows * c * itemsize <= ONCHIP_SLAB_BYTES:
+            return Plan("onchip", rows, blocks)
+    return twophase_plan(b, hw, sms)
 
 
 def group_norm_reference(
@@ -47,39 +99,46 @@ def group_norm_reference(
     return y.to(x.dtype)
 
 
-def _chunking(batch: int, rows: int) -> tuple:
-    per_sample = max(1, _TARGET_STAT_BLOCKS // batch)
-    rows_per_chunk = max(_MIN_ROWS_PER_CHUNK, -(-rows // per_sample))
-    return -(-rows // rows_per_chunk), rows_per_chunk
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _call_plan(b, h, w, c, groups, eps, act, dtype, index):
+    """What a call of this shape passes to the C entry besides its pointers,
+    and its launch record."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"the group_norm kernel takes float32 or bfloat16, not {dtype}")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if c * itemsize % 16:
+        raise ValueError(f"the group_norm kernel takes rows of a multiple of 16 bytes, not "
+                         f"{c} channels of {dtype}")
+    p = plan(b, h * w, c, itemsize, _sms(index))
+    args = (b, h * w, c, groups, p.rows_per_block, float(eps), 1 if act == "silu" else 0)
+    return _PATH_CODES[p.path], _DTYPE_CODES[dtype], args, p.path, \
+        (b, h, w, c, groups, float(eps), act, str(dtype))
 
 
 def _launch(x, scale, bias, groups, eps, act):
     b, h, w, c = x.shape
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"the group_norm kernel takes float32 or bfloat16, not {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("the group_norm kernel takes a contiguous NHWC tensor")
     if scale.shape != (c,) or bias.shape != (c,):
         raise ValueError(f"scale and bias must be [{c}]")
     if scale.device != x.device or bias.device != x.device:
         raise ValueError("scale and bias must be on x's device")
-    lib = _build.library()
-    rows = h * w
-    chunks, rows_per_chunk = _chunking(b, rows)
+    path, dtype, args, path_name, key = _call_plan(b, h, w, c, groups, eps, act, x.dtype,
+                                                   x.device.index)
     if scale.dtype != bias.dtype or scale.dtype not in _DTYPE_CODES:
         scale, bias = scale.float(), bias.float()
-    scale, bias = scale.detach().contiguous(), bias.detach().contiguous()
+    scale, bias = scale.contiguous(), bias.contiguous()
     out = torch.empty_like(x)
-    partial = torch.empty((b, chunks, c, 2), dtype=torch.float32, device=x.device)
-    wb = torch.empty((b, c, 2), dtype=torch.float32, device=x.device)
-    err = lib.iret_group_norm(
-        _DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype], x.data_ptr(), scale.data_ptr(),
-        bias.data_ptr(), out.data_ptr(), partial.data_ptr(), wb.data_ptr(),
-        b, rows, c, groups, chunks, rows_per_chunk, float(eps),
-        1 if act == "silu" else 0, torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    err = _build.entry("iret_group_norm")(
+        path, dtype, _DTYPE_CODES[scale.dtype], x.data_ptr(), scale.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), *args, _build.raw_stream(x.device.index))
     _build.check(err, "group_norm")
-    _build.record_launch("group_norm", (b, h, w, c, groups, float(eps), act, str(x.dtype)))
+    _build.record_launch("group_norm", key, path_name)
     return out
 
 
@@ -114,4 +173,7 @@ def group_norm(
         return group_norm_reference(x, scale, bias, groups, eps, act)
     if x.device.type != "cuda":
         raise ValueError(f"group_norm runs on cuda or cpu, not {x.device}")
-    return _GroupNormFn.apply(x, scale, bias, groups, eps, act)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or bias.requires_grad):
+        return _GroupNormFn.apply(x, scale, bias, groups, eps, act)
+    return _launch(x, scale, bias, groups, eps, act)

@@ -29,8 +29,9 @@ absolute term covers that as a share of the largest output:
   by it, but the scores are fp32 sums that each side rounds to bf16, and one
   summed in another order can round to the neighbouring bf16 value: that
   moves its P by 2**-8 of itself, in fp32 inputs too.
-- group_norm, share 2**-10: the two sides differ before rounding only by
-  fp32 sums taken in another order, which shows where x*w + b cancels near 0.
+- group_norm, share 2**-10: the two sides differ before rounding by fp32
+  sums taken in another order, which shows where x*w + b cancels near 0, and
+  by the kernel's SiLU (the MUFU exponential and reciprocal, a few fp32 ulps).
 - int8_attention (K4), share 2**-8, as attention: Q.K^T is exact in s8 on
   both sides, and they differ in the bf16 rounding of P, the kernel rounding
   it against the running max of 64-key tiles, the plain version against the

@@ -23,8 +23,18 @@ path's 64 keys, the sm90 paths' 128, 64 or 32).
 attention call) to its rule on the CPU; on the card every attention test
 checks that its launch went through the path ``kernel_path`` names.
 
-K3 (int8 conv) is held to one rounding of the output dtype (the integer sums
-are exact) and K4 (int8 attention) to attention's bf16 limit (share 2**-8);
+K2 (GroupNorm) runs on the path ``groupnorm.plan`` names ("onchip": one
+launch, or "twophase"); ``test_group_norm_plan`` holds the plan to its rule at
+every SD-1.5 GroupNorm shape and ``test_group_norm_partition_within_limit``
+holds a plain emulation of the kernel's partition of the sums to the limit,
+both on the CPU. K3 (int8 conv) runs on the path ``conv_int8.conv_path`` names
+("sm90" with ``split_k``'s K split, or "mma"; ``test_conv_path_served`` holds
+the rule at every UNet 3x3 shape) and must equal its plain version bitwise
+(the integer sums are exact), on every path and split;
+``test_conv_split_k_emulation_is_exact`` shows on the CPU that the split's sum
+is exact and that the limit rejects a dropped split.
+K3 is held to one rounding of the output dtype and K4 (int8 attention) to
+attention's bf16 limit (share 2**-8);
 ``test_int8_limits_reject_planted_faults`` shows that they catch a dropped
 conv tap, and a dropped KV tile or a missing rescale, with a CPU case as above.
 ``test_int8_layers_match_cpu`` holds the int8 layers that K3 does not serve
@@ -188,6 +198,9 @@ def test_attention_kernel_branches_match_plain(cuda, monkeypatch, env, b, nq, nk
     ((2, 64, 64, 320), 32, 1e-5, "silu"), ((2, 8, 8, 2560), 32, 1e-5, "silu"),
     ((2, 32, 32, 640), 32, 1e-6, None), ((1, 256, 256, 256), 32, 1e-6, "silu"),
     ((1, 3, 5, 40), 8, 1e-5, None),
+    # 16-byte vectors that straddle groups (gc = 30, 60), the VAE's twophase shapes
+    ((2, 32, 32, 960), 32, 1e-5, "silu"), ((2, 16, 16, 1920), 32, 1e-5, None),
+    ((1, 512, 512, 128), 32, 1e-6, "silu"), ((1, 256, 256, 512), 32, 1e-6, None),
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_group_norm_kernel_matches_plain(cuda, shape, groups, eps, act, dtype):
@@ -195,16 +208,159 @@ def test_group_norm_kernel_matches_plain(cuda, shape, groups, eps, act, dtype):
     c = shape[-1]
     scale = torch.randn((c,), generator=cuda, device="cuda") * 0.5 + 1.0
     bias = torch.randn((c,), generator=cuda, device="cuda") * 0.1
-    before = _build.launch_counts["group_norm"]
+    before = collections.Counter(_build.launch_paths)
     got = G.group_norm(x, scale, bias, groups, eps, act)
-    assert _build.launch_counts["group_norm"] == before + 1
+    b, h, w, _ = shape
+    want = G.plan(b, h * w, c, x.element_size(), torch.cuda.get_device_properties(0)
+                  .multi_processor_count).path
+    assert_launched("group_norm", before, want)
     assert_within(got, G.group_norm_reference(x, scale, bias, groups, eps, act), "group_norm")
+
+
+def _gn_entry(x, scale, bias, groups, eps, act, p):
+    """K2 through the C entry on plan ``p`` (the wrapper chooses the plan from
+    the shape); not counted as a launch."""
+    b, h, w, c = x.shape
+    out = torch.empty_like(x)
+    err = _build.entry("iret_group_norm")(
+        G._PATH_CODES[p.path], G._DTYPE_CODES[x.dtype], G._DTYPE_CODES[scale.dtype],
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h * w, c, groups,
+        p.rows_per_block, eps, 1 if act == "silu" else 0, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, f"group_norm ({p.path})")
+    return out
+
+
+@pytest.mark.parametrize("shape,act,dtype", [((2, 64, 64, 960), "silu", torch.bfloat16),
+                                             ((2, 8, 8, 2560), None, torch.float32)])
+def test_group_norm_paths_agree(cuda, shape, act, dtype):
+    """Both of K2's paths at a UNet shape, onchip (the plan's) and twophase
+    (cut as the plan cuts it), lie within the limit of the plain version; the
+    C entry refuses an onchip slab larger than shared memory (KernelError, no
+    other path taken)."""
+    x = (torch.randn(shape, generator=cuda, device="cuda") * 2 + 0.5).to(dtype)
+    c = shape[-1]
+    scale = torch.randn((c,), generator=cuda, device="cuda") * 0.5 + 1.0
+    bias = torch.randn((c,), generator=cuda, device="cuda") * 0.1
+    ref = G.group_norm_reference(x, scale, bias, 32, 1e-5, act)
+    b, h, w, _ = shape
+    onchip = G.plan(b, h * w, c, x.element_size())
+    assert onchip.path == "onchip"
+    for p in (onchip, G.twophase_plan(b, h * w)):
+        assert_within(_gn_entry(x, scale, bias, 32, 1e-5, act, p), ref, "group_norm")
+    big = G.Plan("onchip", G.ONCHIP_SLAB_BYTES // (c * x.element_size()) + 1, 1)
+    with pytest.raises(_build.KernelError):
+        _gn_entry(x, scale, bias, 32, 1e-5, act, big)
 
 
 def test_group_norm_kernel_large_mean_is_finite(cuda):
     x = 5000.0 + 0.1 * torch.randn((2, 8, 8, 16), generator=cuda, device="cuda")
     y = G.group_norm(x, torch.ones(16, device="cuda"), torch.zeros(16, device="cuda"), 4)
     assert torch.isfinite(y).all()
+
+
+# GroupNorm shapes of SD-1.5 at 512 px per sample, (H, W, C): the UNet's
+# (every resnet norm, transformer norm and conv_norm_out at latents 64 .. 8)
+# and the VAE's (encoder and decoder at 512 .. 64).
+UNET_GN = [(64, 64, 320), (64, 64, 640), (64, 64, 960), (32, 32, 320), (32, 32, 640),
+           (32, 32, 960), (32, 32, 1280), (32, 32, 1920), (16, 16, 640), (16, 16, 1280),
+           (16, 16, 1920), (16, 16, 2560), (8, 8, 1280), (8, 8, 2560)]
+VAE_GN = [(512, 512, 128), (512, 512, 256), (256, 256, 128), (256, 256, 256),
+          (256, 256, 512), (128, 128, 256), (128, 128, 512), (64, 64, 512)]
+# The VAE shapes whose slabs exceed shared memory at a batch (H, W, C) -> twophase.
+VAE_TWOPHASE = {1: {(512, 512, 128), (512, 512, 256), (256, 256, 256), (256, 256, 512)},
+                2: {(512, 512, 128), (512, 512, 256), (256, 256, 128), (256, 256, 256),
+                    (256, 256, 512), (128, 128, 512)}}
+
+
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("model,h,w,c", [("unet",) + s for s in UNET_GN]
+                         + [("vae",) + s for s in VAE_GN])
+def test_group_norm_plan(model, b, h, w, c):
+    """K2's plan at every SD-1.5 GroupNorm shape: one onchip launch at every
+    UNet shape (one block per SM at most, every slab within shared memory), two
+    launches (twophase) only at the VAE's largest; the slabs cover every row
+    once and the partials fit the kernel's buffer."""
+    p = G.plan(b, h * w, c, 2)
+    want = "twophase" if model == "vae" and (h, w, c) in VAE_TWOPHASE[b] else "onchip"
+    assert p.path == want
+    assert p.rows_per_block * (p.blocks_per_sample - 1) < h * w <= \
+        p.rows_per_block * p.blocks_per_sample
+    assert b * p.blocks_per_sample * 32 <= 1 << 16
+    if p.path == "onchip":
+        assert b * p.blocks_per_sample <= G.H100_SMS
+        assert p.rows_per_block * c * 2 <= G.ONCHIP_SLAB_BYTES
+    else:
+        assert b * p.blocks_per_sample <= G.TWOPHASE_BLOCKS_PER_SM * G.H100_SMS
+
+
+def _butterfly(vals):
+    """Lane 0's value after a shuffle-xor butterfly over ``len(vals)`` lanes."""
+    off = len(vals) // 2
+    while off:
+        vals = [vals[i] + vals[i ^ off] for i in range(len(vals))]
+        off //= 2
+    return vals[0]
+
+
+def _gn_partitioned(x, scale, bias, groups, eps, act, p, threads=512):
+    """K2's arithmetic in plain PyTorch over ``p``'s partition: per slab,
+    per-channel fp32 sums over each row slice of the slab (rows rs, rs + rsplit,
+    ... for a thread's 16-byte vector of channels), added over the slices in
+    order; per group, lane l of a warp adds the group's channels l, l + 32, ...
+    and a butterfly combines the 32 lanes; the slabs' pairs reduced as the
+    kernel's lanes do (lane l sums slabs l, l + L, ..., then a butterfly);
+    mean, variance, 1 / sqrt and the folded affine, rounded as the kernel
+    rounds them."""
+    b, h, w, c = x.shape
+    gc = c // groups
+    nvec = c // (16 // x.element_size())
+    rsplit = max(1, threads // nvec)
+    xf = x.float().reshape(b, h * w, c)
+    pairs = []
+    for k in range(p.blocks_per_sample):
+        slab = xf[:, k * p.rows_per_block:(k + 1) * p.rows_per_block]
+        s = ss = 0
+        for rs in range(rsplit):
+            rows = slab[:, rs::rsplit]
+            s, ss = s + rows.sum(1), ss + rows.square().sum(1)
+        lanes = [sum(t[:, j::gc][:, :groups] for j in range(l, gc, 32)) + 0 * s[:, :groups]
+                 for t in (s, ss) for l in range(32)]
+        pairs.append(torch.stack([_butterfly(lanes[:32]), _butterfly(lanes[32:])], -1))
+    lanes = 1
+    while lanes < 32 and 2 * lanes * groups <= threads:
+        lanes *= 2
+    acc = _butterfly([sum(pairs[i] for i in range(l, len(pairs), lanes)) + 0 * pairs[0]
+                      for l in range(lanes)])
+    count = float(h * w * gc)
+    mean = acc[..., 0] / count
+    var = torch.clamp(acc[..., 1] / count - mean * mean, min=0.0)
+    rstd = 1.0 / torch.sqrt(var + eps)
+    wc = rstd.repeat_interleave(gc, -1) * scale.float()
+    bc = bias.float() - mean.repeat_interleave(gc, -1) * wc
+    y = x.float() * wc[:, None, None] + bc[:, None, None]
+    if act == "silu":
+        y = y / (1 + torch.exp(-y))
+    return y.to(x.dtype)
+
+
+@pytest.mark.parametrize("shape,act", [((2, 64, 64, 320), "silu"), ((2, 32, 32, 960), None),
+                                       ((2, 16, 16, 1920), "silu")])
+def test_group_norm_partition_within_limit(shape, act):
+    """On the CPU: the kernel's partition of the sums (gc = 10, 30, 60, whose
+    16-byte vectors straddle groups) lies within the "group_norm" limit of
+    ``group_norm_reference`` on bf16 inputs, on the onchip plan and on the
+    twophase cut of the same shape."""
+    gen = torch.Generator().manual_seed(4)
+    x = (torch.randn(shape, generator=gen) * 2 + 0.5).to(torch.bfloat16)
+    c = shape[-1]
+    scale = torch.randn((c,), generator=gen) * 0.5 + 1.0
+    bias = torch.randn((c,), generator=gen) * 0.1
+    ref = G.group_norm_reference(x, scale, bias, 32, 1e-5, act)
+    b, h, w, _ = shape
+    onchip = G.plan(b, h * w, c, 2)
+    assert onchip.path == "onchip"
+    for p in (onchip, G.twophase_plan(b, h * w)):
+        assert_within(_gn_partitioned(x, scale, bias, 32, 1e-5, act, p), ref, "group_norm")
 
 
 def test_kernels_reject_what_they_do_not_take(cuda):
@@ -401,14 +557,135 @@ def _conv_inputs(b, h, w, c, n, device, gen):
 @pytest.mark.parametrize("b,h,w,c,n", [
     (2, 64, 64, 320, 320), (2, 8, 8, 2560, 1280), (2, 16, 16, 1920, 640),
     (2, 32, 32, 960, 320), (1, 256, 256, 256, 256), (1, 5, 7, 24, 20), (1, 1, 1, 16, 8),
+    # split-K at the 8x8 level (F4), its batch-1 twin, and the 4x4 level of a
+    # 256-px image (eight images a tile, seven of them past the batch)
+    (2, 8, 8, 1280, 1280), (1, 8, 8, 1280, 1280), (1, 4, 4, 640, 640),
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_conv3x3_int8_kernel_matches_plain(cuda, b, h, w, c, n, dtype):
     x, wq, scale = _conv_inputs(b, h, w, c, n, "cuda", cuda)
-    before = _build.launch_counts["conv3x3_int8"]
+    before = collections.Counter(_build.launch_paths)
     got = K3.conv3x3_same_int8(x, wq, scale, dtype)
-    assert _build.launch_counts["conv3x3_int8"] == before + 1
-    assert_within(got, K3.conv3x3_same_int8_reference(x, wq, scale, dtype), "conv3x3_int8")
+    assert_launched("conv3x3_int8", before, K3.conv_path(b, h, w, c, n))
+    assert torch.equal(got, K3.conv3x3_same_int8_reference(x, wq, scale, dtype))
+
+
+def _conv_entry(x, wq, scale, dtype, path, splits):
+    """K3 through the C entry on a chosen path and K split (the wrapper
+    chooses both from the shape); not counted as a launch."""
+    b, hp, wp, c = x.shape
+    n = wq.shape[3]
+    out = torch.empty((b, hp - 2, wp - 2, n), dtype=dtype, device=x.device)
+    tiles = K3.tiles(b, hp - 2, wp - 2, n)
+    ws = torch.empty(tiles * splits * K3.TILE * K3.tile_n(n), dtype=torch.int32, device=x.device)
+    counters = torch.zeros(tiles, dtype=torch.int32, device=x.device)
+    w_nhwc = wq.permute(3, 0, 1, 2).contiguous()
+    err = _build.entry("iret_conv3x3_int8")(
+        K3._PATH_CODES[path], K3._OUT_CODES[dtype], x.data_ptr(), w_nhwc.data_ptr(),
+        scale.data_ptr(), out.data_ptr(), ws.data_ptr(), counters.data_ptr(), b, hp - 2,
+        wp - 2, c, n, splits, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, f"conv3x3_int8 ({path}, {splits} splits)")
+    assert not counters.any(), "the split-K counters were not left at zero"
+    return out
+
+
+@pytest.mark.parametrize("b,h,w,c,n", [(2, 8, 8, 1280, 1280), (2, 16, 16, 1920, 640),
+                                       (2, 32, 32, 960, 640)])
+def test_conv3x3_int8_paths_and_splits_agree(cuda, b, h, w, c, n):
+    """Every path and K split of K3 gives the plain version's output bitwise:
+    mma, sm90 without split, the rule's split, and the most splits the K
+    blocks allow (one K block each at C = 960)."""
+    x, wq, scale = _conv_inputs(b, h, w, c, n, "cuda", cuda)
+    ref = K3.conv3x3_same_int8_reference(x, wq, scale, torch.bfloat16)
+    kblocks = 9 * c // (128 if c % 128 == 0 else 64)
+    for path, splits in (("mma", 1), ("sm90", 1), ("sm90", K3.split_k(b, h, w, c, n)),
+                         ("sm90", kblocks)):
+        got = _conv_entry(x, wq, scale, torch.bfloat16, path, splits)
+        assert torch.equal(got, ref), (path, splits)
+
+
+# The UNet's 3x3 stride-1 convs at 512 px (latents 64 .. 8), (H, W, C, N): the
+# resnets' conv1 / conv2 and the upsamplers' convs.
+UNET_CONV3 = [(64, 64, 320, 320), (32, 32, 320, 640), (32, 32, 640, 640), (16, 16, 640, 1280),
+              (16, 16, 1280, 1280), (8, 8, 1280, 1280), (8, 8, 2560, 1280),
+              (16, 16, 2560, 1280), (16, 16, 1920, 1280), (32, 32, 1280, 1280),
+              (32, 32, 1920, 640), (32, 32, 1280, 640), (32, 32, 960, 640),
+              (64, 64, 640, 640), (64, 64, 960, 320), (64, 64, 640, 320)]
+
+
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("h,w,c,n", UNET_CONV3)
+def test_conv_path_served(b, h, w, c, n):
+    """Every UNet 3x3 conv of a 512-px request (CFG batch 2 and the gs 1.0
+    batch 1) takes the sm90 path; split-K keeps the blocks within one wave of
+    the card's SMs, gives every split at least MIN_SPLIT_KBLOCKS K blocks and
+    takes at most MAX_SPLITS, and splits the 8x8 and 16x16 levels (F4), where
+    the tiles alone fill at most a quarter of the SMs, to at least 4x the
+    blocks or MAX_SPLITS."""
+    assert K3.conv_path(b, h, w, c, n) == "sm90"
+    box = K3.sm90_box(h, w)
+    assert box[0] * box[1] * box[2] == K3.TILE
+    splits = K3.split_k(b, h, w, c, n)
+    tiles = K3.tiles(b, h, w, n)
+    kblocks = 9 * c // (128 if c % 128 == 0 else 64)
+    assert 1 <= splits <= K3.MAX_SPLITS and tiles * splits <= max(tiles, K3.H100_SMS)
+    assert splits == 1 or kblocks // splits >= K3.MIN_SPLIT_KBLOCKS
+    if h <= 16:
+        assert tiles * 4 <= K3.H100_SMS
+        assert splits >= min(4, K3.MAX_SPLITS)
+    assert (K3.split_k(2, 8, 8, 1280, 1280), K3.split_k(2, 16, 16, 1920, 640)) == (8, 8)
+
+
+def test_conv_path_other_cases():
+    """What leaves the sm90 path: C not a multiple of 64 (TINY_SD's 8 and 16
+    channels, the card tests' 24), N not a multiple of 8, or no 128-pixel box
+    that is one rectangle of the image (W = 7, W = 48)."""
+    for shape in ((1, 5, 7, 24, 20), (1, 1, 1, 16, 8), (2, 8, 8, 16, 16), (1, 8, 8, 64, 20),
+                  (1, 8, 7, 64, 64), (1, 48, 48, 128, 128)):
+        assert K3.conv_path(*shape) == "mma", shape
+        assert K3.split_k(*shape) == 1
+    assert K3.sm90_box(512, 512) == (128, 1, 1) and K3.sm90_box(4, 4) == (4, 4, 8)
+
+
+def _conv_split_emulation(x, wq, scale, out_dtype, splits, drop=None):
+    """K3's sm90 split-K in plain PyTorch: the K blocks (tap, slice of 128 or
+    64 channels) cut into ``splits`` ranges as the kernel cuts them, each
+    range's int64 partial sum, the partials added (``drop``: leave one out)."""
+    b, hp, wp, c = x.shape
+    h, w = hp - 2, wp - 2
+    kb = 128 if c % 128 == 0 else 64
+    cpt = c // kb
+    nkb = 9 * cpt
+    total = 0
+    for sp in range(splits):
+        if sp == drop:
+            continue
+        part = torch.zeros((b * h * w, wq.shape[-1]), dtype=torch.int64)
+        for k in range(sp * nkb // splits, (sp + 1) * nkb // splits):
+            tap, c0 = divmod(k, cpt)
+            dy, dx = divmod(tap, 3)
+            cols = x[:, dy:dy + h, dx:dx + w, c0 * kb:(c0 + 1) * kb].reshape(-1, kb).double()
+            part += (cols @ wq[dy, dx, c0 * kb:(c0 + 1) * kb].double()).to(torch.int64)
+        total = total + part
+    return (total.float() * scale.float()).to(out_dtype).view(b, h, w, -1)
+
+
+@pytest.mark.parametrize("b,h,w,c,n", [(2, 8, 8, 1280, 320), (1, 16, 16, 960, 128)])
+def test_conv_split_k_emulation_is_exact(b, h, w, c, n):
+    """On the CPU: K3's split of the K blocks at the rule's factor is bitwise
+    equal to ``conv3x3_same_int8_reference``, and the "conv3x3_int8" limit
+    rejects the same sum with one split dropped."""
+    gen = torch.Generator().manual_seed(5)
+    x, wq, scale = _conv_inputs(b, h, w, c, n, "cpu", gen)
+    splits = K3.split_k(b, h, w, c, n)
+    assert splits > 1
+    for dtype in (torch.bfloat16, torch.float32):
+        ref = K3.conv3x3_same_int8_reference(x, wq, scale, dtype)
+        assert torch.equal(_conv_split_emulation(x, wq, scale, dtype, splits), ref)
+    ok, err = tolerance.within(_conv_split_emulation(x, wq, scale, torch.bfloat16, splits,
+                                                     drop=splits // 2), ref.bfloat16(),
+                               "conv3x3_int8")
+    assert not ok, f"the K3 limit passed a dropped K split (max err {err})"
 
 
 def _int8_inputs(b, nq, nk, h, d, dtype, device, gen):
