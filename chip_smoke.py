@@ -32,10 +32,13 @@ Phases (each prints its seconds; any failure exits non-zero):
               CFG request and a steady gs 1.0 request. Counts are zeroed just
               before and read just after: K3 and K4 must have launched, every
               K3 launch through "sm90" (s8 wgmma + TMA, split-K where
-              conv_int8.split_k says), and K1 (VAE mid-block, through
-              "sm90_split"); no site may miss the table. Prints the PSNR of the
-              int8 output against the bf16 serve's output on the same input
-              (random weights: no target, so no gate). Then one more CFG request
+              conv_int8.split_k says), K4 at every UNet site (352 launches per
+              CFG request, 1,056 in all) through "sm90" (s8 wgmma + TMA, no
+              padded copies; attention.int8_kernel_path), and K1 (VAE
+              mid-block, through "sm90_split"); no site may miss the table.
+              Prints the PSNR of the int8 output against the bf16 serve's
+              output on the same input (random weights: no target, so no
+              gate). Then one more CFG request
               captures the input and output of every quantized layer that K3
               does not serve (Linear, 1x1 and stride-2 convs: the s8 products
               of torch._int_mm, and the quantizers), one of each shape, and holds
@@ -59,13 +62,15 @@ Phases (each prints its seconds; any failure exits non-zero):
               the same inputs, max abs error within ops/tolerance.py's limit,
               for the bf16 attention kernels (K1, K5, K6a, K6b) the placement
               check (more elements bitwise equal to the plain version than to
-              attention_reference, by ops/tolerance.py's margin), and kernel /
-              plain / library times with CUDA events, and for the attention
-              kernels, K2 and K3 the device code that served the launch
-              ("path") and "bare" times of the C entry alone (no Python
-              wrapper): for K1 the sm90 and mma codes, for K2 its plan and the
-              twophase cut, for K3 its path and split, the mma code and, where
-              K is split, no split and twice the split, each held to its limit.
+              attention_reference, by ops/tolerance.py's margin; for K4 than
+              to the same function with xla_attention_int8's roundings), and
+              kernel / plain / library times with CUDA events, and for the
+              attention kernels, K2, K3 and K4 the device code that served the
+              launch ("path") and "bare" times of the C entry alone (no Python
+              wrapper): for K1 and K4 the sm90 and mma codes, for K2 its plan
+              and the twophase cut, for K3 its path and split, the mma code
+              and, where K is split, no split and twice the split, each held
+              to its limit.
               K1 also runs once with IRET_ATTN_SCORES_BF16=1 and once with
               IRET_ATTN_NORM_BOUND=1 (both "mma").
 
@@ -186,8 +191,10 @@ def phase_build():
         if regs:
             log(f"ptxas: {len(regs)} kernels, at most {max(regs)} registers a thread, "
                 f"{sum(spills)} bytes of spill stores and loads in all")
-        # registers and spills of K2's and K3's instances, by (mangled) name
-        entries = re.findall(r"Compiling entry function '\w*?((?:gn_|conv3x3_int8_)\w+)'"
+        # registers and spills of K2's, K3's and the sm90 attention code's
+        # instances (K1, K5, K6 and K4's S8QK), by (mangled) name
+        entries = re.findall(r"Compiling entry function "
+                             r"'\w*?((?:gn_|conv3x3_int8_|attention_sm90_)\w+)'"
                              r".*?(\d+) bytes spill stores, (\d+) bytes spill loads"
                              r".*?Used (\d+) registers", str(info["log"]), re.S)
         if entries:
@@ -465,18 +472,20 @@ def _serve(pipe, image, requests):
 def _check_attention_paths(shapes, codes) -> None:
     """Every attention launch of a serve went through the sm90 code: "sm90" at
     head_dim <= 160, "sm90_split" above (the VAE mid-block, which every
-    request runs). ``shapes``: launches by (kernel, shape key); ``codes``: by
-    (kernel, path)."""
+    request runs), and every int8 attention (K4) launch "sm90" (s8 wgmma +
+    TMA, no padded copies). ``shapes``: launches by (kernel, shape key);
+    ``codes``: by (kernel, path)."""
     from image_restoration_and_enhancement_torch.ops import attention as A
 
+    kernels = ATTENTION_KERNELS + ("int8_attention",)
     want = collections.Counter()
     for (kernel, key), n in shapes.items():
-        if kernel in ATTENTION_KERNELS:
+        if kernel in kernels:
             d, dtype = key[4], key[5]
             if dtype != "torch.bfloat16":
                 raise AssertionError(f"a {dtype} attention launch in a bf16 serve: {key}")
             want[(kernel, "sm90" if d <= A.SM90_MAX_HEAD_DIM else "sm90_split")] += n
-    got = {k: n for k, n in codes.items() if k[0] in ATTENTION_KERNELS}
+    got = {k: n for k, n in codes.items() if k[0] in kernels}
     log(f"attention launches by path: { {f'{k}/{p}': n for (k, p), n in sorted(got.items())} }")
     if got != dict(want):
         raise AssertionError(f"attention launches by path {got}, not {dict(want)}")
@@ -613,6 +622,11 @@ def phase_serve_int8(tmp, bf16):
         for k in ("conv3x3_int8", "int8_attention", "attention", "group_norm"):
             if launches.get(k, 0) <= 0:
                 raise AssertionError(f"kernel {k} did not launch on the int8 path")
+        want = UNET_ATTENTION_PER_REQUEST * len(requests)
+        if codes.get(("int8_attention", "sm90"), 0) != want:
+            raise AssertionError(f"K4 launched {launches['int8_attention']} times, "
+                                 f"{codes.get(('int8_attention', 'sm90'), 0)} on sm90, "
+                                 f"not {want} on sm90")
         if pipe.quant.misses:
             raise AssertionError(f"sites missing from the table: {sorted(pipe.quant.misses)}")
         psnr = _psnr(outs[1], bf16["out_cfg"], 255.0)
@@ -752,14 +766,19 @@ def _layer_parity(pipe, image) -> None:
 def _kernel_group(name: str, mma_label: str) -> str:
     """``mma_label``: what runs the tensor-core attention code at the UNet's
     sites in this serve (K1, K5 and K6 share its device code; the backend
-    decides). The d = 512 instance is K1 at the VAE mid-block in every serve."""
+    decides). The d = 512 instance is K1 at the VAE mid-block in every serve.
+    K4's sm90 code is the same kernel template with the s8 score product
+    (``S8QK`` in its name), so it is told apart by that and never counted as
+    K1."""
     low = name.lower()
     if "conv3x3_int8_sm90_kernel" in name:
         return "K3 conv3x3_int8 (sm90)"
     if "conv3x3_int8_mma_kernel" in name:
         return "K3 conv3x3_int8 (mma)"
+    if "attention_sm90_kernel" in name and "S8QK" in name:
+        return "K4 int8_attention (sm90)"
     if "int8_attention_kernel" in name:
-        return "K4 int8_attention"
+        return "K4 int8_attention (mma)"
     if "attention_sm90_kernel<512," in name:
         return "K1 attention (VAE d 512, sm90_split)"
     if "attention_sm90_kernel" in name or "attention_mma_kernel" in name:
@@ -996,10 +1015,41 @@ def _conv_int8_case(key, gen):
             lambda: F.conv2d(xb, wb, padding=1), ops_s, nbytes, None, bare)
 
 
+def _bare_int8(q8, k8, v, scale, path):
+    """K4 through the C entry alone on ``path`` (no Python wrapper; not counted
+    as a launch): "sm90" on the tensors as they lie, "mma" (the design the
+    sm90 code replaced at the served sites) on the zero-padded copies its
+    code takes, made here once, outside the timed call."""
+    import torch
+    import torch.nn.functional as F
+
+    from image_restoration_and_enhancement_torch.ops import _build
+    from image_restoration_and_enhancement_torch.ops import attention as A
+
+    b, nq, h, d = q8.shape
+    if path == "mma":
+        dp, dv = A._int8_widths(d)
+        q8, k8 = (F.pad(t, (0, dp - d)).contiguous() for t in (q8, k8))
+        v = F.pad(v, (0, dv - d)).contiguous()
+    out = torch.empty((b, nq, h, d), dtype=v.dtype, device="cuda")
+    fn = _build.entry("iret_int8_attention")
+    args = (A._PATH_CODES[path], A._DTYPE_CODES[v.dtype], q8.data_ptr(), k8.data_ptr(),
+            v.data_ptr(), scale.data_ptr(), out.data_ptr(), b, h, nq, k8.shape[1], d,
+            *q8.stride()[:3], *k8.stride()[:3], *v.stride()[:3])
+
+    def run():
+        keep = (q8, k8, v)  # noqa: F841 (alive while the closure is)
+        _build.check(fn(*args, _build.raw_stream(0)), f"int8_attention ({path})")
+        return out
+    return run
+
+
 def _int8_attention_case(key, gen):
     """K4 on the s8 Q, K and the scale that smooth_quantize_qk makes of random
     q, k, and v. Yardstick: bf16 F.scaled_dot_product_attention of the same
-    shape (exact bf16, not int8)."""
+    shape (exact bf16, not int8). In bf16: the placement check's wrong version
+    is ``attention.xla_int8_core`` (ops/tolerance.py), and bare calls of the
+    sm90 and mma codes run on the same inputs (``_bare_int8``)."""
     import torch
     import torch.nn.functional as F
 
@@ -1013,9 +1063,12 @@ def _int8_attention_case(key, gen):
     ops_s = 2.0 * b * h * nq * nk * d * (1 / PEAK_FLOPS["int8"] + 1 / pv_peak)
     nbytes = b * h * d * (nq + nk) + (b * nk * h * d + b * nq * h * d) * v.element_size() + 4
     qb, kb, vb = (t.to(torch.bfloat16).transpose(1, 2) for t in (q, k, v))
+    bf16 = dtype == "torch.bfloat16"
+    wrong = (lambda: A.xla_int8_core(q8, k8, v, s)) if bf16 else None
+    bare = {p: _bare_int8(q8, k8, v, s, p) for p in ("sm90", "mma")} if bf16 else None
     return (lambda: A.int8_attention_core(q8, k8, v, s),
             lambda: A.int8_attention_core_reference(q8, k8, v, s),
-            lambda: F.scaled_dot_product_attention(qb, kb, vb), ops_s, nbytes, None)
+            lambda: F.scaled_dot_product_attention(qb, kb, vb), ops_s, nbytes, wrong, bare)
 
 
 _CASES = {"attention": _attention_case("attention"), "group_norm": _gn_case,
@@ -1099,7 +1152,8 @@ def phase_kernels(main):
                         bare_ok, bare_err = tolerance.within(f(), ref, kernel)
                         bare_rows[p] = {"ms": _time_ms(f, iters), "max_abs_err": bare_err,
                                         "within": bare_ok}
-                        if kernel in ("group_norm", "conv3x3_int8") and not bare_ok:
+                        if kernel in ("group_norm", "conv3x3_int8", "int8_attention") \
+                                and not bare_ok:
                             raise AssertionError(f"{kernel} {key} through the C entry on "
                                                  f"path {p} disagrees: {bare_err}")
             bound = max(ops_s, nbytes / PEAK_BYTES) * 1e3
@@ -1149,7 +1203,7 @@ _SOURCES = {
                    "image_restoration_and_enhancement_tpu/ops/groupnorm.py:36"),
     "conv3x3_int8": ("image_restoration_and_enhancement_torch/csrc/conv_int8.cu",
                      "image_restoration_and_enhancement_tpu/ops/conv_int8.py:47"),
-    "int8_attention": ("image_restoration_and_enhancement_torch/csrc/int8_attention.cu",
+    "int8_attention": ("image_restoration_and_enhancement_torch/csrc/attention.cu",
                        "image_restoration_and_enhancement_tpu/ops/attention.py:511"),
 }
 
@@ -1177,7 +1231,7 @@ def _kernel_line(rows, paths, codes):
                "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
                "bound_by": "operations" if ops_bound > total("bound_ms") / 2 else "bytes",
                "library_ms": total("library_ms")}
-        if name in ("group_norm", "conv3x3_int8"):
+        if name in ("group_norm", "conv3x3_int8", "int8_attention"):
             # the C entry alone on the wrapper's path: the difference to "ms" is
             # the wrapper's host time
             out["bare_ms"] = sum(r["bare"][r["path"]]["ms"] * n for r, n in mine if n)
@@ -1197,7 +1251,7 @@ def _kernel_line(rows, paths, codes):
             **totals(name, everything),
             "by_path": {path: totals(name, counts) for path, counts in paths.items()},
         })
-        if name in ATTENTION_KERNELS:
+        if name in ATTENTION_KERNELS + ("int8_attention",):
             out[-1]["codes"] = {c: n for (k, c), n in sorted(codes.items()) if k == name}
         if name in _WEIGHTED_BY:
             out[-1]["times_weighted_by"] = f"{_WEIGHTED_BY[name]} launches"

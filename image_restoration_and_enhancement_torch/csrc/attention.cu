@@ -1,5 +1,8 @@
 // K1, K5, K6a and K6b — exact softmax attention for the PyTorch port, one
-// device code behind four entries.
+// device code behind four entries — and the "sm90" path of K4 (int8 Q.K^T
+// attention, the JAX package's _int8_attention_kernel; its entry and other
+// path are in int8_attention.cu): the sm90 kernel below with an s8 score
+// product, iret_int8_attention_sm90.
 //
 // Replaces, in image_restoration_and_enhancement_tpu/ops/attention.py:
 //   K1  _fused_attention_kernel (from _pallas_attention_bhnd / pallas_attention)
@@ -743,43 +746,58 @@ cudaError_t dispatch_mma_dp(const void* q, const void* k, const void* v, void* o
 }
 
 // ---------------------------------------------------------------------------
-// sm90 paths (bf16): warp-specialised wgmma + TMA.
+// sm90 paths: warp-specialised wgmma + TMA, one kernel for two score products
+// (the QK parameter): bf16 S = q'K^T for K1, K5 and K6 (Bf16QK), and s8
+// S = q8 k8^T for K4 (S8QK). Everything after S (mask, online softmax, the
+// bf16 P.V, the epilogue) is the same code.
 //
-// Shared memory holds every tile in 64-column boxes (128 bytes of a row), the
-// layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B: box x of a tile of R rows
-// is R x 128 bytes at x * R * 128, each 8-row group a 1024-byte swizzle atom.
-// The wgmma descriptors below name the same 128-byte swizzle (layout type 1):
-// - Q (A of S = q'K^T) and K (its B) are K-major: rows 128 bytes apart, 8-row
-//   groups 1024 apart (SBO), a k-step of 16 dims is 32 bytes inside a box and
-//   the next box past every 4th step.
-// - V (B of O += P.V, N = the output dims) is MN-major (transposed): 64 dims
-//   contiguous in a row, the next 64 dims in the next box (LBO = BK * 128),
-//   8-key groups 1024 apart (SBO), a k-step of 16 keys 2048 bytes. N is a
-//   multiple of 64 (whole boxes), so D = 40 and 80 compute 64 and 128 output
-//   columns of which the zero-filled ones are never stored.
+// Shared memory holds every tile in boxes of BOXB bytes of a row, the layout
+// TMA writes with the BOXB-byte swizzle: box x of a tile of R rows is
+// R x BOXB bytes at x * R * BOXB, each 8-row group an 8 * BOXB-byte swizzle
+// atom. The wgmma descriptors name the same swizzle (layout type 1 for 128
+// bytes, 2 for 64):
+// - Q (A of S) and K (its B) are K-major, the only layout s8 wgmma takes:
+//   rows BOXB bytes apart, 8-row groups 8 * BOXB apart (SBO). A k-step is 32
+//   bytes of a row in both products (16 bf16 dims, k16; 32 s8 dims, k32):
+//   step kk starts kk * 32 bytes into the row, in box kk * 32 / BOXB. bf16
+//   rows come in 64-dim boxes (BOXB 128). s8 rows are DQ = D + lead (below)
+//   rounded up to 32, 64, 96 or 160 bytes and come in one 64-byte box (DQ 32,
+//   64), one 128-byte box (96) or three 64-byte boxes (160), the swizzle
+//   chosen by the row width as K3 chooses it.
+// - V (B of O += P.V, N = the output dims) is bf16 and MN-major (transposed):
+//   64 dims contiguous in a row, the next 64 dims in the next box
+//   (LBO = BK * 128), 8-key groups 1024 apart (SBO), a k-step of 16 keys 2048
+//   bytes, 128-byte swizzle. N is a multiple of 64 (whole boxes), so D = 40
+//   and 80 compute 64 and 128 output columns of which the zero-filled ones are
+//   never stored.
 // - P is the register A operand of P.V: the wgmma accumulator layout of S
-//   (per warp 16 rows, per 8 columns c0..c3 as mma.sync's m16n8) is the
-//   register A layout of m64nNk16 once two column blocks are packed to bf16.
-// Q' is made in place: each consumer warpgroup scales and rounds its 64 rows
-// of the Q tile in shared memory (an elementwise pass, so the swizzle does not
-// matter), then fence.proxy.async makes the stores visible to wgmma.
+//   (per warp 16 rows, per 8 columns c0..c3 as mma.sync's m16n8; the s32 and
+//   fp32 accumulators share it) is the register A layout of m64nNk16 once two
+//   column blocks are packed to bf16.
+// Bf16QK: q' is made in place: each consumer warpgroup scales and rounds its
+// 64 rows of the Q tile in shared memory (an elementwise pass, so the swizzle
+// does not matter), then fence.proxy.async makes the stores visible to wgmma.
+// Scores are natural-log units: p = exp2(s * log2(e) - m * log2(e)).
+// S8QK: q8 and k8 are read unpadded, through a 3-D map over the rows of
+// [B, N, H * D] (each row holds every head: head h starts at column h * D), so
+// an s8 head stride of 40 bytes, which no 4-D map can take, needs no copy.
+// TMA starts a box only at a 16-byte boundary (another start is an illegal
+// instruction), so head h's boxes start at column (h * D) & ~15 and its D
+// columns begin `lead` = h * D mod 16 bytes in (8 for odd heads at d = 40);
+// the boxes reach into the neighbouring heads (or past the row, zero-filled).
+// Each consumer warpgroup zeroes every column of its Q rows outside
+// lead .. lead + D - 1 in shared memory once, before its first product, so the
+// neighbours' K columns add exact zeros to the s32 sums; DQ covers D + lead.
+// There is no Q scaling. The softmax reads the s32 sums: the row max is
+// taken in s32 and scaled once (c = sq*sk*log2(e): the max of the scores
+// float(x) * c, bit for bit), and p = exp2(fma(float(x), c, -m)) rounds once
+// where the plain version rounds float(x) * c and then the difference (an
+// ulp of the argument at most). The row sums over the bf16 P come from the
+// tensor cores, as the TPU kernel takes them with its ones column of V: with
+// each P.V, P times a 2 KB shared tile of bf16 ones (m64n8k16 into 4 fp32
+// registers a thread, rescaled with the output), so the softmax spends no
+// instruction on them.
 // ---------------------------------------------------------------------------
-
-// Keeps the compiler from moving register reads and writes across an
-// asynchronous wgmma that owns these registers.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
 
 // 2^x on the MUFU unit alone (exp2f adds range fixups for subnormal results).
 // Results below 2^-126 flush to 0: such a P or rescale factor changes no fp32
@@ -790,83 +808,87 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-// WG_Sx (sm90.cuh) names accumulator registers 8x .. 8x + 7; WG_F8 binds
-// eight of them as fp32 operands.
-#define WG_F8(d, i)                                                                       \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),              \
-      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define WG_C16(d) WG_F8(d, 0), WG_F8(d, 8)
-#define WG_C32(d) WG_C16(d), WG_F8(d, 16), WG_F8(d, 24)
-#define WG_C64(d) WG_C32(d), WG_F8(d, 32), WG_F8(d, 40), WG_F8(d, 48), WG_F8(d, 56)
-#define WG_C96(d) WG_C64(d), WG_F8(d, 64), WG_F8(d, 72), WG_F8(d, 80), WG_F8(d, 88)
-#define WG_C128(d) WG_C96(d), WG_F8(d, 96), WG_F8(d, 104), WG_F8(d, 112), WG_F8(d, 120)
+// x (an s32 product sum, |x| < 2^22) as fp32, exactly, on the full-rate
+// pipes: 1.5 * 2^23 + x is an fp32 whose low mantissa bits are x.
+__device__ __forceinline__ float s32_to_f32(int x) {
+  return __int_as_float(0x4B400000 + x) - 12582912.f;
+}
 
-// d (+)= A.B, m64nNk16, bf16 in, fp32 accumulate; A and B K-major in shared
-// memory (S = q'K^T). acc = 0 overwrites d.
-#define IRET_WGMMA_SS(N, REGS, CONS, A, B, C)                                            \
-  __device__ __forceinline__ void wgmma_ss(float(&d)[N / 2], uint64_t da, uint64_t db,   \
-                                           int acc) {                                    \
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #C ", 0;\n"                          \
-                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" REGS        \
-                 "}, %" #A ", %" #B ", p, 1, 1, 0, 0;\n}\n"                               \
-                 : CONS(d)                                                                \
-                 : "l"(da), "l"(db), "r"(acc));                                           \
-  }
-IRET_WGMMA_SS(32, WG_R16, WG_C16, 16, 17, 18)
-IRET_WGMMA_SS(64, WG_R32, WG_C32, 32, 33, 34)
-IRET_WGMMA_SS(128, WG_R64, WG_C64, 64, 65, 66)
+// Below every s8 score sum (|sum| <= 127 * 127 * 160 < 2^22), and exact in
+// s32_to_f32: the s32 stand-in for a masked key.
+constexpr int kS8Masked = -(1 << 22);
 
-// d (+)= A.B, m64nNk16; A (P) from registers, B (V) MN-major in shared memory.
-#define IRET_WGMMA_RS(N, REGS, CONS, A0, A1, A2, A3, B, C)                                \
-  __device__ __forceinline__ void wgmma_rs(float(&d)[N / 2], const uint32_t(&a)[4],      \
-                                           uint64_t db, int acc) {                        \
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #C ", 0;\n"                          \
-                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" REGS        \
-                 "}, {%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #B ", p, 1, 1, 1;\n}\n"    \
-                 : CONS(d)                                                                \
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));        \
-  }
-IRET_WGMMA_RS(64, WG_R32, WG_C32, 32, 33, 34, 35, 36, 37)
-IRET_WGMMA_RS(128, WG_R64, WG_C64, 64, 65, 66, 67, 68, 69)
-IRET_WGMMA_RS(192, WG_R96, WG_C96, 96, 97, 98, 99, 100, 101)
-IRET_WGMMA_RS(256, WG_R128, WG_C128, 128, 129, 130, 131, 132, 133)
+// The score product of an sm90 instance (see above). kBytes: bytes of a Q/K
+// element; kExp: the factor that takes a score to log2 units.
+struct Bf16QK {
+  static constexpr bool kS8 = false;
+  static constexpr int kBytes = 2;
+  static constexpr float kExp = kLog2e;
+};
+struct S8QK {
+  static constexpr bool kS8 = true;
+  static constexpr int kBytes = 1;
+  static constexpr float kExp = 1.f;
+};
 
-// One instance of the sm90 kernel: DQ the padded Q/K depth (a multiple of 16),
-// DV the output columns a block computes (a multiple of 64; the slice of D at
-// d = 512), BK keys per KV tile, NCONS consumer warpgroups of 64 query rows,
-// STAGES K/V tiles in the ring.
-template <int DQ, int DV, int BK, int NCONS, int STAGES>
+// One instance of the sm90 kernel: DQ the padded Q/K depth in elements (its
+// row, DQ * kBytes, a multiple of 32 bytes), DV the output columns a block
+// computes (a multiple of 64; the slice of D at d = 512), BK keys per KV
+// tile, NCONS consumer warpgroups of 64 query rows, STAGES K/V tiles in the
+// ring, QK the score product.
+template <int DQ, int DV, int BK, int NCONS, int STAGES, class QK>
 struct Sm90 {
   static constexpr int BQ = 64 * NCONS;
-  static constexpr int QBOX = (DQ + 63) / 64;  // 64-column boxes of a Q or K row
+  static constexpr int ROW = DQ * QK::kBytes;  // bytes of a Q or K row multiplied
+  static constexpr int BOXB = QK::kS8 && ROW != 96 && ROW % 128 != 0 ? 64 : 128;
+  static constexpr int QBOX = (ROW + BOXB - 1) / BOXB;  // boxes of a Q or K row
+  static constexpr int KSTEPS = ROW / 32;
+  static constexpr int SBO = 8 * BOXB;
+  static constexpr uint64_t LAYOUT = BOXB == 128 ? 1 : 2;
   static constexpr int VBOX = DV / 64;
-  static constexpr int Q_BYTES = BQ * 128 * QBOX;
-  static constexpr int K_BYTES = BK * 128 * QBOX;
+  static constexpr int Q_BYTES = BQ * BOXB * QBOX;
+  static constexpr int K_BYTES = BK * BOXB * QBOX;
   static constexpr int V_BYTES = BK * 128 * VBOX;
   static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
+  // S8QK: a 2 KB tile of bf16 ones, the B operand of the row-sum product.
+  static constexpr int ONES_BYTES = QK::kS8 ? 2048 : 0;
   static constexpr int THREADS = 128 * (NCONS + 1);  // consumers, then the producer
   // 1024 for aligning the swizzle atoms, then the barriers.
   static constexpr int SMEM_BYTES =
-      1024 + Q_BYTES + STAGES * STAGE_BYTES + 8 * (2 * STAGES + 1);
-  static_assert(DQ % 16 == 0 && DV % 64 == 0 && BK % 16 == 0, "tile shapes");
+      1024 + Q_BYTES + ONES_BYTES + STAGES * STAGE_BYTES + 8 * (2 * STAGES + 1);
+  static_assert(ROW % 32 == 0 && DV % 64 == 0 && BK % 16 == 0, "tile shapes");
   static_assert(SMEM_BYTES <= 232448, "shared memory");
   // With two consumers one block must hold its SM alone, so that setmaxnreg
   // always finds the registers the producer gave back.
   static_assert(NCONS == 1 || 2 * SMEM_BYTES > 232448, "one block per SM");
 };
 
-template <int DQ, int DV, int BK, int NCONS, int STAGES>
-__global__ void __launch_bounds__(Sm90<DQ, DV, BK, NCONS, STAGES>::THREADS, 1)
+// A mask that keeps bytes lo .. hi - 1 of a 32-bit word (little-endian).
+__device__ __forceinline__ uint32_t byte_mask(int lo, int hi) {
+  lo = max(lo, 0);
+  hi = min(hi, 4);
+  if (hi <= lo) return 0u;
+  const uint32_t below_hi = hi == 4 ? 0xffffffffu : (1u << (8 * hi)) - 1u;
+  return below_hi & ~((1u << (8 * lo)) - 1u);
+}
+
+// tq and tk: 4-D maps (d, h, n, b) of bf16 q and k (Bf16QK), or 3-D maps
+// (column, n, b) of s8 q8 and k8 (S8QK); tv a 4-D map of bf16 v. scale:
+// 1/sqrt(D) in bf16 (Bf16QK); sq_sk: sq*sk on the device (S8QK).
+template <int DQ, int DV, int BK, int NCONS, int STAGES, class QK>
+__global__ void __launch_bounds__(Sm90<DQ, DV, BK, NCONS, STAGES, QK>::THREADS, 1)
 attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-                      int H, int Nq, int Nk, int D, float scale, int flags) {
-  using C = Sm90<DQ, DV, BK, NCONS, STAGES>;
+                      int H, int Nq, int Nk, int D, float scale,
+                      const float* __restrict__ sq_sk, int flags) {
+  using C = Sm90<DQ, DV, BK, NCONS, STAGES, QK>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t qs = (raw + 1023) & ~1023u;  // the Q tile; then the K/V stages
   unsigned char* qs_ptr = smem_raw + (qs - raw);
-  const uint32_t kv0 = qs + C::Q_BYTES;       // stage s: K at kv0 + s * STAGE_BYTES, then V
+  const uint32_t ones = qs + C::Q_BYTES;      // S8QK's ones tile
+  const uint32_t kv0 = ones + C::ONES_BYTES;  // stage s: K at kv0 + s * STAGE_BYTES, then V
   const uint32_t bars = kv0 + STAGES * C::STAGE_BYTES;
   const uint32_t qbar = bars + 16 * STAGES;   // full[s] at bars + 8s, empty[s] after them
 
@@ -877,6 +899,11 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int dv0 = blockIdx.z * DV;
   const int ntiles = (Nk + BK - 1) / BK;
   const int wg = threadIdx.x >> 7;
+  // S8QK: a Q or K row's boxes start at the 16-byte boundary at or below
+  // column h * D (TMA takes no other start), and head h's D columns begin
+  // `lead` bytes into them.
+  const int col0 = QK::kS8 ? (h * D) & ~15 : 0;
+  const int lead = h * D - col0;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -884,7 +911,7 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(bars + 8 * (STAGES + s), 4 * NCONS);  // one arrival per consumer warp
     }
     mbar_init(qbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -892,15 +919,22 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     // Producer: one thread keeps the ring full.
     if constexpr (NCONS > 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == NCONS * 128) {
+      // box x of the rows from n of a Q or K tile
+      auto load_qk = [&](uint32_t dst, const CUtensorMap* map, uint32_t bar, int x, int n) {
+        if constexpr (QK::kS8)
+          tma_load_3d(dst, map, bar, col0 + x * C::BOXB, n, b);
+        else
+          tma_load(dst, map, bar, 64 * x, h, n, b);
+      };
       mbar_expect_tx(qbar, C::Q_BYTES);
-      for (int x = 0; x < C::QBOX; ++x) tma_load(qs + x * C::BQ * 128, &tq, qbar, 64 * x, h, q0, b);
+      for (int x = 0; x < C::QBOX; ++x) load_qk(qs + x * C::BQ * C::BOXB, &tq, qbar, x, q0);
       for (int j = 0; j < ntiles; ++j) {
         const int s = j % STAGES;
         const uint32_t kst = kv0 + s * C::STAGE_BYTES;
         const uint32_t full = bars + 8 * s;
         mbar_wait(bars + 8 * (STAGES + s), ((j / STAGES) & 1) ^ 1);
         mbar_expect_tx(full, C::STAGE_BYTES);
-        for (int x = 0; x < C::QBOX; ++x) tma_load(kst + x * BK * 128, &tk, full, 64 * x, h, j * BK, b);
+        for (int x = 0; x < C::QBOX; ++x) load_qk(kst + x * BK * C::BOXB, &tk, full, x, j * BK);
         for (int x = 0; x < C::VBOX; ++x)
           tma_load(kst + C::K_BYTES + x * BK * 128, &tv, full, dv0 + 64 * x, h, j * BK, b);
       }
@@ -914,6 +948,7 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     const int g = lane >> 2;
     const int t = lane & 3;
     const bool rowsum_f32 = flags & kRowSumF32;
+    const float qk_scale = QK::kS8 ? sq_sk[0] * kLog2e : 0.f;
     // Turns on the tensor cores: warpgroup wg waits on barrier 1 + wg, and
     // after issuing its products lets the other one go (barrier 2 - wg).
     // Warpgroup 1 opens barrier 1 once, so warpgroup 0 goes first, and skips
@@ -930,22 +965,51 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
     mbar_wait(qbar, 0);
     for (int x = 0; x < C::QBOX; ++x) {
-      uint4* rows = reinterpret_cast<uint4*>(qs_ptr + x * C::BQ * 128 + wg * 64 * 128);
-      for (int i = tid; i < 64 * 8; i += 128) {
-        uint4 w = rows[i];
-        w.x = scale_bf16x2(w.x, scale);
-        w.y = scale_bf16x2(w.y, scale);
-        w.z = scale_bf16x2(w.z, scale);
-        w.w = scale_bf16x2(w.w, scale);
-        rows[i] = w;
+      uint4* rows = reinterpret_cast<uint4*>(qs_ptr + x * C::BQ * C::BOXB + wg * 64 * C::BOXB);
+      if constexpr (QK::kS8) {
+        // Keep head h's columns, bytes lead .. lead + D - 1 of the row, and
+        // zero the rest. 16-byte chunk c of row r is stored at chunk
+        // c ^ (r & 7) (128-byte swizzle) or c ^ ((r >> 1) & 3) (64-byte);
+        // 64 rows keep the phase of the 8-row atoms.
+        constexpr int CPR = C::BOXB / 16;
+        for (int i = tid; i < 64 * CPR; i += 128) {
+          const int r = i / CPR;
+          const int c = (i % CPR) ^ (CPR == 8 ? (r & 7) : ((r >> 1) & 3));
+          const int lo = lead - (x * C::BOXB + 16 * c);  // kept bytes of the chunk: lo .. hi - 1
+          const int hi = lo + D;
+          if (lo <= 0 && hi >= 16) continue;
+          uint4 w = rows[i];
+          w.x &= byte_mask(lo, hi);
+          w.y &= byte_mask(lo - 4, hi - 4);
+          w.z &= byte_mask(lo - 8, hi - 8);
+          w.w &= byte_mask(lo - 12, hi - 12);
+          rows[i] = w;
+        }
+      } else {
+        for (int i = tid; i < 64 * 8; i += 128) {
+          uint4 w = rows[i];
+          w.x = scale_bf16x2(w.x, scale);
+          w.y = scale_bf16x2(w.y, scale);
+          w.z = scale_bf16x2(w.z, scale);
+          w.w = scale_bf16x2(w.w, scale);
+          rows[i] = w;
+        }
       }
+    }
+    if constexpr (QK::kS8) {
+      // Each warpgroup writes the whole ones tile (the same values), so its
+      // own products never wait for the other's stores.
+      reinterpret_cast<uint4*>(qs_ptr + C::Q_BYTES)[tid] =
+          make_uint4(0x3F803F80u, 0x3F803F80u, 0x3F803F80u, 0x3F803F80u);
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     named_sync(3 + wg, 128);
 
-    const uint32_t qa = qs + wg * 64 * 128;
+    const uint32_t qa = qs + wg * 64 * C::BOXB;
     float oacc[DV / 2];
+    float lacc[4] = {0.f, 0.f, 0.f, 0.f};  // S8QK: the row sums, P times ones
     float s[BK / 2];
+    int si[QK::kS8 ? BK / 2 : 1];  // the s32 scores (S8QK)
     uint32_t p[BK / 16][4];
 #pragma unroll
     for (int i = 0; i < DV / 2; ++i) oacc[i] = 0.f;
@@ -953,71 +1017,148 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     float l0 = 0.f, l1 = 0.f;              // this thread's part of their row sums
     float a0 = 0.f, a1 = 0.f;              // the rescale of the latest tile
 
+    // Before the S product: its fp32 accumulators (Bf16QK). The s32 ones are
+    // written, not read, by its first k-step, so they hold nothing live
+    // between the conversion to s and the next product (S8QK).
+    auto fence_s = [&]() {
+      if constexpr (!QK::kS8) fence_regs(s);
+    };
+    // The row-sum accumulators (S8QK).
+    auto fence_l = [&]() {
+      if constexpr (QK::kS8) fence_regs(lacc);
+    };
+    // After the S product has completed.
+    auto fence_s_done = [&]() {
+      if constexpr (QK::kS8)
+        fence_regs(si);
+      else
+        fence_regs(s);
+    };
     auto mma_s = [&](int st) {
       const uint32_t kst = kv0 + st * C::STAGE_BYTES;
 #pragma unroll
-      for (int kk = 0; kk < DQ / 16; ++kk)
-        wgmma_ss(s, gmma_desc(qa + (kk >> 2) * C::BQ * 128 + (kk & 3) * 32, 16, 1024),
-                 gmma_desc(kst + (kk >> 2) * BK * 128 + (kk & 3) * 32, 16, 1024), kk > 0);
+      for (int kk = 0; kk < C::KSTEPS; ++kk) {
+        const int box = kk * 32 / C::BOXB;
+        const int off = kk * 32 % C::BOXB;
+        const uint64_t da = gmma_desc(qa + box * C::BQ * C::BOXB + off, 16, C::SBO, C::LAYOUT);
+        const uint64_t db = gmma_desc(kst + box * BK * C::BOXB + off, 16, C::SBO, C::LAYOUT);
+        if constexpr (QK::kS8) {
+          if (kk == 0)
+            wgmma_s8_first(si, da, db);
+          else
+            wgmma_s8(si, da, db, 1);
+        } else
+          wgmma_ss(s, da, db, kk > 0);
+      }
     };
     auto mma_pv = [&](int st) {
       const uint32_t vst = kv0 + st * C::STAGE_BYTES + C::K_BYTES;
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
         wgmma_rs(oacc, p[kk], gmma_desc(vst + kk * 16 * 128, BK * 128, 1024), 1);
+      if constexpr (QK::kS8) {
+        // The row sums over the bf16 P, as the TPU kernel takes them: P times a
+        // column of ones (m64n8k16; every column of lacc is the sum).
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_rs(lacc, p[kk], gmma_desc(ones, BK * 128, 1024), 1);
+      }
     };
     auto release = [&](int st) {
       if (lane == 0) mbar_arrive(bars + 8 * (STAGES + st));
     };
+    // Key column of accumulator i of this thread in the score tile at k0.
+    auto key = [&](int k0, int i) { return k0 + (i >> 2) * 8 + 2 * t + (i & 1); };
     // Mask, row max, new shift and rescale (a0, a1) of the score tile at k0.
+    // S8QK takes the row max of the s32 sums and converts it once: the score
+    // float(x) * c (c = sq*sk*log2(e)) grows with x, so that is the max of
+    // the scores, bit for bit; masked keys get a sum below every s8 sum.
     auto shift = [&](int k0) {
-      if (k0 + BK > Nk) {
+      const bool partial = k0 + BK > Nk;
+      float mx0, mx1;
+      if constexpr (QK::kS8) {
+        int x0 = kS8Masked, x1 = kS8Masked;
+        if (partial) {
 #pragma unroll
-        for (int i = 0; i < BK / 2; ++i)
-          if (k0 + (i >> 2) * 8 + 2 * t + (i & 1) >= Nk) s[i] = -INFINITY;
-      }
-      float mx0 = -INFINITY, mx1 = -INFINITY;
+          for (int i = 0; i < BK / 2; ++i)
+            if (key(k0, i) >= Nk) si[i] = kS8Masked;
+        }
 #pragma unroll
-      for (int i = 0; i < BK / 8; ++i) {
-        mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
-        mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
-      }
+        for (int i = 0; i < BK / 8; ++i) {
+          x0 = max(x0, max(si[4 * i], si[4 * i + 1]));
+          x1 = max(x1, max(si[4 * i + 2], si[4 * i + 3]));
+        }
 #pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+        for (int off = 1; off < 4; off <<= 1) {
+          x0 = max(x0, __shfl_xor_sync(0xffffffffu, x0, off));
+          x1 = max(x1, __shfl_xor_sync(0xffffffffu, x1, off));
+        }
+        mx0 = __int2float_rn(x0) * qk_scale;
+        mx1 = __int2float_rn(x1) * qk_scale;
+      } else {
+        if (partial) {
+#pragma unroll
+          for (int i = 0; i < BK / 2; ++i)
+            if (key(k0, i) >= Nk) s[i] = -INFINITY;
+        }
+        mx0 = mx1 = -INFINITY;
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i) {
+          mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
+          mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
+        }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+        }
       }
       // Every tile holds at least one key < Nk, so the new maxima are finite.
       const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
-      a0 = exp2_ftz((m0 - n0) * kLog2e);
-      a1 = exp2_ftz((m1 - n1) * kLog2e);
+      a0 = exp2_ftz((m0 - n0) * QK::kExp);
+      a1 = exp2_ftz((m1 - n1) * QK::kExp);
       m0 = n0;
       m1 = n1;
     };
     // s = exp(s - m) in fp32 and the row sums over P rounded to bf16 (or over
     // the fp32 P); runs while the previous tile's P.V may still read p.
-    auto exponentiate = [&]() {
-      const float ml0 = m0 * kLog2e, ml1 = m1 * kLog2e;
+    // S8QK: exp2(float(x) * c - m) straight from the s32 sums (the conversion
+    // is two full-rate instructions, s32_to_f32, not the quarter-rate I2F),
+    // and no row sums here: the tensor cores take them with P.V (mma_pv).
+    auto exponentiate = [&](int k0) {
+      const float ml0 = m0 * QK::kExp, ml1 = m1 * QK::kExp;
+      const bool partial = QK::kS8 && k0 + BK > Nk;
       float r0 = 0.f, r1 = 0.f;
 #pragma unroll
       for (int i = 0; i < BK / 2; i += 2) {
         const float ml = (i & 2) ? ml1 : ml0;
-        s[i] = exp2_ftz(fmaf(s[i], kLog2e, -ml));
-        s[i + 1] = exp2_ftz(fmaf(s[i + 1], kLog2e, -ml));
-        float x;
-        if (rowsum_f32) {
-          x = s[i] + s[i + 1];
+        if constexpr (QK::kS8) {
+          float x0 = fmaf(s32_to_f32(si[i]), qk_scale, -ml);
+          float x1 = fmaf(s32_to_f32(si[i + 1]), qk_scale, -ml);
+          if (partial && key(k0, i) >= Nk) x0 = -INFINITY;
+          if (partial && key(k0, i + 1) >= Nk) x1 = -INFINITY;
+          s[i] = exp2_ftz(x0);
+          s[i + 1] = exp2_ftz(x1);
         } else {
-          const float2 f = unpack_bf16(pack_bf16(s[i], s[i + 1]));
-          x = f.x + f.y;
+          s[i] = exp2_ftz(fmaf(s[i], kLog2e, -ml));
+          s[i + 1] = exp2_ftz(fmaf(s[i + 1], kLog2e, -ml));
+          float x;
+          if (rowsum_f32) {
+            x = s[i] + s[i + 1];
+          } else {
+            const float2 f = unpack_bf16(pack_bf16(s[i], s[i + 1]));
+            x = f.x + f.y;
+          }
+          if (i & 2)
+            r1 += x;
+          else
+            r0 += x;
         }
-        if (i & 2)
-          r1 += x;
-        else
-          r0 += x;
       }
-      l0 = l0 * a0 + r0;
-      l1 = l1 * a1 + r1;
+      if constexpr (!QK::kS8) {
+        l0 = l0 * a0 + r0;
+        l1 = l1 * a1 + r1;
+      }
     };
     // P packed to bf16 as the A operand of P.V (once the previous P.V is done).
     auto pack_p = [&]() {
@@ -1031,23 +1172,24 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     // the softmax of S_j runs while the other warpgroup's turn runs.
     mbar_wait(bars, 0);
     turn_begin();
-    fence_regs(s);
+    fence_s();
     wgmma_fence();
     mma_s(0);
     wgmma_commit();
     turn_end(false);
     wgmma_wait<0>();
-    fence_regs(s);
+    fence_s_done();
     shift(0);
-    exponentiate();
+    exponentiate(0);
     pack_p();
     for (int j = 1; j < ntiles; ++j) {
       const int st = j % STAGES;
       const int pst = (j - 1) % STAGES;
       mbar_wait(bars + 8 * st, (j / STAGES) & 1);
       turn_begin();
-      fence_regs(s);
+      fence_s();
       fence_regs(oacc);
+      fence_l();
       fence_regs(p);
       wgmma_fence();
       mma_s(st);
@@ -1056,11 +1198,12 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_commit();
       turn_end(false);
       wgmma_wait<1>();
-      fence_regs(s);
+      fence_s_done();
       shift(j * BK);
-      exponentiate();
+      exponentiate(j * BK);
       wgmma_wait<0>();
       fence_regs(oacc);
+      fence_l();
       fence_regs(p);
       release(pst);
 #pragma unroll
@@ -1070,11 +1213,18 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         oacc[4 * i + 2] *= a1;
         oacc[4 * i + 3] *= a1;
       }
+      if constexpr (QK::kS8) {
+        lacc[0] *= a0;
+        lacc[1] *= a0;
+        lacc[2] *= a1;
+        lacc[3] *= a1;
+      }
       pack_p();
     }
     const int last = (ntiles - 1) % STAGES;
     turn_begin();
     fence_regs(oacc);
+    fence_l();
     fence_regs(p);
     wgmma_fence();
     mma_pv(last);
@@ -1082,12 +1232,18 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     turn_end(true);
     wgmma_wait<0>();
     fence_regs(oacc);
+    fence_l();
     release(last);
 
+    if constexpr (QK::kS8) {
+      l0 = lacc[0];
+      l1 = lacc[2];
+    } else {
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      for (int off = 1; off < 4; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
     }
     const float inv0 = 1.f / l0, inv1 = 1.f / l1;
     const int row0 = q0 + wg * 64 + warp * 16 + g;
@@ -1126,22 +1282,45 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int N, int H, int D,
          CUDA_SUCCESS;
 }
 
-template <int DQ, int DV, int BK, int NCONS, int STAGES>
+// The 3-D map (column, n, b) of an s8 [B, N, H, D] view with heads packed in
+// its rows (st = (b, n) byte strides): H * D columns, boxes of `boxb` bytes x
+// `rows` rows with the `boxb`-byte swizzle; reads past an edge are zero-filled.
+bool make_map_s8(CUtensorMap* map, const void* ptr, int B, int N, int H, int D,
+                 const int64_t* st, int rows, int boxb) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)H * D, (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)st[1], (cuuint64_t)st[0]};
+  const cuuint32_t box[3] = {(cuuint32_t)boxb, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(ptr), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            boxb == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+template <int DQ, int DV, int BK, int NCONS, int STAGES, class QK>
 cudaError_t launch_sm90(const void* q, const void* k, const void* v, void* o, int B, int H,
                         int Nq, int Nk, int D, const int64_t* qs, const int64_t* ks,
-                        const int64_t* vs, float scale, int flags, cudaStream_t stream) {
-  using C = Sm90<DQ, DV, BK, NCONS, STAGES>;
-  auto kernel = attention_sm90_kernel<DQ, DV, BK, NCONS, STAGES>;
+                        const int64_t* vs, float scale, const float* sq_sk, int flags,
+                        cudaStream_t stream) {
+  using C = Sm90<DQ, DV, BK, NCONS, STAGES, QK>;
+  auto kernel = attention_sm90_kernel<DQ, DV, BK, NCONS, STAGES, QK>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
   if (attr != cudaSuccess) return attr;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, B, Nq, H, D, qs, C::BQ) || !make_map(&tk, k, B, Nk, H, D, ks, BK) ||
-      !make_map(&tv, v, B, Nk, H, D, vs, BK))
-    return cudaErrorInvalidValue;
+  bool maps;
+  if constexpr (QK::kS8)
+    maps = make_map_s8(&tq, q, B, Nq, H, D, qs, C::BQ, C::BOXB) &&
+           make_map_s8(&tk, k, B, Nk, H, D, ks, BK, C::BOXB);
+  else
+    maps = make_map(&tq, q, B, Nq, H, D, qs, C::BQ) && make_map(&tk, k, B, Nk, H, D, ks, BK);
+  if (!maps || !make_map(&tv, v, B, Nk, H, D, vs, BK)) return cudaErrorInvalidValue;
   dim3 grid((Nq + C::BQ - 1) / C::BQ, B * H, (D + DV - 1) / DV);
   kernel<<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, Nq, Nk, D, scale, flags);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, Nq, Nk, D, scale, sq_sk, flags);
   return cudaGetLastError();
 }
 
@@ -1154,20 +1333,48 @@ cudaError_t launch_sm90(const void* q, const void* k, const void* v, void* o, in
 cudaError_t dispatch_sm90(const void* q, const void* k, const void* v, void* o, int B, int H,
                           int Nq, int Nk, int D, const int64_t* qs, const int64_t* ks,
                           const int64_t* vs, float scale, int flags, cudaStream_t stream) {
-  if (D <= 32)
-    return launch_sm90<32, 64, 128, 2, 4>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale,
-                                          flags, stream);
-  if (D <= 48)
-    return launch_sm90<48, 64, 128, 2, 4>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale,
-                                          flags, stream);
-  if (D <= 64)
-    return launch_sm90<64, 64, 128, 2, 4>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale,
-                                          flags, stream);
-  if (D <= 80)
-    return launch_sm90<80, 128, 128, 2, 3>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale,
-                                           flags, stream);
-  return launch_sm90<160, 192, 64, 2, 3>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale, flags,
-                                         stream);
+#define IRET_LAUNCH_SM90(DQ_, DV_, BK_, STAGES_)                                           \
+  return launch_sm90<DQ_, DV_, BK_, 2, STAGES_, Bf16QK>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, \
+                                                        vs, scale, nullptr, flags, stream)
+  if (D <= 32) IRET_LAUNCH_SM90(32, 64, 128, 4);
+  if (D <= 48) IRET_LAUNCH_SM90(48, 64, 128, 4);
+  if (D <= 64) IRET_LAUNCH_SM90(64, 64, 128, 4);
+  if (D <= 80) IRET_LAUNCH_SM90(80, 128, 128, 3);
+  IRET_LAUNCH_SM90(160, 192, 64, 3);
+#undef IRET_LAUNCH_SM90
+}
+
+// The bytes of an s8 row the S product must cover for every head: D past the
+// largest lead (h * D mod 16) of the H heads.
+int s8_row_bytes(int H, int D) {
+  int lead = 0;
+  for (int h = 1; h < H && h < 16; ++h) {
+    const int l = (h * D) & 15;
+    lead = l > lead ? l : lead;
+  }
+  return D + lead;
+}
+
+// K4's instances: s8 rows of 32, 64, 96 and 160 bytes (test widths; SD-1.5's
+// d = 40 with leads of 0 and 8 bytes, 80 and 160 with none), the V widths and
+// KV tiles of K1's at the same head_dim, and one stage more than K1's where
+// the smaller s8 tiles leave room (5 at 24 KB a stage; with 4 a block would
+// take under half the SM's shared memory, and two blocks an SM would break
+// setmaxnreg's budget).
+cudaError_t dispatch_sm90_s8(const void* q, const void* k, const void* v, void* o, int B,
+                             int H, int Nq, int Nk, int D, const int64_t* qs,
+                             const int64_t* ks, const int64_t* vs, const float* sq_sk,
+                             cudaStream_t stream) {
+#define IRET_LAUNCH_S8(DQ_, DV_, BK_, STAGES_)                                             \
+  return launch_sm90<DQ_, DV_, BK_, 2, STAGES_, S8QK>(q, k, v, o, B, H, Nq, Nk, D, qs, ks,   \
+                                                      vs, 0.f, sq_sk, 0, stream)
+  const int row = s8_row_bytes(H, D);
+  if (row <= 32) IRET_LAUNCH_S8(32, 64, 128, 5);
+  if (row <= 64) IRET_LAUNCH_S8(64, 64, 128, 5);
+  if (row <= 96) IRET_LAUNCH_S8(96, 128, 128, 4);
+  if (row <= 160) IRET_LAUNCH_S8(160, 192, 64, 4);
+#undef IRET_LAUNCH_S8
+  return cudaErrorInvalidValue;
 }
 
 // TMA needs a 16-byte aligned base and 16-byte multiple strides (positive).
@@ -1176,6 +1383,14 @@ bool tma_rows(const void* p, const int64_t* strides) {
   for (int i = 0; i < 3; ++i)
     if (strides[i] <= 0 || strides[i] % 8 != 0) return false;
   return true;
+}
+
+// An s8 [B, N, H, D] view as make_map_s8 reads it: heads packed in the rows
+// (head stride D, or one head), a 16-byte aligned base, and positive 16-byte
+// multiple row and batch strides (st = (b, n, h), in bytes).
+bool s8_rows(const void* p, const int64_t* st, int H, int D) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st[0] > 0 && st[0] % 16 == 0 &&
+         st[1] > 0 && st[1] % 16 == 0 && (H == 1 || st[2] == D);
 }
 
 // Paths, as ops/attention.py's kernel_path() names them.
@@ -1216,8 +1431,8 @@ int run(int dtype, int path, const void* q, const void* k, const void* v, void* 
       break;
     case kSm90Split:
       if (dtype == 1 && D > kMmaMaxHeadDim && plain_flags && tma)
-        return launch_sm90<512, 256, 32, 1, 3>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, scale,
-                                               flags, s);
+        return launch_sm90<512, 256, 32, 1, 3, Bf16QK>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs,
+                                                       scale, nullptr, flags, s);
       break;
   }
   return cudaErrorInvalidValue;
@@ -1271,6 +1486,21 @@ int iret_packed_attention_grid(int dtype, int path, const void* q, const void* k
                                int64_t vsb, int64_t vsn, float scale, void* stream) {
   return iret_packed_attention(dtype, path, q, k, v, o, B, H, Nq, Nk, D, qsb, qsn, ksb, ksn,
                                vsb, vsn, scale, stream);
+}
+
+// K4's sm90 path (called by iret_int8_attention in int8_attention.cu, which
+// owns the entry and its path argument): s8 q8 and k8 [B, N, H, D] views with
+// heads packed in their rows, bf16 v [B, Nk, H, D], strides (b, n, h) in
+// elements; sq_sk one fp32 on the device; o a contiguous bf16 [B, Nq, H, D].
+// Arguments the path cannot take are cudaErrorInvalidValue.
+int iret_int8_attention_sm90(const void* q, const void* k, const void* v, const void* sq_sk,
+                             void* o, int B, int H, int Nq, int Nk, int D, const int64_t* qs,
+                             const int64_t* ks, const int64_t* vs, void* stream) {
+  if (B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0 || D <= 0 || D > kMmaMaxHeadDim ||
+      !s8_rows(q, qs, H, D) || !s8_rows(k, ks, H, D) || !tma_rows(v, vs))
+    return cudaErrorInvalidValue;
+  return dispatch_sm90_s8(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs,
+                          static_cast<const float*>(sq_sk), static_cast<cudaStream_t>(stream));
 }
 
 const char* iret_error_string(int err) {

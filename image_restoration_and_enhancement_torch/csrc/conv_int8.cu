@@ -328,37 +328,6 @@ struct Sm90 {
   static_assert(SMEM_BYTES <= 232448, "shared memory");
 };
 
-#define WG_I8(d, i)                                                                       \
-  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]),              \
-      "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
-#define WG_CI64(d)                                                                        \
-  WG_I8(d, 0), WG_I8(d, 8), WG_I8(d, 16), WG_I8(d, 24), WG_I8(d, 32), WG_I8(d, 40),       \
-      WG_I8(d, 48), WG_I8(d, 56)
-#define WG_CI80(d) WG_CI64(d), WG_I8(d, 64), WG_I8(d, 72)
-
-// d += A.B, m64nNk32, s8 in, s32 accumulate; A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-               "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {" WG_R64
-               "}, %64, %65, p;\n}\n"
-               : WG_CI64(d)
-               : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_s8(int (&d)[80], uint64_t da, uint64_t db) {
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
-               "wgmma.mma_async.sync.aligned.m64n160k32.s32.s8.s8 {" WG_R64 ", " WG_S8
-               ", " WG_S9 "}, %80, %81, p;\n}\n"
-               : WG_CI80(d)
-               : "l"(da), "l"(db), "r"(1));
-}
-
-template <int N>
-__device__ __forceinline__ void fence_acc(int (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
 __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
@@ -438,14 +407,14 @@ conv3x3_int8_sm90_kernel(const __grid_constant__ CUtensorMap tx,
 #pragma unroll
     for (int ks = 0; ks < KB / 32; ++ks)
       wgmma_s8(acc, gmma_desc(a + ks * 32, 16, Cf::SBO, Cf::LAYOUT),
-               gmma_desc(b + ks * 32, 16, Cf::SBO, Cf::LAYOUT));
+               gmma_desc(b + ks * 32, 16, Cf::SBO, Cf::LAYOUT), 1);
     wgmma_commit();
     wgmma_wait<1>();  // the previous stage's products are done: free it
-    fence_acc(acc);
+    fence_regs(acc);
     if (i > 0 && lane == 0) mbar_arrive(bars + 8 * (Cf::STAGES + (i - 1) % Cf::STAGES));
   }
   wgmma_wait<0>();
-  fence_acc(acc);
+  fence_regs(acc);
 
   if (splits > 1) {
     // Every split stores its partial tile; the last to arrive adds the others'.

@@ -1,4 +1,5 @@
-// K4 — attention with an s8 Q.K^T for the PyTorch port.
+// K4 — attention with an s8 Q.K^T for the PyTorch port: the entry, and the
+// "mma" device code.
 //
 // Replaces: image_restoration_and_enhancement_tpu/ops/attention.py
 //   _int8_attention_kernel (called from _pallas_int8_bhnd / pallas_int8_attention).
@@ -9,26 +10,42 @@
 //   s = float(q8 . k8) * (sq*sk*log2(e));  p = exp2(s - max)  (online over KV tiles)
 //   P.V with P cast to v's dtype; the row sum l is taken over that cast P
 //   (the TPU kernel's ones column of V); out = acc * (1 / l) in v's dtype.
-// Zero-padded keys (Nk = 77) score -inf.
+// Keys past Nk score -inf.
 //
 // What bounds it on the H100: at the UNet's N = 4096 self-attention it does
 // 2*N*N*d s8 operations and 2*N*N*d bf16 ones per (batch, head) against
 // about 4*N*d bytes, far above the card's operations per byte: the bound is
-// arithmetic. So both products run on the tensor cores, and the score tile
-// never leaves registers: one block of 4 warps takes 64 query rows, each warp
-// 16 of them; per KV tile of 64 keys a warp computes its 16 x 64 s32 score
-// tile with mma.sync m16n8k32 (s8 in, s32 accumulate; head_dim zero-padded to
-// DP, a multiple of 32), scales it in fp32, updates the running max and sum,
-// and multiplies P by V with mma.sync m16n8k16 (bf16 in, fp32 accumulate)
-// reusing the score accumulators as the A operand (the m16n8 accumulator
-// layout equals the m16n8k16 A layout), as K1 does. K and V tiles are
-// double-buffered with cp.async. For fp32 inputs (tests and parity runs),
-// P.V runs on CUDA cores from a per-warp P tile in shared memory, unrounded,
-// as the TPU kernel casts P to fp32 there.
+// the tensor cores' (0.0326 ms at 2 x 4096 x 4096 x 8 x 40). At d = 40 the
+// 268 M exponentials of that shape are a floor of their own on the MUFU units
+// (~0.064 ms, csrc/attention.cu), as they are for K1: only a softmax that runs
+// while another warpgroup's products run approaches it.
+//
+// Two paths, named by ops/attention.py's int8_kernel_path() from the arguments
+// and passed in; the entry refuses a path its arguments cannot take and never
+// picks another:
+// - kSm90 (bf16 v, head_dim <= 160, rows TMA can address: every UNet site):
+//   the sm90 attention kernel of csrc/attention.cu with the s8 score product
+//   (S8QK): a producer warp keeps a ring of K8/V tiles in flight through TMA,
+//   two consumer warpgroups of 64 query rows take turns on the tensor cores,
+//   S = q8 k8^T by wgmma m64nBKk32 s32.s8.s8 from shared memory, P.V by bf16
+//   wgmma with P in registers; KV tiles of 128 keys (64 at d = 160). q8 and k8
+//   are read unpadded through a 3-D map over their [B, N, H*d] rows (an s8
+//   head stride of 40 bytes is no legal TMA stride; a row of 320 is), v through
+//   K1's 4-D map; the wrapper copies nothing.
+// - kMma (fp32 v, for tests and parity runs; and rows TMA cannot address):
+//   the first design, below, on contiguous zero-padded copies the wrapper makes.
+//   One block of 4 warps takes 64 query rows, each warp 16 of them; per KV
+//   tile of 64 keys a warp computes its 16 x 64 s32 score tile with mma.sync
+//   m16n8k32 (head_dim zero-padded to DP, a multiple of 32), scales it in
+//   fp32, updates the running max and sum, and multiplies P by V with mma.sync
+//   m16n8k16 reusing the score accumulators as the A operand, as K1's mma code
+//   does. K and V tiles are double-buffered with cp.async. For fp32 inputs,
+//   P.V runs on CUDA cores from a per-warp P tile in shared memory, unrounded,
+//   as the TPU kernel casts P to fp32 there.
 //
 // The TPU kernel holds all of K and V per (batch, head) and walks it in
-// chunks of 1024 keys; the tiles here are 64 keys, so P is rounded to bf16
-// against other running maxima: the two agree to the bf16 rounding of P.
+// chunks of 1024 keys; the tiles here are 64 or 128 keys, so P is rounded to
+// bf16 against other running maxima: the two agree to the bf16 rounding of P.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -336,33 +353,75 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* sca
 
 // Padded widths (DP for s8 Q/K, DV for V) instantiated: SD-1.5's head dims 40,
 // 80 and 160 and the tiny test widths (<= 16). ops/attention.py pads to the
-// same table.
+// same table (_INT8_WIDTHS).
+bool mma_widths(int D, int* DP, int* DV) {
+  const int table[4][3] = {{16, 32, 16}, {48, 64, 48}, {80, 96, 80}, {160, 160, 160}};
+  for (const auto& row : table) {
+    if (D <= row[0]) {
+      *DP = row[1];
+      *DV = row[2];
+      return true;
+    }
+  }
+  return false;
+}
+
 template <typename VT>
 cudaError_t dispatch(const void* q, const void* k, const void* v, const float* scale,
                      void* o, int B, int H, int Nq, int Nk, int D, int DP, int DV,
                      cudaStream_t s) {
-  if (DP == 32 && DV == 16 && D <= 16)
-    return launch<VT, 32, 16>(q, k, v, scale, o, B, H, Nq, Nk, D, s);
-  if (DP == 64 && DV == 48 && D <= 48)
-    return launch<VT, 64, 48>(q, k, v, scale, o, B, H, Nq, Nk, D, s);
-  if (DP == 96 && DV == 80 && D <= 80)
-    return launch<VT, 96, 80>(q, k, v, scale, o, B, H, Nq, Nk, D, s);
-  if (DP == 160 && DV == 160 && D <= 160)
-    return launch<VT, 160, 160>(q, k, v, scale, o, B, H, Nq, Nk, D, s);
-  return cudaErrorInvalidValue;
+  if (DP == 32) return launch<VT, 32, 16>(q, k, v, scale, o, B, H, Nq, Nk, D, s);
+  if (DP == 64) return launch<VT, 64, 48>(q, k, v, scale, o, B, H, Nq, Nk, D, s);
+  if (DP == 96) return launch<VT, 96, 80>(q, k, v, scale, o, B, H, Nq, Nk, D, s);
+  return launch<VT, 160, 160>(q, k, v, scale, o, B, H, Nq, Nk, D, s);
 }
+
+// Whether strides (b, n, h) are those of a contiguous [B, N, H, W].
+bool contiguous(const int64_t* st, int N, int H, int W) {
+  return st[0] == (int64_t)N * H * W && st[1] == (int64_t)H * W && st[2] == W;
+}
+
+// Paths, as ops/attention.py's int8_kernel_path() names them (the codes of
+// csrc/attention.cu's enum Path).
+enum Path { kMma = 1, kSm90 = 2 };
 
 }  // namespace
 
+extern "C" int iret_int8_attention_sm90(const void* q, const void* k, const void* v,
+                                        const void* sq_sk, void* o, int B, int H, int Nq,
+                                        int Nk, int D, const int64_t* qs, const int64_t* ks,
+                                        const int64_t* vs, void* stream);
+
 extern "C" {
 
-// vdtype: 0 = float32, 1 = bfloat16 (v's and o's dtype). q8 and k8 are
-// contiguous s8 [B, N, H, DP], v a contiguous [B, Nk, H, DV], each zero-padded
-// from D; scale one fp32 (sq * sk) on the device; o a contiguous [B, Nq, H, D].
-int iret_int8_attention(int vdtype, const void* q, const void* k, const void* v,
+// K4. path: ops/attention.py's int8_kernel_path() (enum Path); vdtype: 0 =
+// float32, 1 = bfloat16 (v's and o's dtype). q8 and k8 are s8 [B, N, H, D]
+// views and v a [B, Nk, H, D] view, with element strides (b, n, h) and unit
+// stride on the last axis; scale one fp32 (sq * sk) on the device; o a
+// contiguous [B, Nq, H, D] in v's dtype.
+// - kSm90 (bf16 v, D <= 160): q8 and k8 with heads packed in their rows and
+//   16-byte aligned row and batch strides, v with rows TMA can address
+//   (csrc/attention.cu, iret_int8_attention_sm90).
+// - kMma (float32 or bfloat16 v): contiguous q8 and k8 zero-padded to DP and
+//   v to DV (mma_widths).
+// A path the arguments cannot take is cudaErrorInvalidValue; no other path is
+// tried.
+int iret_int8_attention(int path, int vdtype, const void* q, const void* k, const void* v,
                         const void* scale, void* o, int B, int H, int Nq, int Nk, int D,
-                        int DP, int DV, void* stream) {
+                        int64_t qsb, int64_t qsn, int64_t qsh, int64_t ksb, int64_t ksn,
+                        int64_t ksh, int64_t vsb, int64_t vsn, int64_t vsh, void* stream) {
   if (B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0 || D <= 0) return cudaErrorInvalidValue;
+  const int64_t qs[3] = {qsb, qsn, qsh};
+  const int64_t ks[3] = {ksb, ksn, ksh};
+  const int64_t vs[3] = {vsb, vsn, vsh};
+  if (path == kSm90) {
+    if (vdtype != 1) return cudaErrorInvalidValue;
+    return iret_int8_attention_sm90(q, k, v, scale, o, B, H, Nq, Nk, D, qs, ks, vs, stream);
+  }
+  int DP, DV;
+  if (path != kMma || !mma_widths(D, &DP, &DV) || !contiguous(qs, Nq, H, DP) ||
+      !contiguous(ks, Nk, H, DP) || !contiguous(vs, Nk, H, DV))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
   if (vdtype == 0)

@@ -19,8 +19,9 @@ right after a launch succeeds and nowhere else. ``launch_shapes`` records the
 same launches keyed by (kernel, shape description), so a caller can replay the
 shapes a run used, and ``launch_paths`` keyed by (kernel, path) for the kernels
 with more than one device code (the attention kernels: ``ops/attention.py``'s
-``kernel_path``; K2: ``ops/groupnorm.py``'s ``plan``; K3: ``ops/conv_int8.py``'s
-``conv_path``), so a run can show which code served.
+``kernel_path``; K4: its ``int8_kernel_path``; K2: ``ops/groupnorm.py``'s
+``plan``; K3: ``ops/conv_int8.py``'s ``conv_path``), so a run can show which
+code served.
 """
 from __future__ import annotations
 
@@ -77,8 +78,10 @@ _ARGTYPES = {
     # path, out dtype, x, w, scale, out, split-K workspace, tile counters, B, H,
     # W, C, N, splits, stream
     "iret_conv3x3_int8": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # v dtype, q8, k8, v, scale, o, B, H, Nq, Nk, D, DP, DV, stream
-    "iret_int8_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # path, v dtype, q8, k8, v, scale, o, B, H, Nq, Nk, D, q8 strides (b, n, h),
+    # k8 strides, v strides, stream
+    "iret_int8_attention": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _L, _L, _L, _L, _L, _L, _L, _L, _L, _P],
 }
 
 

@@ -30,7 +30,11 @@ backend)`` picks the function as the JAX package's ``attention`` does:
   over all B*H (``smooth_quantize_qk``); the scores are the exact s8 products
   times sq*sk*log2(e), exponentiated with exp2 against the row max; P is cast
   to V's dtype for P.V and the row sum is taken over that cast P. On a CUDA
-  tensor the hand-written K4 (``csrc/int8_attention.cu``) computes it.
+  tensor the hand-written K4 computes it, on the device code
+  ``int8_kernel_path`` names: "sm90" (``csrc/attention.cu``'s wgmma + TMA
+  code with an s8 Q.K^T, reading q8, k8 and v where they lie; bf16 v) or
+  "mma" (``csrc/int8_attention.cu``'s mma.sync code on zero-padded copies:
+  fp32 v, or rows TMA cannot address).
 - ``"xla_int8"`` and ``"xla_int8_pv"``: the JAX package's plain XLA int8
   variants (s8 Q.K^T; s8 Q.K^T and s8 P.V), in plain PyTorch on any device.
 
@@ -66,8 +70,8 @@ SM90_MAX_HEAD_DIM = 160  # above it the output dims are split over the grid
 # csrc/attention.cu's paths (its enum Path)
 _PATH_CODES = {"simt": 0, "mma": 1, "sm90": 2, "sm90_split": 3}
 LOG2E = 1.4426950408889634
-# K4's padded widths, as csrc/int8_attention.cu instantiates them:
-# (largest head_dim, s8 Q/K width DP (a multiple of 32), V width DV).
+# The padded widths of K4's "mma" code, as csrc/int8_attention.cu instantiates
+# them: (largest head_dim, s8 Q/K width DP (a multiple of 32), V width DV).
 _INT8_WIDTHS = ((16, 32, 16), (48, 64, 48), (80, 96, 80), (160, 160, 160))
 
 
@@ -405,7 +409,7 @@ def int8_attention_core_reference(q8: torch.Tensor, k8: torch.Tensor, v: torch.T
 
 
 def _int8_widths(d: int) -> Tuple[int, int]:
-    """(DP, DV): the s8 Q/K and V widths K4 pads head_dim ``d`` to."""
+    """(DP, DV): the s8 Q/K and V widths K4's "mma" code pads head_dim ``d`` to."""
     for limit, dp, dv in _INT8_WIDTHS:
         if d <= limit:
             return dp, dv
@@ -413,26 +417,77 @@ def _int8_widths(d: int) -> Tuple[int, int]:
                      f"not {d}")
 
 
+def _s8_rows(shape, strides) -> bool:
+    """Whether the 3-D TMA map of K4's "sm90" code can read an s8 [B, N, H, D]
+    view of ``shape`` and element ``strides`` at a 16-byte aligned base: heads
+    packed in its rows (unit stride on D, head stride D or one head) and
+    positive 16-byte multiple row and batch strides."""
+    sb, sn, sh, sd = strides
+    return (sd == 1 and (sh == shape[3] or shape[2] == 1) and sb > 0 and sn > 0
+            and sb % 16 == 0 and sn % 16 == 0)
+
+
+def _s8_row_bytes(h: int, d: int) -> int:
+    """The bytes of an s8 row K4's sm90 code multiplies for every head: its
+    boxes start at the 16-byte boundary at or below column h*d, so d past the
+    largest such lead (h*d mod 16) over the heads."""
+    return d + max((i * d) % 16 for i in range(min(h, 16)))
+
+
+@functools.lru_cache(maxsize=None)
+def _int8_path(q_shape, q_strides, k_shape, k_strides, v_strides, v_dtype, aligned) -> str:
+    """``int8_kernel_path`` on shapes, strides, v's dtype and whether every base
+    is 16-byte aligned (cached: the wrapper asks on every call)."""
+    if v_dtype not in _DTYPE_CODES:
+        raise TypeError(f"the int8 attention kernel takes float32 or bfloat16 v, not {v_dtype}")
+    _int8_widths(q_shape[3])
+    sm90 = (v_dtype == torch.bfloat16 and aligned and _s8_rows(q_shape, q_strides)
+            and _s8_rows(k_shape, k_strides) and v_strides[3] == 1
+            and all(x > 0 and x % 8 == 0 for x in v_strides[:3])
+            and _s8_row_bytes(q_shape[2], q_shape[3]) <= SM90_MAX_HEAD_DIM)
+    return "sm90" if sm90 else "mma"
+
+
+def int8_kernel_path(q8: torch.Tensor, k8: torch.Tensor, v: torch.Tensor) -> str:
+    """The device code that serves K4 on these s8 q8, k8 and v [B, N, H, D]:
+
+    - "sm90": bf16 v, q8 and k8 with heads packed in 16-byte aligned rows
+      (``_s8_rows``: the quantizer's contiguous outputs at the UNet's
+      H*D = 320, 640, 1280), head_dim plus the largest lead of a head within
+      160 bytes (``_s8_row_bytes``: 48, 80, 160 at d = 40, 80, 160) and v rows
+      TMA can address (as K1's);
+    - "mma": fp32 v, or rows the sm90 code cannot address (the wrapper then
+      passes zero-padded contiguous copies).
+
+    Decided by the arguments alone, never by a failed build or launch; the C
+    entry refuses a path its arguments cannot take."""
+    aligned = (q8.data_ptr() | k8.data_ptr() | v.data_ptr()) % 16 == 0
+    return _int8_path(q8.shape, q8.stride(), k8.shape, k8.stride(), v.stride(),
+                      v.dtype, aligned)
+
+
 def _launch_int8(q8: torch.Tensor, k8: torch.Tensor, v: torch.Tensor,
                  scale: torch.Tensor) -> torch.Tensor:
+    """K4 through ``int8_kernel_path``'s code. On "sm90" (every served call) the
+    kernel reads q8, k8 and v where they lie and only the output is allocated;
+    the "mma" code takes contiguous copies zero-padded to ``_int8_widths``."""
     b, nq, h, d = q8.shape
     nk = k8.shape[1]
-    if v.dtype not in _DTYPE_CODES:
-        raise TypeError(f"the int8 attention kernel takes float32 or bfloat16 v, not {v.dtype}")
-    dp, dv = _int8_widths(d)
-    q8p = F.pad(q8, (0, dp - d)).contiguous()
-    k8p = F.pad(k8, (0, dp - d)).contiguous()
-    vp = F.pad(v, (0, dv - d)).contiguous()
-    sc = scale.float().reshape(1).contiguous()
-    lib = _build.library()
+    path = int8_kernel_path(q8, k8, v)
+    if path == "mma":
+        dp, dv = _int8_widths(d)
+        q8, k8 = (F.pad(t, (0, dp - d)).contiguous() for t in (q8, k8))
+        v = F.pad(v, (0, dv - d)).contiguous()
+    if scale.dtype != torch.float32:
+        scale = scale.float()
     out = torch.empty((b, nq, h, d), dtype=v.dtype, device=v.device)
-    err = lib.iret_int8_attention(
-        _DTYPE_CODES[v.dtype], q8p.data_ptr(), k8p.data_ptr(), vp.data_ptr(),
-        sc.data_ptr(), out.data_ptr(), b, h, nq, nk, d, dp, dv,
-        torch.cuda.current_stream(v.device).cuda_stream,
+    err = _build.entry("iret_int8_attention")(
+        _PATH_CODES[path], _DTYPE_CODES[v.dtype], q8.data_ptr(), k8.data_ptr(), v.data_ptr(),
+        scale.data_ptr(), out.data_ptr(), b, h, nq, nk, d, *q8.stride()[:3], *k8.stride()[:3],
+        *v.stride()[:3], _build.raw_stream(v.device.index),
     )
-    _build.check(err, "int8_attention")
-    _build.record_launch("int8_attention", (b, nq, nk, h, d, str(v.dtype)))
+    _build.check(err, f"int8_attention ({path})")
+    _build.record_launch("int8_attention", (b, nq, nk, h, d, str(v.dtype)), path)
     return out
 
 
@@ -445,6 +500,8 @@ def int8_attention_core(q8: torch.Tensor, k8: torch.Tensor, v: torch.Tensor,
     if q8.shape[0] != k8.shape[0] or q8.shape[2:] != k8.shape[2:] or k8.shape != v.shape:
         raise ValueError(f"shape mismatch: q {tuple(q8.shape)}, k {tuple(k8.shape)}, "
                          f"v {tuple(v.shape)}")
+    if scale.numel() != 1:
+        raise ValueError(f"scale must hold one value, not {scale.numel()}")
     if not (q8.device == k8.device == v.device == scale.device):
         raise ValueError("q, k, v and scale must be on one device")
     if q8.device.type == "cpu":
@@ -471,13 +528,21 @@ def int8_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.T
     return _AttentionFn.apply(_int8_forward, q, k, v)
 
 
+def xla_int8_core(q8: torch.Tensor, k8: torch.Tensor, v: torch.Tensor,
+                  scale: torch.Tensor) -> torch.Tensor:
+    """``xla_attention_int8`` on K4's own inputs: fp32 softmax of the
+    dequantized scores, the normalised P cast to V's dtype, P.V accumulated in
+    fp32, the output in V's dtype. K4's function with its roundings elsewhere:
+    the wrong version of K4's placement check (``ops/tolerance.py``)."""
+    p = torch.softmax(_int8_scores(q8, k8) * scale, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float()).to(v.dtype)
+
+
 def xla_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """The JAX package's XLA attention with s8 Q.K^T: fp32 softmax of the
     dequantized scores, P cast to V's dtype, P.V accumulated in fp32."""
     q8, k8, s = smooth_quantize_qk(_prescale(q), k)
-    p = torch.softmax(_int8_scores(q8, k8) * s, dim=-1)
-    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
-    return o.to(q.dtype)
+    return xla_int8_core(q8, k8, v, s).to(q.dtype)
 
 
 def xla_attention_int8_pv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -34,8 +34,10 @@ absolute term covers that as a share of the largest output:
   by the kernel's SiLU (the MUFU exponential and reciprocal, a few fp32 ulps).
 - int8_attention (K4), share 2**-8, as attention: Q.K^T is exact in s8 on
   both sides, and they differ in the bf16 rounding of P, the kernel rounding
-  it against the running max of 64-key tiles, the plain version against the
-  row max (the same difference as K1's).
+  it against the running max of its KV tiles (128 keys on the sm90 path up to
+  head_dim 96, 64 at 160, 64 on the mma path), the plain version against the
+  row max (the same difference as K1's). tests/test_torch_cuda.py holds a
+  dropped KV tile and a skipped rescale against it at each tile.
 
 Placement (bf16 only): the limit above also passes a kernel that puts its
 bf16 roundings elsewhere (for example one that scales the fp32 scores instead
@@ -52,6 +54,22 @@ roundings K1 had before (fp32 scores scaled after the dot, row sum over the
 fp32 P) equals them on 43.9-48.7% and 49.8-52.2% at either tile. A margin of
 0.1 share lies between: the right placement clears it by 0.09 or more, the
 wrong one misses it by 0.13 or more.
+
+K4 (int8_attention, bf16) takes the same check with ``int8_attention_core_
+reference`` as the right version and ``attention.xla_int8_core`` as the
+wrong one (xla_attention_int8's roundings on the same s8 inputs: P normalised
+in fp32 and then rounded to bf16, no divide after P.V). On the CPU (seeds 4
+and 5, 128 query rows at 2x4096x8x40, 2x1024x8x80 and 2x77x8x160) a plain
+emulation of K4's tiles equals the right version on 62.4-93.5% of elements at
+64-key tiles and 62.8-93.5% at the sm90 tiles (128, 128, 64 keys), and the
+wrong one on 49.7-52.4%: the right placement clears the margin by 0.024 or
+more, and an emulation that normalises P before rounding it equals the wrong
+version. The other misplacement one would expect, the row sum taken over the
+fp32 P instead of the rounded P, cannot be told apart by any margin: an
+emulation with it equals the right version on 62.4-90.4% of elements and the
+fp32-row-sum version on 62.4-93.4%, and the right emulation equals the two on
+shares within 0.031 of each other (a row sum over 77-4096 keys moves by far
+less than a bf16 step of the output), so no check is made for it.
 
 conv3x3_int8 (K3): both sides take the same exact int32 sums, convert each
 to fp32 with one rounding and multiply by the same fp32 scale, so they agree

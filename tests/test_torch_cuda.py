@@ -36,7 +36,16 @@ is exact and that the limit rejects a dropped split.
 K3 is held to one rounding of the output dtype and K4 (int8 attention) to
 attention's bf16 limit (share 2**-8);
 ``test_int8_limits_reject_planted_faults`` shows that they catch a dropped
-conv tap, and a dropped KV tile or a missing rescale, with a CPU case as above.
+conv tap, and a dropped KV tile or a missing rescale, with a CPU case as above
+(at the mma code's 64-key tiles, and
+``test_int8_limit_rejects_planted_faults_at_sm90_tiles`` at the sm90 code's).
+K4 runs on the path ``attention.int8_kernel_path`` names ("sm90": s8 wgmma +
+TMA on the tensors as they lie; "mma": zero-padded copies;
+``test_int8_kernel_path_served`` holds the rule at every UNet site on the
+CPU); its card tests assert the path, run both codes through the C entry and
+its refusals, count one device launch per served call through the profiler,
+and hold bf16 K4 to a placement check against ``attention.xla_int8_core``
+(``test_int8_placement_check``, CPU case included).
 ``test_int8_layers_match_cpu`` holds the int8 layers that K3 does not serve
 (``torch._int_mm`` and the quantizers on the card) against the CPU to one
 rounding of the output dtype, and shows that the limit fails full precision.
@@ -698,18 +707,30 @@ def _int8_inputs(b, nq, nk, h, d, dtype, device, gen):
 @pytest.mark.parametrize("b,nq,nk,h,d", [
     (2, 4096, 4096, 8, 40), (2, 4096, 77, 8, 40), (2, 1024, 1024, 8, 80),
     (2, 256, 256, 8, 160), (2, 64, 77, 8, 160), (1, 64, 64, 2, 4), (1, 100, 37, 3, 8),
+    # the sm90 code's edges: Nq not a multiple of its 128-row tile with Nk = 77,
+    # s8 rows of 32 bytes (d 16) and 96 bytes with a box past the row (d 24),
+    # Nk = 1
+    (2, 200, 77, 8, 40), (1, 100, 37, 2, 16), (1, 77, 100, 4, 24), (1, 64, 1, 2, 40),
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_int8_attention_kernel_matches_plain(cuda, b, nq, nk, h, d, dtype):
     q8, k8, v, s = _int8_inputs(b, nq, nk, h, d, dtype, "cuda", cuda)
-    before = _build.launch_counts["int8_attention"]
+    path = A.int8_kernel_path(q8, k8, v)
+    if dtype == torch.float32 or h * d % 16:
+        assert path == "mma"
+    before = collections.Counter(_build.launch_paths)
     got = A.int8_attention_core(q8, k8, v, s)
-    assert _build.launch_counts["int8_attention"] == before + 1
-    assert_within(got, A.int8_attention_core_reference(q8, k8, v, s), "int8_attention")
+    assert_launched("int8_attention", before, path)
+    ref = A.int8_attention_core_reference(q8, k8, v, s)
+    assert_within(got, ref, "int8_attention")
+    if dtype == torch.bfloat16 and nk > 1:
+        ok, right, wrong = tolerance.placement(got, ref, A.xla_int8_core(q8, k8, v, s))
+        assert ok, (right, wrong)
     # the entry point the model calls, quantization prologue included
     q, k = (torch.randn((b, n, h, d), generator=cuda, device="cuda").to(dtype) for n in (nq, nk))
+    before = collections.Counter(_build.launch_paths)
     got = A.attention(q, k, v, backend="int8")
-    assert _build.launch_counts["int8_attention"] == before + 2
+    assert_launched("int8_attention", before, path)
     assert_within(got, A.int8_attention_reference(q, k, v), "int8_attention")
 
 
@@ -782,6 +803,201 @@ def test_int8_limits_reject_planted_faults(device):
             ok, err = tolerance.within(_online_int8_attention(q8, k8, v, s, **fault), ref,
                                        "int8_attention")
             assert not ok, f"the K4 limit passed a planted fault {fault} (max err {err})"
+
+
+def _int8_tile(design, d):
+    """Keys per KV tile of a K4 device code at head_dim ``d``: the mma code's
+    64, or the sm90 code's (K1's tiles: 128 up to d 96, 64 at 160)."""
+    if design == "mma":
+        return 64
+    return 128 if d <= 96 else 64
+
+
+def _online_int8_xla(q8, k8, v, scale, tile):
+    """K4's tiles with xla_attention_int8's roundings: a first walk over the
+    KV tiles takes the row max and the fp32 row sum, a second rounds the
+    normalised P to v's dtype for P.V (no divide after it)."""
+    s_all = torch.einsum("bqhd,bkhd->bhqk", q8.float(), k8.float()) * (scale * A.LOG2E)
+    m = torch.full(s_all.shape[:-1] + (1,), -math.inf, device=v.device)
+    l = torch.zeros_like(m)
+    for k0 in range(0, k8.shape[1], tile):
+        s = s_all[..., k0:k0 + tile]
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        l = l * torch.exp2(m - m_new) + torch.exp2(s - m_new).sum(-1, keepdim=True)
+        m = m_new
+    vf = v.float().transpose(1, 2)
+    acc = sum((torch.exp2(s_all[..., k0:k0 + tile] - m) / l).to(v.dtype).float()
+              @ vf[:, :, k0:k0 + tile] for k0 in range(0, k8.shape[1], tile))
+    return acc.to(v.dtype).transpose(1, 2)
+
+
+@pytest.mark.parametrize("b,nk,h,d", [(2, 4096, 8, 40), (2, 1024, 8, 80), (2, 256, 8, 160)])
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_int8_limit_rejects_planted_faults_at_sm90_tiles(device, b, nk, h, d):
+    """K4's limit at the sm90 code's KV tiles (128 keys, 64 at d 160): it
+    passes an emulation of the tiled walk (and, on the card, the kernel on
+    "sm90") and fails a dropped KV tile and a missing rescale. The CPU case
+    takes 256 query rows."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    nq = nk if device == "cuda" else min(nk, 256)
+    tile = _int8_tile("sm90", d)
+    gen = torch.Generator(device=device).manual_seed(3)
+    q8, k8, v, s = _int8_inputs(b, nq, nk, h, d, torch.bfloat16, device, gen)
+    ref = A.int8_attention_core_reference(q8, k8, v, s)
+    honest = [_online_int8_attention(q8, k8, v, s, tile=tile)]
+    if device == "cuda":
+        assert A.int8_kernel_path(q8, k8, v) == "sm90"
+        honest.append(A.int8_attention_core(q8, k8, v, s))
+    for got in honest:
+        assert_within(got, ref, "int8_attention")
+    for fault in ({"drop_tile": nk // tile // 2}, {"rescale": False}):
+        ok, err = tolerance.within(_online_int8_attention(q8, k8, v, s, tile=tile, **fault), ref,
+                                   "int8_attention")
+        assert not ok, f"the K4 limit passed a planted fault {fault} (max err {err})"
+
+
+@pytest.mark.parametrize("b,nk,h,d", [(2, 4096, 8, 40), (2, 1024, 8, 80), (2, 77, 8, 160)])
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("design", ["mma", "sm90"])
+def test_int8_placement_check(design, device, b, nk, h, d):
+    """K4's placement check (``tolerance.placement`` against
+    ``attention.xla_int8_core``) passes the tiled walk with K4's roundings at
+    the device code's KV tile (and, on the card, K4 on that code) and fails
+    the same walk with xla_attention_int8's roundings (P normalised before it
+    is rounded); the K4 limit alone passes both. The CPU case takes 128
+    query rows."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    nq = nk if device == "cuda" else 128
+    tile = _int8_tile(design, d)
+    gen = torch.Generator(device=device).manual_seed(4)
+    q8, k8, v, s = _int8_inputs(b, nq, nk, h, d, torch.bfloat16, device, gen)
+    right, wrong = A.int8_attention_core_reference(q8, k8, v, s), A.xla_int8_core(q8, k8, v, s)
+    honest = [_online_int8_attention(q8, k8, v, s, tile=tile)]
+    if device == "cuda":
+        honest.append(_int8_entry(q8, k8, v, s, design))  # the device code itself
+    for got in honest:
+        assert_within(got, right, "int8_attention")
+        ok, r, w = tolerance.placement(got, right, wrong)
+        assert ok, (r, w)
+    moved = _online_int8_xla(q8, k8, v, s, tile)
+    assert_within(moved, right, "int8_attention")
+    ok, r, w = tolerance.placement(moved, right, wrong)
+    assert not ok, f"the K4 placement check passed xla_attention_int8's roundings ({r} vs {w})"
+
+
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("nq,nk,d", [(n, k, d) for _, n, k, _, d in _SERVED])
+def test_int8_kernel_path_served(b, nq, nk, d):
+    """At every UNet attention site of an int8 serve, at CFG batch 2 and at
+    batch 1, the quantizer's s8 outputs and the projection's bf16 v take K4's
+    "sm90" code (no padded copies), and fp32 v the "mma" code."""
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((b, n, 8, d), generator=gen).to(torch.bfloat16) for n in (nq, nk, nk))
+    q8, k8, _ = A.smooth_quantize_qk(A._prescale(q), k)
+    assert A.int8_kernel_path(q8, k8, v) == "sm90"
+    assert A.int8_kernel_path(q8, k8, v.float()) == "mma"
+
+
+@pytest.mark.parametrize("case", ["head_dim_8", "unaligned_base", "heads_not_packed",
+                                  "row_stride", "v_unaligned", "v_dim_stride"])
+def test_int8_kernel_path_other_cases(case):
+    """What leaves K4's sm90 code for the mma code: s8 rows that are not a
+    16-byte multiple (3 heads of 8 dims), a base off a 16-byte boundary, heads
+    not packed in the rows, a row stride off a 16-byte multiple, and v rows
+    TMA cannot address. Other dtypes and head_dim > 160 raise."""
+    q8, k8 = (torch.zeros((1, n, 4, 40), dtype=torch.int8) for n in (100, 77))
+    v = torch.zeros((1, 77, 4, 40), dtype=torch.bfloat16)
+    assert A.int8_kernel_path(q8, k8, v) == "sm90"
+    if case == "head_dim_8":
+        q8, k8 = (torch.zeros((1, n, 3, 8), dtype=torch.int8) for n in (100, 77))
+        v = torch.zeros((1, 77, 3, 8), dtype=torch.bfloat16)
+    elif case == "unaligned_base":
+        q8 = torch.zeros(1 + 100 * 160, dtype=torch.int8)[1:].view(1, 100, 4, 40)
+        assert q8.data_ptr() % 16 == 1
+    elif case == "heads_not_packed":
+        q8 = torch.zeros((1, 100, 4, 48), dtype=torch.int8)[..., :40]
+    elif case == "row_stride":
+        k8 = torch.zeros((1, 77, 164), dtype=torch.int8)[..., :160].view(1, 77, 4, 40)
+    elif case == "v_unaligned":
+        v = torch.zeros((1, 77, 4, 41), dtype=torch.bfloat16)[..., 1:]
+    else:
+        v = torch.zeros((1, 77, 4, 80), dtype=torch.bfloat16)[..., ::2]
+    assert A.int8_kernel_path(q8, k8, v) == "mma"
+    with pytest.raises(TypeError):
+        A.int8_kernel_path(q8, k8, v.half())
+    with pytest.raises(ValueError, match="head_dim"):
+        A.int8_kernel_path(*(torch.zeros((1, 8, 1, 200), dtype=torch.int8) for _ in range(2)),
+                           torch.zeros((1, 8, 1, 200), dtype=torch.bfloat16))
+
+
+def _int8_padded(q8, k8, v):
+    """Contiguous copies of q8, k8 and v zero-padded to the mma code's widths."""
+    dp, dv = A._int8_widths(q8.shape[-1])
+    pad = torch.nn.functional.pad
+    return (pad(q8, (0, dp - q8.shape[-1])).contiguous(),
+            pad(k8, (0, dp - q8.shape[-1])).contiguous(),
+            pad(v, (0, dv - v.shape[-1])).contiguous())
+
+
+def _int8_entry(q8, k8, v, scale, path, d=None):
+    """K4 through its C entry on ``path`` with these tensors as they are
+    (head_dim ``d``, default q8's last axis; on "mma" the default passes
+    ``_int8_padded`` copies)."""
+    if d is None:
+        d = q8.shape[-1]
+        if path == "mma":
+            q8, k8, v = _int8_padded(q8, k8, v)
+    b, nq, h = q8.shape[:3]
+    out = torch.empty((b, nq, h, d), dtype=v.dtype, device=v.device)
+    err = _build.entry("iret_int8_attention")(
+        A._PATH_CODES[path], A._DTYPE_CODES[v.dtype], q8.data_ptr(), k8.data_ptr(),
+        v.data_ptr(), scale.data_ptr(), out.data_ptr(), b, h, nq, k8.shape[1], d,
+        *q8.stride()[:3], *k8.stride()[:3], *v.stride()[:3],
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, f"int8_attention ({path})")
+    return out
+
+
+@pytest.mark.parametrize("b,nq,nk,h,d", [(2, 1024, 77, 8, 80), (1, 300, 300, 2, 160),
+                                         (2, 4096, 4096, 8, 40)])
+def test_int8_attention_paths_agree(cuda, b, nq, nk, h, d):
+    """K4's two device codes through the C entry on the same inputs, each
+    within the limit of the plain version; and the entry refuses what a path
+    cannot take: fp32 v or heads not packed in the s8 rows on "sm90", rows
+    not padded to its widths on "mma" (at d 40 and 80; at 160 the unpadded
+    rows are its layout), and a path K4 does not have."""
+    q8, k8, v, s = _int8_inputs(b, nq, nk, h, d, torch.bfloat16, "cuda", cuda)
+    ref = A.int8_attention_core_reference(q8, k8, v, s)
+    for path in ("sm90", "mma"):
+        assert_within(_int8_entry(q8, k8, v, s, path), ref, "int8_attention")
+    spread = torch.nn.functional.pad(q8, (0, 16))[..., :d]
+    refused = [("sm90", (q8, k8, v.float())), ("sm90", (spread, k8, v)),
+               ("simt", (q8, k8, v))]
+    if A._int8_widths(d)[0] != d:
+        refused.append(("mma", (q8, k8, v)))
+    for path, (qq, kk, vv) in refused:
+        with pytest.raises(_build.KernelError):
+            _int8_entry(qq, kk, vv, s, path, d)
+
+
+def test_int8_attention_launches_one_kernel(cuda):
+    """On the served path a K4 call is one device launch, the kernel itself: the
+    wrapper copies and pads nothing (the profiler sees every kernel)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    q8, k8, v, s = _int8_inputs(2, 4096, 77, 8, 40, torch.bfloat16, "cuda", cuda)
+    A.int8_attention_core(q8, k8, v, s)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        A.int8_attention_core(q8, k8, v, s)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "S8QK" in kernels[0], kernels
 
 
 @pytest.mark.parametrize("layer,in_shape", [
