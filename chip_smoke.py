@@ -11,7 +11,10 @@ Phases (each prints its seconds; any failure exits non-zero):
               in fp32: the TINY_SD img2img function end to end (default
               backend, then attention_backend "flash" (K5) and "pallas_packed"
               (K6b)) and one full-width SD-1.5 UNet call at 32x32 latents,
-              exact and then int8_static (K3, K4; tables calibrated on the CPU).
+              exact and then int8_static (K3, K4; tables calibrated on the CPU);
+              then TINY_SD_INPAINT's inpaint function (DDIM, gs 5.0) and one
+              full-width 9-channel SD-1.5-inpaint UNet call at 32x32 latents,
+              at the same limits as their img2img and 4-channel twins.
   serve       initialise the full SD-1.5 stack (UNet, VAE, CLIP-L) at random from
               a seeded generator, write it in bf16 with the port's own safetensors
               writer to a temporary directory outside the checkout, and answer
@@ -56,6 +59,25 @@ Phases (each prints its seconds; any failure exits non-zero):
               image (K5 differs from K1 in its row sum; K6b runs K1's code on
               the same addresses, so inf; random weights, so no gate) and one
               profiled request.
+  serve_tasks the other three tasks on the bf16 stack (the default attention
+              backend), through RestorationPipeline: sr_x4 (its own stack loaded
+              from the serve's directory) 128->512 twice and 512->2048 (SD runs
+              at the 1024 bucket, reached through the port's LANCZOS down and
+              up: K1 at N = 16384, d = 40 and 512), colorize on a grey 512
+              twice, inpaint on a random SD-1.5-inpaint stack (the 9-channel
+              UNet, 859,535,364 parameters, written beside the serve's stack)
+              with a rectangular hole twice and with mask=None on an image
+              whose dark bands the auto mask flags, and process(denoise,
+              colorize, inpaint). Each request zeroes the counts just before
+              and reads them just after: K1 and K2 launched, the path checks
+              as in serve, and K1 exactly 32 x the task's UNet calls (17, 23,
+              18 at the defaults) + 2 VAE mid-blocks (3 for inpaint: two
+              encodes); process's count follows the tasks it ran SD for. One
+              steady request per task and the 2048 one are profiled. Then
+              sr_x4 with no SD stack and random RRDBNet weights in the JAX
+              layout under IRET_WEIGHTS_DIR: served by RRDBNet on the card
+              (equal to upscale_x4 there, not LANCZOS), and RRDBNet on a
+              32x32 crop held against the CPU (fp32, 1e-4 of max |out|).
   kernels     every kernel at every shape the serves launched it with (plus edge
               cases; K6a at K6b's shapes through its own entry, and the batch-1
               twins of K5's and K6's CFG shapes): kernel against plain version on
@@ -100,6 +122,9 @@ int8 checks, CUDA against CPU:
   against the CPU's int8 one, and planted faults (a zeroed K3 tap; K4
   dropping 8 keys), and fails if a limit would pass a planted fault.
 
+Plain attention whose fp32 scores of all heads would exceed 2 GiB
+(1x16384x16384x8x40) runs one head at a time; each head's output is its own.
+
 fp32 references run with TF32 off (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 are set False at start). The library calls are
 timed as yardsticks only and the port never calls them:
@@ -134,6 +159,9 @@ PARITY_TOL = 2e-3     # fp32 end to end, images in [-1, 1]
 UNET_REL_TOL = 1e-3   # fp32 full-width UNet eps, relative to max |eps|
 INT8_PSNR_MIN = 25.0  # TINY_SD int8_static image, CUDA against CPU (docstring)
 INT8_UNET_REL_TOL = 0.15  # SD-1.5 int8_static eps, relative Frobenius (docstring)
+SD15_INPAINT_UNET_PARAMS = 859_535_364  # SD-1.5's 859,520,964 + conv_in's 5 x 320 x 9
+PLAIN_SCORES_BYTES = 2 << 30  # above: plain attention runs one head at a time
+RRDB_REL_TOL = 1e-4   # RRDBNet fp32 output, CUDA against CPU, relative to max |out|
 ATTENTION_KERNELS = ("attention", "flash_attention", "packed_attention",
                      "packed_attention_grid")
 # Attention launches per 512x512 denoise request (strength 0.5, 20-step PLMS:
@@ -436,12 +464,63 @@ def phase_parity():
         del u8
         torch.cuda.empty_cache()
 
+        # TINY_SD_INPAINT's inpaint function (9-channel UNet input), CPU against CUDA.
+        icpu = sampling.SDModules.create(C.TINY_SD_INPAINT, torch.float32, "cpu")
+        for m in icpu.components().values():
+            init_random_(m, gen)
+        igpu = sampling.SDModules.create(C.TINY_SD_INPAINT, torch.float32, "cuda")
+        for name, m in igpu.components().items():
+            m.load_state_dict(icpu.components()[name].state_dict())
+        mask = torch.zeros((1, 64, 64, 1))
+        mask[:, 16:44, 8:40] = 1.0
+        noise3 = tuple(torch.randn((1, 8, 8, 4), generator=gen) for _ in range(3))
+        before = collections.Counter(_build.launch_counts)
+        outs = []
+        for mods in (icpu, igpu):
+            ctx = sampling.encode_text(mods, ids)
+            fn = sampling.make_inpaint_fn(mods, 10, 0.6, 5.0, "ddim")
+            outs.append(fn(image, mask, ctx[:1], ctx[1:], noise=noise3).cpu())
+        launched = {k: _build.launch_counts[k] - before[k] for k in ("attention", "group_norm")}
+        err = float((outs[0] - outs[1]).abs().max())
+        log(f"TINY_SD_INPAINT inpaint ddim gs=5.0: cuda vs cpu max abs err {err:.3e} "
+            f"(tol {PARITY_TOL}); cuda launches {launched}")
+        if not (err <= PARITY_TOL and all(v > 0 for v in launched.values())):
+            raise AssertionError(f"TINY_SD_INPAINT inpaint disagrees: {err}")
+
+        # One full-width 9-channel (SD-1.5-inpaint) UNet call at 32x32 latents.
+        unet9_gpu = sampling.SDModules.create(C.SD15_INPAINT, torch.float32, "cuda").unet
+        init_random_(unet9_gpu, gen_cuda)
+        with torch.device("meta"):
+            unet9_cpu = UNet2DCondition(C.SD15_INPAINT_UNET)
+        unet9_cpu = unet9_cpu.to_empty(device="cpu").eval()
+        unet9_cpu.load_state_dict(unet9_gpu.state_dict())
+        x9 = torch.randn((1, 32, 32, 9), generator=gen)
+        ctx9 = torch.randn((1, 77, 768), generator=gen)
+        with torch.inference_mode():
+            ref = unet9_cpu(x9, t, ctx9)
+            got = unet9_gpu(x9.cuda(), t.cuda(), ctx9.cuda()).cpu()
+        scale = float(ref.abs().max())
+        err = float((ref - got).abs().max())
+        log(f"SD15_INPAINT UNet (9 channels) 32x32 fp32: cuda vs cpu max abs err {err:.3e}, "
+            f"max |eps| {scale:.3e} (tol {UNET_REL_TOL} x max |eps|)")
+        if not (torch.isfinite(got).all() and err <= UNET_REL_TOL * scale):
+            raise AssertionError("SD15_INPAINT UNet disagrees between CUDA and CPU")
+        del unet9_gpu, unet9_cpu, igpu
+        torch.cuda.empty_cache()
+
 
 def _serve(pipe, image, requests):
-    """Answer ``requests`` with launch counts zeroed just before and read just
-    after: (seconds, outputs, launches, shapes, codes, peak bytes); ``codes``
-    counts the attention launches by device code, after checking them
-    (``_check_attention_paths``)."""
+    """Answer 512x512 denoise ``requests`` ((label, kwargs) pairs) with launch
+    counts zeroed just before and read just after (``_serve_calls``)."""
+    return _serve_calls([(label, lambda kw=kw: pipe.denoise(image, **kw), (512, 512, 3))
+                         for label, kw in requests])
+
+
+def _serve_calls(requests):
+    """Answer ``requests`` ((label, call, output shape)) with launch counts
+    zeroed just before and read just after: (seconds, outputs, launches,
+    shapes, codes, peak bytes); ``codes`` counts the attention launches by
+    device code, after checking them (``_check_attention_paths``)."""
     import numpy as np
     import torch
 
@@ -451,15 +530,15 @@ def _serve(pipe, image, requests):
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     seconds, outs = [], []
-    for label, kw in requests:
+    for label, call, shape in requests:
         t0 = time.perf_counter()
-        out = pipe.denoise(image, **kw)
+        out = call()
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         log(f"request {label}: {seconds[-1]:.3f} s")
-        if not (isinstance(out, np.ndarray) and out.dtype == np.uint8
-                and out.shape == (512, 512, 3)):
-            raise AssertionError(f"bad output {type(out)} {getattr(out, 'shape', None)}")
+        if not (isinstance(out, np.ndarray) and out.dtype == np.uint8 and out.shape == shape):
+            raise AssertionError(f"bad output {type(out)} {getattr(out, 'shape', None)}, "
+                                 f"not uint8 {shape}")
         outs.append(out)
     launches = dict(_build.launch_counts)
     shapes = dict(_build.launch_shapes)
@@ -571,7 +650,7 @@ def phase_serve(tmp):
                 raise AssertionError(f"kernel {k} did not launch on the main path")
         log("serve_json " + json.dumps(
             {"request_seconds": seconds, "peak_memory_bytes": peak, "launches": launches}))
-        _profile_request(pipe, image, seconds[2])
+        _profile_request(lambda: pipe.denoise(image), seconds[2])
     return {"request_seconds": seconds, "peak_bytes": peak, "launches": launches,
             "shapes": shapes, "codes": codes, "image": image, "out_cfg": outs[2]}
 
@@ -635,7 +714,7 @@ def phase_serve_int8(tmp, bf16):
         log("serve_int8_json " + json.dumps(
             {"request_seconds": seconds, "peak_memory_bytes": peak, "launches": launches,
              "psnr_vs_bf16_db": psnr, "static_misses": sorted(pipe.quant.misses)}))
-        _profile_request(pipe, image, seconds[1])
+        _profile_request(lambda: pipe.denoise(image), seconds[1])
         _layer_parity(pipe, image)
     return {"request_seconds": seconds, "peak_bytes": peak, "launches": launches,
             "shapes": shapes, "codes": codes}
@@ -671,11 +750,197 @@ def phase_serve_variant(tmp, bf16, backend):
         log(f"{name}_json " + json.dumps(
             {"request_seconds": seconds, "peak_memory_bytes": peak, "launches": launches,
              "psnr_vs_bf16_db": psnr if math.isfinite(psnr) else None}))
-        _profile_request(pipe, image, seconds[1], _VARIANT_LABEL[backend])
+        _profile_request(lambda: pipe.denoise(image), seconds[1], _VARIANT_LABEL[backend])
         del pipe
         torch.cuda.empty_cache()
     return {"request_seconds": seconds, "peak_bytes": peak, "launches": launches,
             "shapes": shapes, "codes": codes}
+
+
+def _unet_calls(task: str) -> int:
+    """UNet calls of one request of ``task`` at its defaults (the port's step plans)."""
+    from image_restoration_and_enhancement_torch import config as C
+    from image_restoration_and_enhancement_torch.core import schedulers as sched
+    from image_restoration_and_enhancement_torch.tasks.registry import get_task
+
+    sd = get_task(task).sampler
+    plan_fn = sched.plms_step_plan if sd.sampler == "plms" else sched.ddim_step_plan
+    return plan_fn(C.SD15_SCHEDULER, sd.num_inference_steps, sd.strength).num_calls
+
+
+def _k1_per_request(task: str) -> int:
+    """K1 launches of one request: 32 UNet sites a call, and the VAE mid-block
+    once per encode and once for the decode (inpaint encodes twice)."""
+    return 32 * _unet_calls(task) + (3 if task == "inpaint" else 2)
+
+
+def _damaged_grey(size: int, seed: int):
+    """A grey (R = G = B) image with two very dark bands, which the auto mask
+    flags (grey level <= 30)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    g = rng.integers(60, 200, (size, size), dtype=np.uint8)
+    g[size // 5: size // 5 + size // 12, size // 10: 9 * size // 10] = 5
+    g[size // 2: size // 2 + size // 8, size // 3: size // 2] = 12
+    return np.stack([g] * 3, axis=-1)
+
+
+def phase_serve_tasks(tmp, bf16):
+    """super_resolve, colorize, inpaint and process on SD-1.5 stacks in bf16
+    (the default attention backend), and super_resolve through RRDBNet."""
+    import numpy as np
+    import torch
+
+    from image_restoration_and_enhancement_torch import config as C
+    from image_restoration_and_enhancement_torch.core import checkpoint as ckpt
+    from image_restoration_and_enhancement_torch.core import sampling
+    from image_restoration_and_enhancement_torch.infer import fallbacks
+    from image_restoration_and_enhancement_torch.infer.pipeline import RestorationPipeline
+    from image_restoration_and_enhancement_torch.models import rrdbnet
+    from image_restoration_and_enhancement_torch.models.layers import init_random_
+
+    with _Phase("serve_tasks"):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        tmp_inpaint = os.path.join(tmp, "inpaint")
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        mods = sampling.SDModules.create(C.SD15_INPAINT, torch.bfloat16, "cuda")
+        for m in mods.components().values():
+            init_random_(m, gen)
+        n_unet = sum(p.numel() for p in mods.unet.parameters())
+        if n_unet != SD15_INPAINT_UNET_PARAMS:
+            raise AssertionError(f"the 9-channel UNet has {n_unet} parameters")
+        ckpt.save_pipeline(tmp_inpaint, mods.components(), C.SD15_INPAINT, dtype=torch.bfloat16)
+        del mods
+        torch.cuda.empty_cache()
+        log(f"random SD-1.5-inpaint stack (UNet {n_unet} parameters, 9 input channels) "
+            f"written in {time.perf_counter() - t0:.2f} s")
+
+        config = {t: {"fine_tuned_dir": tmp, "default_backend": "diffusion"}
+                  for t in ("denoise", "sr_x4", "colorize")}
+        config["inpaint"] = {"fine_tuned_dir": tmp_inpaint, "default_backend": "diffusion"}
+        pipe = RestorationPipeline(config=config)
+        rng = np.random.default_rng(SEED)
+        small = rng.integers(0, 256, (128, 128, 3), dtype=np.uint8)
+        photo = bf16["image"]
+        grey = np.repeat(rng.integers(40, 220, (512, 512, 1), dtype=np.uint8), 3, axis=2)
+        hole = np.zeros((512, 512), np.uint8)
+        hole[128:320, 96:400] = 255
+        damaged = _damaged_grey(512, SEED)
+        requests = [
+            ("sr_x4", "sr_x4 128->512 (includes the stack load)",
+             lambda: pipe.super_resolve(small), (512, 512, 3)),
+            ("sr_x4", "sr_x4 128->512 again (steady state)",
+             lambda: pipe.super_resolve(small), (512, 512, 3)),
+            ("sr_x4", "sr_x4 512->2048 (SD at the 1024 bucket)",
+             lambda: pipe.super_resolve(photo), (2048, 2048, 3)),
+            ("colorize", "colorize grey 512 (includes the stack load)",
+             lambda: pipe.colorize(grey), (512, 512, 3)),
+            ("colorize", "colorize grey 512 again (steady state)",
+             lambda: pipe.colorize(grey), (512, 512, 3)),
+            ("inpaint", "inpaint 512 with a rectangular hole (includes the stack load)",
+             lambda: pipe.inpaint(photo, mask=hole), (512, 512, 3)),
+            ("inpaint", "inpaint 512 with a rectangular hole again (steady state)",
+             lambda: pipe.inpaint(photo, mask=hole), (512, 512, 3)),
+            ("inpaint", "inpaint 512, mask=None (the auto mask)",
+             lambda: pipe.inpaint(damaged), (512, 512, 3)),
+        ]
+        if fallbacks.auto_mask_from_image(damaged) is None:
+            raise AssertionError("the damaged image gives no auto mask")
+        rows, shapes, codes, launches = [], collections.Counter(), collections.Counter(), \
+            collections.Counter()
+        peak = 0
+
+        def run(task, label, call, shape, k1_want):
+            """One request, counted alone; ``k1_want`` is K1's launches, or a
+            function that works them out from what the request did."""
+            nonlocal peak
+            secs, outs, n, sh, cd, pk = _serve_calls([(label, call, shape)])
+            if callable(k1_want):
+                k1_want = k1_want()
+            for k in ("attention", "group_norm"):
+                if n.get(k, 0) <= 0:
+                    raise AssertionError(f"{label}: kernel {k} did not launch")
+            if n["attention"] != k1_want:
+                raise AssertionError(f"{label}: K1 launched {n['attention']} times, not {k1_want}")
+            shapes.update(sh)
+            codes.update(cd)
+            launches.update(n)
+            peak = max(peak, pk)
+            rows.append({"task": task, "request": label, "seconds": secs[0],
+                         "peak_memory_bytes": pk, "launches": n, "k1_expected": k1_want})
+            return outs[0]
+
+        for task, label, call, shape in requests:
+            run(task, label, call, shape, _k1_per_request(task))
+        # process: denoise, then colorize (skipped when the denoised image has
+        # colour), then inpaint (skipped when the auto mask finds nothing)
+        results, ran = {}, {}
+
+        def process():
+            results.update(pipe.process(damaged, ["denoise", "colorize", "inpaint"]))
+            return results["final"]
+
+        def process_k1():
+            ran["colorize"] = not fallbacks.is_color_image(results["denoised"])
+            ran["inpaint"] = fallbacks.auto_mask_from_image(results["colorized"]) is not None
+            return _k1_per_request("denoise") + sum(
+                _k1_per_request(t) for t in ("colorize", "inpaint") if ran[t])
+
+        run("process", "process(denoise, colorize, inpaint) on a damaged grey 512",
+            process, (512, 512, 3), process_k1)
+        if set(results) != {"original", "denoised", "colorized", "inpainted", "final"}:
+            raise AssertionError(f"process returned {sorted(results)}")
+        log(f"process ran SD for denoise and for {[t for t, r in ran.items() if r]}")
+        calls = {t: _unet_calls(t) for t in ("sr_x4", "colorize", "inpaint")}
+        log(f"UNet calls per request: {calls}")
+        log("serve_tasks_json " + json.dumps({"requests": rows, "peak_memory_bytes": peak}))
+
+        profiles = {}
+        steady = {r["request"]: r["seconds"] for r in rows}
+        for task, label, call, _ in (requests[1], requests[2], requests[4], requests[6]):
+            log(f"profile: {label}")
+            profiles[label] = _profile_request(call, steady[label])
+        del pipe
+        torch.cuda.empty_cache()
+
+        # RRDBNet: no SD stack for sr_x4, random Real-ESRGAN weights in the JAX layout.
+        wdir = os.path.join(tmp, "weights")
+        model = rrdbnet.RRDBNet()
+        init_random_(model, torch.Generator().manual_seed(SEED))
+        rrdbnet.save_weights(model, os.path.join(wdir, rrdbnet.WEIGHTS_FILE))
+        env = {k: v for k, v in os.environ.items() if k != "IRET_PRETRAINED_ROOT"}
+        with mock.patch.dict(os.environ, {**env, "IRET_WEIGHTS_DIR": wdir}, clear=True):
+            pipe = RestorationPipeline(config={"sr_x4": {"fine_tuned_dir": "nonexistent"}})
+            if pipe._load_stack("sr_x4") is not None or not rrdbnet.weights_available():
+                raise AssertionError("the RRDBNet request would not reach RRDBNet")
+            t0 = time.perf_counter()
+            out = pipe.super_resolve(small)
+            torch.cuda.synchronize()
+            rrdb_s = time.perf_counter() - t0
+            want = (rrdbnet.upscale_x4(small.astype(np.float32) / 255.0, "cuda") * 255
+                    ).astype(np.uint8)
+            crop = torch.from_numpy(small[:32, :32].astype(np.float32) / 255.0)[None]
+            path = rrdbnet.weights_path()
+            with torch.inference_mode():
+                got = rrdbnet.load_weights(path, "cuda")(crop.cuda()).cpu()
+                ref = rrdbnet.load_weights(path, "cpu")(crop)
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        log(f"sr_x4 by RRDBNet 128->512 on the card: {rrdb_s:.3f} s; 32x32 crop cuda vs cpu max "
+            f"abs err {err:.3e}, max |out| {scale:.3e} (tol {RRDB_REL_TOL} x max |out|)")
+        if not (out.dtype == np.uint8 and out.shape == (512, 512, 3)
+                and np.array_equal(out, want)
+                and not np.array_equal(out, fallbacks.sr_lanczos(small, 4))):
+            raise AssertionError("super_resolve did not serve from RRDBNet")
+        if not (torch.isfinite(got).all() and err <= RRDB_REL_TOL * scale):
+            raise AssertionError("RRDBNet disagrees between CUDA and CPU")
+        del pipe, model
+        torch.cuda.empty_cache()
+    return {"requests": rows, "peak_bytes": peak, "launches": dict(launches),
+            "shapes": dict(shapes), "codes": dict(codes), "profiles": profiles,
+            "rrdb_seconds": rrdb_s}
 
 
 def _cpu_twin(mod):
@@ -798,13 +1063,13 @@ def _kernel_group(name: str, mma_label: str) -> str:
     return "other"
 
 
-def _profile_request(pipe, image, unprofiled_s: float, mma_label: str = "K1 attention") -> None:
-    """One more default request under torch.profiler: device time by kernel
-    group. Its launches are not counted: the counts were read above. The
-    profiler's own host cost lengthens this request, so the device busy share
-    is also given against ``unprofiled_s``, the same request's steady-state
-    time without the profiler. ``mma_label`` names the kernel that the UNet's
-    bf16 attention sites run (see ``_kernel_group``)."""
+def _profile_request(request, unprofiled_s: float, mma_label: str = "K1 attention"):
+    """One more request (``request()``) under torch.profiler: device time by
+    kernel group, returned and logged. Its launches are not counted: the counts
+    were read above. The profiler's own host cost lengthens this request, so
+    the device busy share is also given against ``unprofiled_s``, the same
+    request's steady-state time without the profiler. ``mma_label`` names the
+    kernel that the UNet's bf16 attention sites run (see ``_kernel_group``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -812,7 +1077,7 @@ def _profile_request(pipe, image, unprofiled_s: float, mma_label: str = "K1 atte
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pipe.denoise(image)
+        request()
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
     groups = {}
@@ -826,13 +1091,15 @@ def _profile_request(pipe, image, unprofiled_s: float, mma_label: str = "K1 atte
     device_us = sum(t for t, _ in groups.values())
     if device_us == 0:
         log("profile: the profiler saw no device time (device split not measured)")
-        return
-    log("profile_json " + json.dumps({
+        return None
+    profile_row = {
         "wall_ms": wall_us / 1e3, "device_ms": device_us / 1e3,
         "device_busy_share_profiled": device_us / wall_us,
         "device_busy_share_vs_unprofiled": device_us / 1e6 / unprofiled_s,
         "groups": {k: {"ms": t / 1e3, "launches": c} for k, (t, c) in
-                   sorted(groups.items(), key=lambda kv: -kv[1][0])}}))
+                   sorted(groups.items(), key=lambda kv: -kv[1][0])}}
+    log("profile_json " + json.dumps(profile_row))
+    return profile_row
 
 
 def _dtype(name: str):
@@ -867,6 +1134,18 @@ def _bare_call(q, k, v, path):
     return run
 
 
+def _plain(fn, per_head, q, k, v):
+    """A plain attention function of [B, N, H, D] views, on all heads at once
+    or one head at a time (``per_head``: the fp32 scores of all heads would
+    take more than PLAIN_SCORES_BYTES; each head's output is its own)."""
+    import torch
+
+    if not per_head:
+        return fn(q, k, v)
+    return torch.cat([fn(*(t[:, :, i:i + 1] for t in (q, k, v))) for i in range(q.shape[2])],
+                     dim=2)
+
+
 def _attention_case(kernel):
     """K1, K5, K6a or K6b on random q, k, v of one shape: (kernel, plain
     version, SDPA, operations seconds, bytes, attention_reference for the
@@ -886,7 +1165,8 @@ def _attention_case(kernel):
         nbytes = (2 * b * nq * h * d + 2 * b * nk * h * d) * q.element_size()
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
-        wrong = lambda: A.attention_reference(q, k, v)  # noqa: E731
+        per_head = b * h * nq * nk * 4 > PLAIN_SCORES_BYTES
+        wrong = lambda: _plain(A.attention_reference, per_head, q, k, v)  # noqa: E731
         if kernel in ("attention", "flash_attention"):
             run, plain = {"attention": (A.pallas_attention, A.pallas_attention_reference),
                           "flash_attention": (A.flash_attention,
@@ -894,7 +1174,8 @@ def _attention_case(kernel):
             bare = {p: _bare_call(q, k, v, p) for p in ("sm90", "mma")} \
                 if kernel == "attention" and dtype == "torch.bfloat16" \
                 and d <= A.SM90_MAX_HEAD_DIM else None
-            return (lambda: run(q, k, v), lambda: plain(q, k, v), lib, ops_s, nbytes, wrong, bare)
+            return (lambda: run(q, k, v), lambda: _plain(plain, per_head, q, k, v), lib, ops_s,
+                    nbytes, wrong, bare)
         qp, kp, vp = (t.flatten(2) for t in (q, k, v))
         run = A.pallas_attention_packed if kernel == "packed_attention" \
             else A.pallas_attention_packed_grid
@@ -1287,6 +1568,7 @@ def main() -> int:
         results["serve_int8"] = phase_serve_int8(tmp, results["serve"])
         results["serve_flash"] = phase_serve_variant(tmp, results["serve"], "flash")
         results["serve_packed"] = phase_serve_variant(tmp, results["serve"], "pallas_packed")
+        results["serve_tasks"] = phase_serve_tasks(tmp, results["serve"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     paths = {name: r["shapes"] for name, r in results.items()}

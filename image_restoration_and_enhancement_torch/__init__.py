@@ -5,9 +5,10 @@ written for one NVIDIA H100. It keeps the reference's module layout and names
 (``config``, ``ops``, ``models``, ``core``, ``tasks``, ``infer``) so each
 counterpart is easy to find, and it never imports JAX or the JAX package.
 
-Ported so far: the denoise task's img2img serve — ``RestorationPipeline.denoise``
-over the SD-1.5 UNet, VAE and CLIP text encoder, the PLMS/DDIM schedulers and the
-CFG sampling loop. Attention and GroupNorm(+SiLU) run on hand-written CUDA
+Ported so far: the four tasks of ``RestorationPipeline`` (denoise, super-resolution,
+colorize, inpaint) over the SD-1.5 UNet (4- and 9-channel), VAE and CLIP text
+encoder, the PLMS/DDIM schedulers, the CFG img2img and inpaint loops, RRDBNet, and
+checkpoints in the JAX pipeline layout or diffusers directories. Attention and GroupNorm(+SiLU) run on hand-written CUDA
 kernels (``csrc/``, built with nvcc and bound with ctypes by ``ops/_build.py``);
 on CPU tensors the same functions use their plain PyTorch versions.
 

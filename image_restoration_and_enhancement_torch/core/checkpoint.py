@@ -1,6 +1,7 @@
 """Checkpoint I/O for the port: its own safetensors reader and writer, the JAX
-pipeline directory layout, and the weight bridge between flax paths and the
-port's (diffusers) parameter names.
+pipeline directory layout, the weight bridge between flax paths and the
+port's (diffusers) parameter names, and the import of a diffusers pipeline
+directory.
 
 Pipeline directory (as the JAX package's ``core/checkpoint.py`` writes it)::
 
@@ -12,9 +13,15 @@ Conv kernels are HWIO and Dense kernels [in, out] there; ``params_from_flax``
 renames and transposes them to the port's state dict (OIHW convs, [out, in]
 Linear weights), and ``flax_from_params`` is its inverse.
 
+A diffusers directory (``unet/`` and ``vae/diffusion_pytorch_model.safetensors``,
+``text_encoder/model.safetensors`` from transformers) already uses the port's
+names, apart from transformers' CLIP prefixes; ``import_hf_pipeline`` reads it
+with the reader below (the counterpart of the JAX package's
+``load_torch_safetensors``).
+
 The safetensors format is an 8-byte little-endian header length, a JSON header
 of {name: {dtype, shape, data_offsets}}, then the raw bytes. The reader and
-writer below handle F32, F16 and BF16 with ``torch.frombuffer``, so neither the
+writer below handle F32, F16, BF16 (and I64) with ``torch.frombuffer``, so neither the
 safetensors package nor numpy's missing bfloat16 is needed. Saves make every
 tensor contiguous and read the file back to verify it, as the JAX package's
 ``save_params`` does.
@@ -36,7 +43,8 @@ logger = logging.getLogger(__name__)
 
 TensorLike = Union[torch.Tensor, np.ndarray]
 
-_ST_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16}
+_ST_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+              "I64": torch.int64}  # I64: transformers' position_ids buffer
 _ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
 COMPONENTS = ("unet", "vae", "text_encoder")
 
@@ -246,6 +254,62 @@ def load_pipeline_model_config(directory: str):
     except (OSError, ValueError, TypeError, KeyError):
         logger.exception("Unparseable model config in %s", path)
         return None
+
+
+# ---------------------------------------------------------------------------
+# diffusers pipeline directories
+# ---------------------------------------------------------------------------
+
+_HF_FILES = {"unet": os.path.join("unet", "diffusion_pytorch_model.safetensors"),
+             "vae": os.path.join("vae", "diffusion_pytorch_model.safetensors"),
+             "text_encoder": os.path.join("text_encoder", "model.safetensors")}
+_CLIP_PREFIXES = ("text_model.embeddings.", "text_model.encoder.", "text_model.")
+
+
+def port_name(torch_key: str) -> Optional[str]:
+    """A diffusers or transformers parameter name -> the port's, or None for
+    ``position_ids`` (a buffer the port does not keep: its positions are
+    0..76). transformers' CLIP prefixes and ``mlp.`` go, as in the JAX
+    package's ``translate_torch_key``; every other name is the port's own."""
+    if torch_key.endswith("position_ids"):
+        return None
+    for prefix in _CLIP_PREFIXES:
+        torch_key = torch_key.replace(prefix, "")
+    return torch_key.replace(".mlp.", ".")
+
+
+def import_hf_pipeline(directory: str) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The port's state dict of each component found in a diffusers pipeline
+    directory (the JAX package's ``import_hf_pipeline`` without the flax
+    layout: the names and OIHW/[out, in] layouts are the port's already)."""
+    out = {}
+    for comp, rel in _HF_FILES.items():
+        path = os.path.join(directory, rel)
+        if os.path.exists(path):
+            state = {}
+            for key, t in load_safetensors(path).items():
+                name = port_name(key)
+                if name is not None:
+                    state[name] = t
+            out[comp] = state
+    if not out:
+        raise FileNotFoundError(f"No torch safetensors found under {directory}")
+    return out
+
+
+def is_pipeline_layout(directory: str) -> bool:
+    """Whether ``directory`` holds the JAX pipeline layout's UNet or VAE file
+    (a diffusers directory's text encoder file has the same name)."""
+    return any(os.path.exists(os.path.join(directory, c, "model.safetensors"))
+               for c in ("unet", "vae"))
+
+
+def load_state_dicts(directory: str) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The port's state dict of each component: from the pipeline layout where
+    it is present, else imported from a diffusers directory."""
+    if is_pipeline_layout(directory):
+        return {c: params_from_flax(p) for c, p in load_pipeline(directory).items()}
+    return import_hf_pipeline(directory)
 
 
 def pipeline_exists(directory: str) -> bool:

@@ -1,14 +1,15 @@
-"""Stable-Diffusion img2img sampling in PyTorch.
+"""Stable-Diffusion img2img and inpaint sampling in PyTorch.
 
 Counterpart of the JAX package's ``core/sampling.py`` for the exact img2img
 path: CLIP encode -> VAE encode (posterior sample) -> ``add_noise`` at the
 timestep the strength truncates to -> a PLMS or DDIM loop with classifier-free
 guidance as one batched UNet call over [uncond; cond] ("halves" layout),
-skipped when guidance_scale <= 1 -> VAE decode.
+skipped when guidance_scale <= 1 -> VAE decode. The inpaint function runs the
+same loop on the 9-channel UNet input [latents, mask, masked-image latents].
 
 PyTorch runs the loop eagerly, one UNet call per step. JAX draws the posterior
 and add_noise noise inside the function from ``jax.random.split(key)``; here
-the caller passes a ``torch.Generator`` or, for parity tests, both noise
+the caller passes a ``torch.Generator`` or, for parity tests, the noise
 tensors. Images and latents are NHWC, as in the JAX package.
 
 Int8 serving: ``SDModules.set_quant`` hands a ``QuantState`` (``ops/quant.py``)
@@ -17,7 +18,7 @@ img2img function under dynamic int8 and returns the per-site activation absmax
 that mode ``"int8_static"`` loads as its table.
 
 Not ported yet: the CFG cache (``cfg_cache_interval``), the CFG prefix dedup,
-the interleaved CFG layout, SDXL conditioning and the inpaint loop.
+the interleaved CFG layout and SDXL conditioning.
 """
 from __future__ import annotations
 
@@ -25,6 +26,8 @@ import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+
+import torch.nn.functional as F
 
 from ..config import SDModelConfig
 from ..device import DeviceLike, resolve_device
@@ -101,8 +104,11 @@ def decode_latents(modules: SDModules, latents: torch.Tensor) -> torch.Tensor:
 
 def _denoise_loop(modules: SDModules, latents: torch.Tensor, context: torch.Tensor,
                   uncond_context: Optional[torch.Tensor], plan: sched.StepPlan,
-                  guidance_scale: float, sampler: str) -> torch.Tensor:
-    """The sampling loop: one (CFG-batched) UNet call per plan row."""
+                  guidance_scale: float, sampler: str,
+                  extra_channels: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The sampling loop: one (CFG-batched) UNet call per plan row.
+    ``extra_channels`` (the inpaint mask and masked-image latents) ride along
+    un-noised, concatenated to the latents before the CFG duplication."""
     cfg = modules.config.scheduler
     ac = sched.alphas_cumprod_tensor(cfg, latents.device)
     fa = sched.final_alpha_cumprod(cfg)
@@ -117,7 +123,9 @@ def _denoise_loop(modules: SDModules, latents: torch.Tensor, context: torch.Tens
         ctx_all = context
 
     def unet_eps(lat: torch.Tensor, t: int) -> torch.Tensor:
-        model_in = torch.cat([lat, lat], dim=0) if do_cfg else lat
+        model_in = lat if extra_channels is None else torch.cat([lat, extra_channels], dim=-1)
+        if do_cfg:
+            model_in = torch.cat([model_in, model_in], dim=0)
         ts = torch.full((model_in.shape[0],), int(t), dtype=torch.int32, device=lat.device)
         eps = modules.unet(model_in, ts, ctx_all)
         if do_cfg:
@@ -149,14 +157,16 @@ def latent_shape(modules: SDModules, image_shape) -> Tuple[int, int, int, int]:
 
 
 def _noise(modules: SDModules, image: torch.Tensor, generator: Optional[torch.Generator],
-           noise: Optional[Tuple[torch.Tensor, torch.Tensor]]):
-    """(posterior noise, add_noise noise): the given pair on the modules' device,
-    or both drawn (fp32, standard normal, posterior first) from ``generator``."""
+           noise: Optional[Tuple[torch.Tensor, ...]], count: int = 2):
+    """``count`` latent-shaped noise tensors: the given ones on the modules'
+    device, or all drawn (fp32, standard normal, in order) from ``generator``."""
     dev = modules.device
     if noise is None:
         shape = latent_shape(modules, image.shape)
         noise = tuple(torch.randn(shape, generator=generator, device=dev,
-                                  dtype=torch.float32) for _ in range(2))
+                                  dtype=torch.float32) for _ in range(count))
+    if len(noise) != count:
+        raise ValueError(f"expected {count} noise tensors, got {len(noise)}")
     return tuple(n.to(dev, torch.float32) for n in noise)
 
 
@@ -186,6 +196,47 @@ def make_img2img_fn(modules: SDModules, num_inference_steps: int, strength: floa
         latents = _denoise_loop(modules, latents, prompt_ctx.to(dev),
                                 None if uncond_ctx is None else uncond_ctx.to(dev),
                                 plan, guidance_scale, sampler)
+        return decode_latents(modules, latents)
+
+    return fn
+
+
+def make_inpaint_fn(modules: SDModules, num_inference_steps: int, strength: float,
+                    guidance_scale: float, sampler: str = "ddim") -> Callable:
+    """Build fn(image, mask, prompt_ctx, uncond_ctx, generator=None, noise=None) -> image.
+
+    The diffusers 9-channel layout at every step: [latents (4), mask (1),
+    masked-image latents (4)]. ``image`` is NHWC in [-1, 1]; ``mask`` NHWC
+    [B, H, W, 1] in {0, 1}, 1 = the hole to fill. ``noise`` = (image posterior
+    noise, masked-image posterior noise, add_noise noise), each shaped like
+    the latents; without it all three are drawn in that order from
+    ``generator``. Returns the decoded image, NHWC fp32 in [-1, 1].
+    """
+    cfg = modules.config.scheduler
+    plan_fn = sched.plms_step_plan if sampler == "plms" else sched.ddim_step_plan
+    plan = plan_fn(cfg, num_inference_steps, strength)
+
+    @torch.inference_mode()
+    def fn(image: torch.Tensor, mask: torch.Tensor, prompt_ctx: torch.Tensor,
+           uncond_ctx: Optional[torch.Tensor], generator: Optional[torch.Generator] = None,
+           noise: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
+           ) -> torch.Tensor:
+        dev = modules.device
+        image = image.to(dev, torch.float32)
+        mask = mask.to(dev, torch.float32)
+        enc_noise, mask_enc_noise, step_noise = _noise(modules, image, generator, noise, 3)
+        latents0 = encode_image(modules, image, enc_noise)
+        masked_latents = encode_image(modules, image * (1.0 - mask), mask_enc_noise)
+        # jax.image.resize(..., "nearest") samples at the cells' centres:
+        # "nearest-exact", not "nearest" (the top-left pixel of each cell).
+        mask_lat = F.interpolate(mask.permute(0, 3, 1, 2), size=latents0.shape[1:3],
+                                 mode="nearest-exact").permute(0, 2, 3, 1)
+        ac = sched.alphas_cumprod_tensor(cfg, dev)
+        latents = sched.add_noise(ac, latents0, step_noise, plan.init_timestep)
+        latents = _denoise_loop(modules, latents, prompt_ctx.to(dev),
+                                None if uncond_ctx is None else uncond_ctx.to(dev),
+                                plan, guidance_scale, sampler,
+                                extra_channels=torch.cat([mask_lat, masked_latents], dim=-1))
         return decode_latents(modules, latents)
 
     return fn

@@ -1,17 +1,21 @@
-"""Classical-CV fallback chain + mask utilities (the port's copy; host-side cv2/numpy).
+"""Classical-CV fallback chain + mask utilities (the port's copy).
 
 A copy of the JAX package's ``infer/fallbacks.py``: every task degrades
 gracefully from diffusion to a classical method (denoise -> NlMeans +
 bilateral/median, sr -> LANCZOS, colorize -> a LAB tint, inpaint -> the
-original), plus mask normalisation and the auto-mask. cv2 is imported inside
-each function that needs it, so importing this module needs only numpy.
-Images are uint8 RGB numpy arrays (HWC).
+original), plus mask normalisation and the auto-mask. The functions the
+card's serves reach (``sr_lanczos``, ``gray_to_rgb``, ``normalize_mask``,
+``auto_mask_from_image``) compute cv2's results in numpy (``imaging.py``);
+only the classical fallbacks ``denoise_opencv`` and ``colorize_lab`` import
+cv2, inside the function. Images are uint8 RGB numpy arrays (HWC).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import numpy as np
+
+from . import imaging
 
 
 def denoise_opencv(img: np.ndarray, strength: float = 0.5) -> np.ndarray:
@@ -31,10 +35,8 @@ def denoise_opencv(img: np.ndarray, strength: float = 0.5) -> np.ndarray:
 
 
 def sr_lanczos(img: np.ndarray, scale: int = 4) -> np.ndarray:
-    import cv2
-
     h, w = img.shape[:2]
-    return cv2.resize(img, (w * scale, h * scale), interpolation=cv2.INTER_LANCZOS4)
+    return imaging.resize_lanczos4_cv2(img, (h * scale, w * scale))
 
 
 def colorize_lab(img: np.ndarray) -> np.ndarray:
@@ -64,23 +66,18 @@ def is_color_image(img: np.ndarray, threshold: float = 10.0) -> bool:
 
 def gray_to_rgb(img: np.ndarray) -> np.ndarray:
     """Expand gray(-ish) input to clean 3-channel RGB via the first channel."""
-    import cv2
-
-    if img.ndim == 2:
-        return cv2.cvtColor(img, cv2.COLOR_GRAY2RGB)
-    return cv2.cvtColor(img[:, :, 0], cv2.COLOR_GRAY2RGB)
+    gray = img if img.ndim == 2 else img[:, :, 0]
+    return np.repeat(gray[:, :, None], 3, axis=2)
 
 
 def normalize_mask(mask: np.ndarray, target_hw: Tuple[int, int]) -> np.ndarray:
     """Resize to target and fix polarity: white (255) = inpaint region.
     Auto-inverts when <10% of pixels are white."""
-    import cv2
-
     if mask.ndim == 3:
-        mask = cv2.cvtColor(mask, cv2.COLOR_RGB2GRAY)
+        mask = imaging.rgb_to_gray_cv2(mask)
     th, tw = target_hw
     if mask.shape[:2] != (th, tw):
-        mask = cv2.resize(mask, (tw, th), interpolation=cv2.INTER_LANCZOS4)
+        mask = imaging.resize_lanczos4_cv2(mask, (th, tw))
     white_ratio = np.sum(mask > 128) / mask.size
     if white_ratio < 0.1:
         mask = 255 - mask
@@ -90,15 +87,9 @@ def normalize_mask(mask: np.ndarray, target_hw: Tuple[int, int]) -> np.ndarray:
 def auto_mask_from_image(img: np.ndarray) -> Optional[np.ndarray]:
     """Threshold very dark/bright regions + morphology clean-up; None when
     less than 1% of the image is flagged."""
-    import cv2
-
-    gray = cv2.cvtColor(img, cv2.COLOR_RGB2GRAY)
-    _, mask_dark = cv2.threshold(gray, 30, 255, cv2.THRESH_BINARY_INV)
-    _, mask_bright = cv2.threshold(gray, 225, 255, cv2.THRESH_BINARY)
-    mask = cv2.bitwise_or(mask_dark, mask_bright)
-    kernel = np.ones((5, 5), np.uint8)
-    mask = cv2.morphologyEx(mask, cv2.MORPH_CLOSE, kernel)
-    mask = cv2.morphologyEx(mask, cv2.MORPH_OPEN, kernel)
+    gray = imaging.rgb_to_gray_cv2(img)
+    mask = imaging.threshold(gray, 30, inverse=True) | imaging.threshold(gray, 225)
+    mask = imaging.morph_open(imaging.morph_close(mask))
     if np.sum(mask > 0) / mask.size < 0.01:
         return None
     return mask

@@ -1,20 +1,27 @@
-"""RestorationPipeline — the denoise task's img2img serve, in PyTorch.
+"""RestorationPipeline — the four restoration tasks over the SD-1.5 stack, in PyTorch.
 
-Counterpart of the JAX package's ``infer/pipeline.py`` for the path this port
-covers: ``process(image, ["denoise"])`` and ``denoise``, with the same
-checkpoint discovery under ``outputs/models/{task}/best`` (or a pipeline
-directory given as ``fine_tuned_dir``), the same 64-px bucketing of the input
-size, prompt-context caching and the fixed seed.
+Counterpart of the JAX package's ``infer/pipeline.py``: ``process(image,
+tasks)`` and the per-task methods ``denoise``, ``super_resolve`` (LANCZOS x4
+pre-upscale, then img2img; without an SD stack RRDBNet, then LANCZOS),
+``colorize`` (skips a colour image) and ``inpaint`` (the 9-channel stack;
+the auto mask when none is given), with the same checkpoint discovery under
+``outputs/models/{task}/best`` (or a pipeline directory given as
+``fine_tuned_dir``), the same pretrained search (``pretrained_dir``, then
+``$IRET_PRETRAINED_ROOT/<pretrained_id>``; the JAX pipeline layout or a
+diffusers directory, imported), the same 64-px bucketing of the input size,
+prompt-context caching and the fixed seed.
 
 Differences from the JAX pipeline:
 - a failed SD run is logged ("SD denoise failed; OpenCV fallback") and served
-  by the classical fallback only on a CPU pipeline. On the card every failure
+  by the next backend only on a CPU pipeline. On the card every failure
   raises: a kernel that did not build or launch (``KernelError``), a device
-  error, running out of memory. The work never moves to the CPU unseen.
+  error, running out of memory. The work never moves to the CPU unseen. A
+  checkpoint directory that cannot be loaded raises on either device.
 - images come back as numpy uint8 HWC arrays, not ``PIL.Image``; a PIL image is
-  still accepted as input. PIL is imported only when an input is a PIL image
-  or the size is off the 64-px buckets (LANCZOS resizing); cv2 only when a
-  fallback runs.
+  still accepted as input. The resizes, greyscale and mask morphology are
+  the port's own numpy versions of PIL's and cv2's (``imaging.py``), so the
+  card's machine needs neither; cv2 is imported only by the classical
+  denoise and colorize fallbacks.
 - ``device`` replaces the JAX device: ``cuda`` unless ``"cpu"`` is asked for.
 - quantized serving (``quant="int8"`` or ``"int8_static"`` with
   ``quant_calib``, ``attention_backend="int8"``) keeps its mode and table in
@@ -22,9 +29,7 @@ Differences from the JAX pipeline:
   process-global read at trace time; ``quant=None`` reads ``IRET_QUANT`` once,
   here. Under ``IRET_QUANT_STRICT`` a request that reached a site missing
   from the table raises ``StrictQuantError`` (never served by a fallback).
-- the super-resolution, colorize and inpaint tasks, ToMe, the CFG cache and
-  mesh serving, and the attention backends ``"flash"`` and
-  ``"pallas_packed"``, are not ported yet (see ROADMAP.md).
+- ToMe, the CFG cache and mesh serving are not ported yet (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -41,12 +46,13 @@ from .. import config as C
 from ..core import checkpoint as ckpt
 from ..core import sampling
 from ..device import DeviceLike, resolve_device
+from ..models import rrdbnet
 from ..models.tokenizer import load_tokenizer
 from ..ops import quant as quant_ops
 from ..ops._build import KernelError
 from ..ops.attention import check_backend
 from ..tasks.registry import ALIASES, TASKS, get_task
-from . import fallbacks
+from . import fallbacks, imaging
 
 logger = logging.getLogger(__name__)
 
@@ -82,12 +88,6 @@ def _to_uint8(image) -> np.ndarray:
     return img
 
 
-def _resize_lanczos(img_u8: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
-    from PIL import Image
-
-    return np.asarray(Image.fromarray(img_u8).resize((hw[1], hw[0]), Image.LANCZOS))
-
-
 def _bucket_hw(h: int, w: int, multiple: int = 64, max_size: int = 1024) -> Tuple[int, int]:
     """Round spatial dims to 64-px buckets, preserving aspect, capped at max_size."""
     scale = min(1.0, max_size / max(h, w))
@@ -96,12 +96,8 @@ def _bucket_hw(h: int, w: int, multiple: int = 64, max_size: int = 1024) -> Tupl
     return min(h2, max_size), min(w2, max_size)
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP.md {item})")
-
-
 class RestorationPipeline:
-    """Multi-task restoration over the PyTorch SD stack (denoise ported so far)."""
+    """Multi-task restoration over the PyTorch SD stack."""
 
     def __init__(
         self,
@@ -154,7 +150,10 @@ class RestorationPipeline:
     # ------------------------------------------------------------------
 
     def _find_weights(self, task_name: str) -> Optional[str]:
-        """The pipeline directory to load for a task, or None."""
+        """The directory to load for a task, or None: the fine-tuned
+        checkpoint, else the first pretrained candidate that holds a pipeline
+        (``pretrained_dir``, then ``$IRET_PRETRAINED_ROOT/<pretrained_id>``
+        and ``<pretrained_id with / as -->``)."""
         cfg = self.config[task_name]
         ft_dir = cfg["fine_tuned_dir"]
         if ft_dir and ft_dir != "nonexistent":
@@ -166,8 +165,8 @@ class RestorationPipeline:
                 found = ckpt.find_latest_checkpoint(ft_dir)
             if found:
                 return found
-        # Pretrained mode: a local directory in the pipeline layout, named by
-        # "pretrained_dir" or found under $IRET_PRETRAINED_ROOT/<pretrained_id>.
+        # Pretrained mode: a local directory in the pipeline layout or a
+        # diffusers directory (model_index.json marks both).
         candidates = [cfg["pretrained_dir"]] if cfg.get("pretrained_dir") else []
         root, pid = os.environ.get("IRET_PRETRAINED_ROOT"), cfg.get("pretrained_id")
         if root and pid:
@@ -175,9 +174,6 @@ class RestorationPipeline:
         for cand in candidates:
             if ckpt.pipeline_exists(cand):
                 return cand
-            if os.path.isdir(cand):
-                logger.warning("%s is not in the pipeline layout; importing diffusers "
-                               "directories is not ported yet", cand)
         return None
 
     def _load_stack(self, task_name: str) -> Optional[Dict[str, Any]]:
@@ -201,7 +197,10 @@ class RestorationPipeline:
                 f"fine_tuned_dir={cfg['fine_tuned_dir']!r}, pretrained_dir="
                 f"{cfg.get('pretrained_dir')!r}, pretrained_id={cfg.get('pretrained_id')!r}"
             )
-        logger.info("Loading %s stack from %s", task_name, src_dir)
+        layout = "pipeline" if ckpt.is_pipeline_layout(src_dir) else "diffusers"
+        logger.info("Loading %s stack from %s (%s layout)", task_name, src_dir, layout)
+        # An explicit model config wins, else the checkpoint's own
+        # (model_index.json; a diffusers directory has none), else the task's.
         mc = cfg.get("model_config")
         if isinstance(mc, str):
             mc = C.PRESETS[mc]
@@ -212,11 +211,11 @@ class RestorationPipeline:
         modules = sampling.SDModules.create(spec.model_config, dtype=self.dtype,
                                             device=self.device,
                                             attention_backend=self.attention_backend)
-        params = ckpt.load_pipeline(src_dir)
+        states = ckpt.load_state_dicts(src_dir)
         for comp, module in modules.components().items():
-            if comp not in params:
+            if comp not in states:
                 raise FileNotFoundError(f"{src_dir} has no {comp} weights")
-            module.load_state_dict(ckpt.params_from_flax(params.pop(comp)), strict=True)
+            module.load_state_dict(states.pop(comp), strict=True)
         if self.quant.active:
             modules.set_quant(self.quant)
         tokenizer = load_tokenizer(src_dir, vocab_size=spec.model_config.text_encoder.vocab_size)
@@ -233,12 +232,14 @@ class RestorationPipeline:
                 self._ctx_cache[key] = sampling.encode_text(stack["modules"], ids)
         return self._ctx_cache[key]
 
-    def _sampler_fn(self, stack, steps: int, strength: float, gs: float, sampler: str):
-        key = (stack["spec"].name, steps, round(strength, 4), round(gs, 4), sampler)
+    def _sampler_fn(self, stack, kind: str, steps: int, strength: float, gs: float,
+                    sampler: str):
+        """The sampling function of ``kind`` ("img2img" or "inpaint"), cached."""
+        key = (stack["spec"].name, kind, steps, round(strength, 4), round(gs, 4), sampler)
         if key not in self._fn_cache:
-            self._fn_cache[key] = sampling.make_img2img_fn(
-                stack["modules"], num_inference_steps=steps, strength=strength,
-                guidance_scale=gs, sampler=sampler)
+            maker = sampling.make_inpaint_fn if kind == "inpaint" else sampling.make_img2img_fn
+            self._fn_cache[key] = maker(stack["modules"], num_inference_steps=steps,
+                                        strength=strength, guidance_scale=gs, sampler=sampler)
         return self._fn_cache[key]
 
     # ------------------------------------------------------------------
@@ -246,22 +247,29 @@ class RestorationPipeline:
     # ------------------------------------------------------------------
 
     def _run_sd(self, stack, img_u8: np.ndarray, prompt: str, steps: int,
-                strength: float, gs: float, sampler: str) -> np.ndarray:
+                strength: float, gs: float, sampler: str,
+                mask_u8: Optional[np.ndarray] = None) -> np.ndarray:
+        """One img2img run, or inpaint when ``mask_u8`` (white = the hole) is
+        given, at the 64-px bucket of the image's size."""
         h, w = img_u8.shape[:2]
         bh, bw = _bucket_hw(h, w, max_size=self.max_size)
-        if (bh, bw) != (h, w):
-            img_u8 = _resize_lanczos(img_u8, (bh, bw))
+        img_u8 = imaging.resize_lanczos_pil(img_u8, (bh, bw))
         x = torch.from_numpy(img_u8.astype(np.float32) / 127.5 - 1.0)[None]
         ctx = self._context(stack, prompt)
         uncond = self._context(stack, "") if gs > 1.0 else None
-        fn = self._sampler_fn(stack, steps, strength, gs, sampler)
+        fn = self._sampler_fn(stack, "inpaint" if mask_u8 is not None else "img2img",
+                              steps, strength, gs, sampler)
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
-        out = fn(x, ctx, uncond, generator=gen)[0].cpu().numpy()
+        if mask_u8 is not None:
+            m = imaging.resize_nearest_pil(mask_u8, (bh, bw)) > 127
+            m = torch.from_numpy(m.astype(np.float32))[None, :, :, None]
+            out = fn(x, m, ctx, uncond, generator=gen)
+        else:
+            out = fn(x, ctx, uncond, generator=gen)
+        out = out[0].cpu().numpy()
         self._check_static_misses()
         out_u8 = ((out + 1.0) * 127.5).clip(0, 255).astype(np.uint8)
-        if (bh, bw) != (h, w):
-            out_u8 = _resize_lanczos(out_u8, (h, w))
-        return out_u8
+        return imaging.resize_lanczos_pil(out_u8, (h, w))
 
     def _check_static_misses(self) -> None:
         """Calibration/serving drift detector: under int8_static a quantized site
@@ -311,30 +319,92 @@ class RestorationPipeline:
                 logger.exception("SD denoise failed; OpenCV fallback")
         return fallbacks.denoise_opencv(img, strength)
 
-    def super_resolve(self, image, scale: int = 4, prompt: Optional[str] = None, **kwargs):
-        _not_ported("super_resolve", "M10")
+    def _run_task(self, stack, task: str, img: np.ndarray, prompt: Optional[str],
+                  mask_u8: Optional[np.ndarray] = None) -> np.ndarray:
+        """``_run_sd`` with the task's prompt and sampler defaults."""
+        sd = stack["spec"].sampler
+        return self._run_sd(stack, img, prompt or self.prompts[task], sd.num_inference_steps,
+                            sd.strength, sd.guidance_scale, sd.sampler, mask_u8=mask_u8)
 
-    def colorize(self, image, prompt: Optional[str] = None, **kwargs):
-        _not_ported("colorize", "M10")
+    def super_resolve(self, image, scale: int = 4, prompt: Optional[str] = None,
+                      **kwargs) -> np.ndarray:
+        """LANCZOS x``scale`` first (the way the SR model is trained), then
+        img2img. Without an SD stack: RRDBNet at ``scale == 4`` when its
+        weights exist, else LANCZOS."""
+        img = _to_uint8(image)
+        stack = self._load_stack("sr_x4")
+        if stack is not None:
+            try:
+                up = fallbacks.sr_lanczos(img, scale) if scale > 1 else img
+                return self._run_task(stack, "sr_x4", up, prompt)
+            except Exception as e:
+                if not self._fallback_allowed(e):
+                    raise
+                logger.exception("SD super-resolution failed; next backend")
+        if scale == 4 and rrdbnet.weights_available():
+            try:
+                out01 = rrdbnet.upscale_x4(img.astype(np.float32) / 255.0, self.device)
+                return (out01 * 255).astype(np.uint8)
+            except Exception as e:
+                if not self._fallback_allowed(e):
+                    raise
+                logger.exception("RRDBNet upscaling failed; LANCZOS fallback")
+        return fallbacks.sr_lanczos(img, scale)
 
-    def inpaint(self, image, mask=None, prompt: Optional[str] = None, **kwargs):
-        _not_ported("inpaint", "M10")
+    def colorize(self, image, prompt: Optional[str] = None, **kwargs) -> np.ndarray:
+        img = _to_uint8(image)
+        if fallbacks.is_color_image(img):
+            logger.info("Image already has color; skipping colorization")
+            return img
+        img = fallbacks.gray_to_rgb(img)
+        stack = self._load_stack("colorize")
+        if stack is not None:
+            try:
+                return self._run_task(stack, "colorize", img, prompt)
+            except Exception as e:
+                if not self._fallback_allowed(e):
+                    raise
+                logger.exception("SD colorize failed; LAB fallback")
+        return fallbacks.colorize_lab(img)
+
+    def inpaint(self, image, mask=None, prompt: Optional[str] = None,
+                **kwargs) -> np.ndarray:
+        """``mask``: white (255) = the hole, HW or HWC (first channel), resized
+        to the image and inverted when under 10% of it is white. With no mask,
+        the very dark and very bright regions; none -> the image unchanged."""
+        img = _to_uint8(image)
+        if mask is None:
+            mask_np = fallbacks.auto_mask_from_image(img)
+            if mask_np is None:
+                logger.info("No damage detected; skipping inpainting")
+                return img
+        else:
+            mask_np = _to_uint8(mask)[..., 0] if np.asarray(mask).ndim == 3 else np.asarray(mask)
+        mask_np = fallbacks.normalize_mask(np.asarray(mask_np), img.shape[:2])
+        stack = self._load_stack("inpaint")
+        if stack is not None:
+            try:
+                return self._run_task(stack, "inpaint", img, prompt, mask_u8=mask_np)
+            except Exception as e:
+                if not self._fallback_allowed(e):
+                    raise
+                logger.exception("SD inpaint failed; returning original")
+        return img  # no classical inpaint fallback (as in the JAX pipeline)
 
     # ------------------------------------------------------------------
     # multi-task sequencing
     # ------------------------------------------------------------------
 
     def process(self, image, tasks: List[str], **kwargs) -> Dict[str, np.ndarray]:
-        """Apply ``tasks`` in order to the running image. On a CPU pipeline a
-        task that fails is logged and skipped; on the card it raises, and so
-        does a task that is not ported yet."""
+        """Apply ``tasks`` in order to the running image; the result holds
+        ``original``, ``final`` and ``denoised``, ``super_resolved``,
+        ``colorized`` or ``inpainted`` for each task run. On a CPU pipeline a
+        task that fails is logged and skipped; on the card it raises."""
         original = _to_uint8(image)
         results: Dict[str, np.ndarray] = {"original": original, "final": original}
         current = original
         for task in tasks:
             canon = ALIASES.get(task, task)
-            if canon in ("sr_x4", "colorize", "inpaint"):
-                _not_ported(canon, "M10")
             try:
                 if canon == "denoise":
                     current = self.denoise(
@@ -343,6 +413,17 @@ class RestorationPipeline:
                         guidance=kwargs.get("denoise_guidance"),
                     )
                     results["denoised"] = current
+                elif canon == "sr_x4":
+                    current = self.super_resolve(current, scale=kwargs.get("sr_scale", 4),
+                                                 prompt=kwargs.get("sr_prompt"))
+                    results["super_resolved"] = current
+                elif canon == "colorize":
+                    current = self.colorize(current, prompt=kwargs.get("colorize_prompt"))
+                    results["colorized"] = current
+                elif canon == "inpaint":
+                    current = self.inpaint(current, mask=kwargs.get("mask"),
+                                           prompt=kwargs.get("inpaint_prompt"))
+                    results["inpainted"] = current
                 else:
                     logger.warning("Unknown task %r skipped", task)
             except Exception as e:

@@ -1,7 +1,8 @@
-"""UNet2DCondition — the SD-v1.5 denoising UNet (4-channel), in PyTorch.
+"""UNet2DCondition — the SD-v1.5 denoising UNet (4- or 9-channel), in PyTorch.
 
 Counterpart of the JAX package's ``models/unet.py`` (859,520,964 parameters at
-the SD15 preset). ``forward`` takes and returns NHWC tensors like the JAX
+the SD15 preset, 859,535,364 at SD15_INPAINT: ``conv_in`` takes the 9-channel
+inpaint input and stays a plain conv, never quantized). ``forward`` takes and returns NHWC tensors like the JAX
 module; inside, activations are NCHW-shaped in the channels_last format (see
 ``layers.py``). The output is fp32. ``attention_backend`` reaches every
 cross-attention site, as in the JAX module; the quantized layers carry their

@@ -49,6 +49,18 @@ and hold bf16 K4 to a placement check against ``attention.xla_int8_core``
 ``test_int8_layers_match_cpu`` holds the int8 layers that K3 does not serve
 (``torch._int_mm`` and the quantizers on the card) against the CPU to one
 rounding of the output dtype, and shows that the limit fails full precision.
+
+A 1024 px request (super-resolution's SD run) gives K1 and K2 shapes the 512 px
+serves do not: ``test_kernels_at_1024px_shapes`` holds them against their plain
+versions (plain attention one head at a time: the fp32 scores of all heads at
+N = 16384 take 8 GiB), and ``test_kernel_path_served`` and
+``test_group_norm_plan_at_1024px`` hold the path and plan rules there on the
+CPU. ``test_tasks_match_cpu`` serves TINY super_resolve, colorize and inpaint
+(fp32, the same noise on both devices) on the card and on the CPU: the uint8
+outputs agree within one level (chip_smoke's 2e-3 image limit is a quarter of
+one), and
+``test_rrdbnet_matches_cpu`` holds RRDBNet to 1e-4 of its largest output;
+both turn cuDNN's TF32 off, so the card's convs are fp32 like the CPU's.
 """
 import collections
 import math
@@ -302,6 +314,34 @@ def test_group_norm_plan(model, b, h, w, c):
         assert b * p.blocks_per_sample <= G.TWOPHASE_BLOCKS_PER_SM * G.H100_SMS
 
 
+# K2's shapes of a 1024 px request: the UNet's at latents 128 .. 16 and the
+# VAE's at 1024 .. 128; twophase where one block per SM would need a slab
+# larger than shared memory.
+GN_1024 = [("unet", 2 * h, 2 * w, c) for h, w, c in UNET_GN] + \
+    [("vae", 2 * h, 2 * w, c) for h, w, c in VAE_GN]
+TWOPHASE_1024 = {("unet", 128, 128, 960), ("vae", 1024, 1024, 128), ("vae", 1024, 1024, 256),
+                 ("vae", 512, 512, 128), ("vae", 512, 512, 256), ("vae", 512, 512, 512),
+                 ("vae", 256, 256, 256), ("vae", 256, 256, 512)}
+
+
+@pytest.mark.parametrize("model,h,w,c", GN_1024)
+def test_group_norm_plan_at_1024px(model, h, w, c):
+    """K2's plan at every GroupNorm shape of a 1024 px request (batch 1): onchip
+    (one block per SM at most, every slab within shared memory) except at the
+    shapes whose slabs would not fit; the slabs cover every row once and the
+    partials fit the kernel's buffer."""
+    p = G.plan(1, h * w, c, 2)
+    assert p.path == ("twophase" if (model, h, w, c) in TWOPHASE_1024 else "onchip")
+    assert p.rows_per_block * (p.blocks_per_sample - 1) < h * w <= \
+        p.rows_per_block * p.blocks_per_sample
+    assert p.blocks_per_sample * 32 <= 1 << 16
+    if p.path == "onchip":
+        assert p.blocks_per_sample <= G.H100_SMS
+        assert p.rows_per_block * c * 2 <= G.ONCHIP_SLAB_BYTES
+    else:
+        assert -(-h * w // G.H100_SMS) * c * 2 > G.ONCHIP_SLAB_BYTES
+
+
 def _butterfly(vals):
     """Lane 0's value after a shuffle-xor butterfly over ``len(vals)`` lanes."""
     off = len(vals) // 2
@@ -495,7 +535,13 @@ def _qkv(b, nq, nk, h, d, dtype=torch.bfloat16):
     return tuple(torch.empty((b, n, h, d), dtype=dtype) for n in (nq, nk, nk))
 
 
-@pytest.mark.parametrize("b,nq,nk,h,d", _SERVED + [(1, 4096, 4096, 1, 512)])
+# the UNet's and the VAE mid-block's shapes of a 1024 px request (batch 1, no CFG)
+_SERVED_1024 = [(1, 16384, 16384, 8, 40), (1, 16384, 77, 8, 40), (1, 4096, 4096, 8, 80),
+                (1, 4096, 77, 8, 80), (1, 1024, 1024, 8, 160), (1, 1024, 77, 8, 160),
+                (1, 256, 256, 8, 160), (1, 256, 77, 8, 160), (1, 16384, 16384, 1, 512)]
+
+
+@pytest.mark.parametrize("b,nq,nk,h,d", _SERVED + [(1, 4096, 4096, 1, 512)] + _SERVED_1024)
 @pytest.mark.parametrize("layout", ["bnhd", "packed", "projection_views"])
 def test_kernel_path_served(layout, b, nq, nk, h, d):
     """Every served shape takes an sm90 path, in K1's and K5's [B, N, H, D]
@@ -1039,3 +1085,121 @@ def test_int8_layers_match_cpu(cuda, layer, in_shape):
     with torch.inference_mode():
         ok, err = tolerance.within(gpu(x.cuda()).cpu(), ref, "int8_layer")
     assert not ok, f"the int8 layer limit passed full precision (max err {err})"
+
+
+def _per_head(fn, q, k, v):
+    return torch.cat([fn(*(t[:, :, i:i + 1] for t in (q, k, v))) for i in range(q.shape[2])],
+                     dim=2)
+
+
+@pytest.mark.parametrize("b,nq,nk,h,d", [(1, 16384, 16384, 8, 40), (1, 16384, 16384, 1, 512)])
+def test_kernels_at_1024px_shapes(cuda, b, nq, nk, h, d):
+    """K1 at a 1024 px request's self-attention (UNet level 0, VAE mid-block)
+    and K2 at its 128x128 latent and 1024 px VAE shapes, bf16, against their
+    plain versions (attention one head at a time), through the planned paths."""
+    q, k, v = (torch.randn((b, n, h, d), generator=cuda, device="cuda").to(torch.bfloat16)
+               for n in (nq, nk, nk))
+    before = collections.Counter(_build.launch_paths)
+    got = A.attention(q, k, v)
+    assert_launched("attention", before, "sm90" if d <= A.SM90_MAX_HEAD_DIM else "sm90_split")
+    right = _per_head(A.pallas_attention_reference, q, k, v)
+    assert_within(got, right, "attention")
+    ok, right_share, wrong_share = tolerance.placement(
+        got, right, _per_head(A.attention_reference, q, k, v))
+    assert ok, (right_share, wrong_share)
+    del q, k, v, got, right
+    shapes = [(1, 128, 128, 320, "silu"), (1, 128, 128, 960, None), (1, 1024, 1024, 128, "silu"),
+              (1, 1024, 1024, 256, None)] if d == 40 else []
+    for b2, hh, ww, c, act in shapes:
+        x = (torch.randn((b2, hh, ww, c), generator=cuda, device="cuda") * 2 + 0.5
+             ).to(torch.bfloat16)
+        scale = torch.randn((c,), generator=cuda, device="cuda") * 0.5 + 1.0
+        bias = torch.randn((c,), generator=cuda, device="cuda") * 0.1
+        before = collections.Counter(_build.launch_paths)
+        out = G.group_norm(x, scale, bias, 32, 1e-6, act)
+        assert_launched("group_norm", before, G.plan(b2, hh * ww, c, 2).path)
+        assert_within(out, G.group_norm_reference(x, scale, bias, 32, 1e-6, act), "group_norm")
+
+
+def _tiny_dirs(root):
+    """TINY_SD and TINY_SD_INPAINT stacks at random (fp32), written in the
+    pipeline layout; the per-task pipeline config that serves them."""
+    from image_restoration_and_enhancement_torch import config as C
+    from image_restoration_and_enhancement_torch.core import checkpoint as ckpt
+    from image_restoration_and_enhancement_torch.core import sampling
+    from image_restoration_and_enhancement_torch.models.layers import init_random_
+
+    gen = torch.Generator().manual_seed(7)
+    config = {}
+    for name, cfg in (("sd", C.TINY_SD), ("inpaint", C.TINY_SD_INPAINT)):
+        mods = sampling.SDModules.create(cfg, torch.float32, "cpu")
+        for m in mods.components().values():
+            init_random_(m, gen)
+        ckpt.save_pipeline(str(root / name), mods.components(), cfg)
+    for task in ("sr_x4", "colorize", "inpaint"):
+        config[task] = {"fine_tuned_dir": str(root / ("inpaint" if task == "inpaint" else "sd")),
+                        "default_backend": "diffusion"}
+    return config
+
+
+def _same_noise(pipe):
+    """Serve ``pipe``'s sampling functions with noise drawn on the CPU from a
+    fixed seed: a CUDA and a CPU ``torch.Generator`` draw different streams."""
+    from image_restoration_and_enhancement_torch.core import sampling
+
+    orig = pipe._sampler_fn
+
+    def sampler_fn(stack, kind, *args):
+        fn = orig(stack, kind, *args)
+
+        def run(x, *tensors, generator=None):
+            gen = torch.Generator().manual_seed(11)
+            shape = sampling.latent_shape(stack["modules"], x.shape)
+            noise = tuple(torch.randn(shape, generator=gen)
+                          for _ in range(3 if kind == "inpaint" else 2))
+            return fn(x, *tensors, noise=noise)
+        return run
+
+    pipe._sampler_fn = sampler_fn
+    return pipe
+
+
+def test_tasks_match_cpu(cuda, tmp_path, monkeypatch):
+    import numpy as np
+
+    from image_restoration_and_enhancement_torch.infer.pipeline import RestorationPipeline
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)  # fp32 convs, as on the CPU
+    config = _tiny_dirs(tmp_path)
+    pipes = [_same_noise(RestorationPipeline(config=config, dtype=torch.float32, device=dev))
+             for dev in ("cpu", "cuda")]
+    rng = np.random.default_rng(8)
+    small = rng.integers(0, 256, (32, 32, 3), dtype=np.uint8)
+    grey = np.repeat(rng.integers(0, 256, (64, 64, 1), dtype=np.uint8), 3, axis=2)
+    photo = rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)
+    mask = np.zeros((64, 64), np.uint8)
+    mask[16:44, 8:40] = 255
+    calls = [("super_resolve", (small,), {}), ("colorize", (grey,), {}),
+             ("inpaint", (photo,), {"mask": mask})]
+    before = collections.Counter(_build.launch_counts)
+    for method, args, kwargs in calls:
+        ref, got = (getattr(p, method)(*args, **kwargs) for p in pipes)
+        assert got.dtype == np.uint8 and got.shape == ref.shape, method
+        assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1, method
+    launched = collections.Counter(_build.launch_counts) - before
+    assert launched["attention"] > 0 and launched["group_norm"] > 0
+
+
+def test_rrdbnet_matches_cpu(cuda, monkeypatch):
+    from image_restoration_and_enhancement_torch.models.layers import init_random_
+    from image_restoration_and_enhancement_torch.models.rrdbnet import RRDBNet
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)  # fp32 convs, as on the CPU
+    cpu = init_random_(RRDBNet().eval(), torch.Generator().manual_seed(9))
+    gpu = RRDBNet().eval().to("cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.rand((1, 16, 20, 3), generator=torch.Generator().manual_seed(10))
+    with torch.inference_mode():
+        ref, got = cpu(x), gpu(x.cuda()).cpu()
+    assert got.shape == (1, 64, 80, 3)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))

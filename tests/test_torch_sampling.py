@@ -87,10 +87,14 @@ def _port_files():
 
 
 def test_port_imports_no_jax():
-    """No module of the port and not chip_smoke.py imports jax, flax or the JAX
-    package; at module top they import only torch, numpy, the standard library
-    and the port itself."""
-    banned = ("jax", "flax", "image_restoration_and_enhancement_tpu")
+    """No module of the port and not chip_smoke.py imports jax, flax, the JAX
+    package or safetensors (the port has its own reader); at module top they
+    import only torch, numpy, the standard library and the port itself, and
+    so never PIL or cv2, which the card's machine lacks (the port has its own
+    resizes; cv2 is imported only inside the classical fallbacks, PIL only to
+    decode image files for calibration)."""
+    banned = ("jax", "flax", "image_restoration_and_enhancement_tpu", "safetensors")
+    not_at_top = ("PIL", "cv2", "safetensors")
     top_ok = {"torch", "numpy", "image_restoration_and_enhancement_torch"}
     top_ok |= set(sys.stdlib_module_names) | {"__future__"}
     files = _port_files()
@@ -114,6 +118,7 @@ def test_port_imports_no_jax():
             else:
                 continue
             for root in roots:
+                assert root not in not_at_top, f"{path}: module-top import of {root}"
                 assert root in top_ok, f"{path}: module-top import of {root}"
 
 

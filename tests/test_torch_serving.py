@@ -22,6 +22,7 @@ import torch
 from image_restoration_and_enhancement_torch import config as TC
 from image_restoration_and_enhancement_torch.core import checkpoint as tck
 from image_restoration_and_enhancement_torch.core import sampling as ts
+from image_restoration_and_enhancement_torch.infer import fallbacks as tfallbacks
 from image_restoration_and_enhancement_torch.infer.pipeline import RestorationPipeline
 from image_restoration_and_enhancement_torch.models import layers as tlayers
 from image_restoration_and_enhancement_torch.ops._build import KernelError
@@ -175,10 +176,14 @@ def test_pipeline_falls_back_only_on_the_cpu(stacks, tmp_path, monkeypatch, capl
     assert not pipe._fallback_allowed(ValueError("x"))
 
 
-def test_pipeline_classical_fallback_without_weights(tmp_path):
+def test_pipeline_classical_fallback_without_weights(tmp_path, monkeypatch):
+    monkeypatch.setenv("IRET_WEIGHTS_DIR", str(tmp_path))  # no RRDBNet weights
     pipe = RestorationPipeline(models_root=str(tmp_path), device="cpu")
     image = np.random.default_rng(14).integers(0, 256, (32, 32, 3), dtype=np.uint8)
     out = pipe.denoise(image)
     assert out.dtype == np.uint8 and out.shape == (32, 32, 3)
-    with pytest.raises(NotImplementedError, match="M10"):
-        pipe.process(image, ["sr"])
+    # no SD stack and no RRDBNet weights: super-resolution is LANCZOS x4
+    res = pipe.process(image, ["sr"])
+    assert set(res) == {"original", "super_resolved", "final"}
+    np.testing.assert_array_equal(res["final"], tfallbacks.sr_lanczos(image, 4))
+    assert res["final"].shape == (128, 128, 3)
