@@ -14,7 +14,12 @@ Phases (each prints its seconds; any failure exits non-zero):
               exact and then int8_static (K3, K4; tables calibrated on the CPU);
               then TINY_SD_INPAINT's inpaint function (DDIM, gs 5.0) and one
               full-width 9-channel SD-1.5-inpaint UNet call at 32x32 latents,
-              at the same limits as their img2img and 4-channel twins.
+              at the same limits as their img2img and 4-channel twins; then
+              TINY_SDXL's img2img function (DDIM, gs 5.0; both text towers,
+              the text_time conditioning) and one full-width SDXL UNet call
+              (2,567,463,684 parameters, initialised on the card and copied
+              to the CPU) at 32x32 latents with added_cond, at the same
+              limits.
   serve       initialise the full SD-1.5 stack (UNet, VAE, CLIP-L) at random from
               a seeded generator, write it in bf16 with the port's own safetensors
               writer to a temporary directory outside the checkout, and answer
@@ -78,6 +83,34 @@ Phases (each prints its seconds; any failure exits non-zero):
               layout under IRET_WEIGHTS_DIR: served by RRDBNet on the card
               (equal to upscale_x4 there, not LANCZOS), and RRDBNet on a
               32x32 crop held against the CPU (fp32, 1e-4 of max |out|).
+  serve_modes the opt-in serving modes on the bf16 SD-1.5 stack, one pipeline
+              each, a first and a steady CFG request each at the denoise
+              defaults (11 UNet calls, K1 352 + 2 launches a request):
+              tome_ratio=0.5 (the 5 level-0 self-attention sites on 2048
+              merged tokens: 55 K1 launches at 2x2048x2048x8x40 and none at
+              N = 4096, d = 40), cfg_cache_interval=2 (rows 0, 2, ..., 10
+              full: 6 x 32 K1 launches at batch 2 and 5 x 32 at batch 1) and
+              IRET_CFG_DEDUP=1 (11 launches at 1x4096x4096x8x40, the other
+              341 at batch 2). Counts are zeroed just before and read just
+              after each request; the path checks as in serve. Prints
+              request seconds, peak memory and the PSNR against the bf16
+              serve's output on the same image (random weights, and ToMe
+              and the cache are approximations: not gated); profiles the
+              steady ToMe request.
+  serve_sdxl  config.SDXL at random from a seeded CUDA generator (each
+              component's parameter count asserted against SDXL_PARAMS,
+              which tests/test_torch_sdxl.py holds against the JAX package),
+              written in bf16 with model_index.json to a temporary directory
+              outside the checkout (~6.5 GiB; the free space printed first,
+              the directory deleted at the end), and served at 1024x1024 by a
+              RestorationPipeline whose denoise fine_tuned_dir is that
+              directory (no model_config: the checkpoint describes itself): a
+              first and a steady CFG request and a steady gs 1.0 request.
+              Each must be served by the SDXL stack with K1 exactly 140 x 11
+              + 2 = 1,542 launches (70 transformer blocks x 2 sites x 11
+              UNet calls, head_dim 64, all "sm90"; the VAE's two, "sm90_split")
+              and K2 on its plan at every launch. Prints request seconds and
+              peak memory, and profiles one steady CFG request.
   kernels     every kernel at every shape the serves launched it with (plus edge
               cases; K6a at K6b's shapes through its own entry, and the batch-1
               twins of K5's and K6's CFG shapes): kernel against plain version on
@@ -94,7 +127,9 @@ Phases (each prints its seconds; any failure exits non-zero):
               and, where K is split, no split and twice the split, each held
               to its limit.
               K1 also runs once with IRET_ATTN_SCORES_BF16=1 and once with
-              IRET_ATTN_NORM_BOUND=1 (both "mma").
+              IRET_ATTN_NORM_BOUND=1 (both "mma"); the first is held with
+              tolerance.scores_bf16_within (a row whose max rounds to the
+              other bf16 neighbour on the two sides passes only as such).
 
 Kernel-vs-plain limits are ops/tolerance.py's: fp32 1e-4 absolute and
 relative; bf16 |got - ref| <= share * max|ref| + 2**-7 * |ref| elementwise (one
@@ -160,6 +195,10 @@ UNET_REL_TOL = 1e-3   # fp32 full-width UNet eps, relative to max |eps|
 INT8_PSNR_MIN = 25.0  # TINY_SD int8_static image, CUDA against CPU (docstring)
 INT8_UNET_REL_TOL = 0.15  # SD-1.5 int8_static eps, relative Frobenius (docstring)
 SD15_INPAINT_UNET_PARAMS = 859_535_364  # SD-1.5's 859,520,964 + conv_in's 5 x 320 x 9
+# config.SDXL's parameters by component (tests/test_torch_sdxl.py holds them
+# against the JAX package's eval_shape)
+SDXL_PARAMS = {"unet": 2_567_463_684, "vae": 83_653_863, "text_encoder": 123_060_480,
+               "text_encoder_2": 694_659_840}
 PLAIN_SCORES_BYTES = 2 << 30  # above: plain attention runs one head at a time
 RRDB_REL_TOL = 1e-4   # RRDBNet fp32 output, CUDA against CPU, relative to max |out|
 ATTENTION_KERNELS = ("attention", "flash_attention", "packed_attention",
@@ -508,6 +547,54 @@ def phase_parity():
         del unet9_gpu, unet9_cpu, igpu
         torch.cuda.empty_cache()
 
+        # TINY_SDXL's img2img function (both towers, the text_time conditioning,
+        # Linear projections), CPU against CUDA.
+        xcpu = sampling.SDModules.create(C.TINY_SDXL, torch.float32, "cpu")
+        for m in xcpu.components().values():
+            init_random_(m, gen)
+        xgpu = sampling.SDModules.create(C.TINY_SDXL, torch.float32, "cuda")
+        for name, m in xgpu.components().items():
+            m.load_state_dict(xcpu.components()[name].state_dict())
+        xids = torch.randint(0, C.TINY_SDXL.text_encoder.vocab_size, (2, 77), generator=gen)
+        before = collections.Counter(_build.launch_counts)
+        outs = []
+        for mods in (xcpu, xgpu):
+            c, p = sampling.encode_text_sdxl(mods, xids)
+            fn = sampling.make_img2img_fn(mods, 10, 0.5, 5.0, "ddim")
+            outs.append(fn(image, (c[:1], p[:1]), (c[1:], p[1:]), noise=noise).cpu())
+        launched = {k: _build.launch_counts[k] - before[k] for k in ("attention", "group_norm")}
+        err = float((outs[0] - outs[1]).abs().max())
+        log(f"TINY_SDXL img2img ddim gs=5.0: cuda vs cpu max abs err {err:.3e} "
+            f"(tol {PARITY_TOL}); cuda launches {launched}")
+        if not (err <= PARITY_TOL and all(v > 0 for v in launched.values())):
+            raise AssertionError(f"TINY_SDXL img2img disagrees: {err}")
+
+        # One full-width SDXL UNet call at 32x32 latents with added_cond
+        # (N = 256 and 64, head_dim 64): initialised on the card, copied to the CPU.
+        with torch.device("meta"):
+            uxl_gpu = UNet2DCondition(C.SDXL_UNET).to(memory_format=CL)
+            uxl_cpu = UNet2DCondition(C.SDXL_UNET)
+        uxl_gpu = init_random_(uxl_gpu.to_empty(device="cuda").eval(), gen_cuda)
+        uxl_cpu = uxl_cpu.to_empty(device="cpu").eval()
+        uxl_cpu.load_state_dict(uxl_gpu.state_dict())
+        xs = torch.randn((1, 32, 32, 4), generator=gen)
+        ctx_xl = torch.randn((1, 77, C.SDXL_UNET.cross_attention_dim), generator=gen)
+        added = {"text_embeds": torch.randn((1, C.SDXL.text_encoder_2.hidden_size),
+                                            generator=gen),
+                 "time_ids": sampling.sdxl_time_ids(1, 256)}
+        with torch.inference_mode():
+            ref = uxl_cpu(xs, t, ctx_xl, added)
+            got = uxl_gpu(xs.cuda(), t.cuda(), ctx_xl.cuda(),
+                          {k: v.cuda() for k, v in added.items()}).cpu()
+        scale = float(ref.abs().max())
+        err = float((ref - got).abs().max())
+        log(f"SDXL UNet 32x32 fp32 with added_cond: cuda vs cpu max abs err {err:.3e}, "
+            f"max |eps| {scale:.3e} (tol {UNET_REL_TOL} x max |eps|)")
+        if not (torch.isfinite(got).all() and err <= UNET_REL_TOL * scale):
+            raise AssertionError("SDXL UNet disagrees between CUDA and CPU")
+        del uxl_gpu, uxl_cpu, xgpu
+        torch.cuda.empty_cache()
+
 
 def _serve(pipe, image, requests):
     """Answer 512x512 denoise ``requests`` ((label, kwargs) pairs) with launch
@@ -516,11 +603,12 @@ def _serve(pipe, image, requests):
                          for label, kw in requests])
 
 
-def _serve_calls(requests):
+def _serve_calls(requests, onchip_hw: int = 4096):
     """Answer ``requests`` ((label, call, output shape)) with launch counts
     zeroed just before and read just after: (seconds, outputs, launches,
     shapes, codes, peak bytes); ``codes`` counts the attention launches by
-    device code, after checking them (``_check_attention_paths``)."""
+    device code, after checking them (``_check_attention_paths``,
+    ``_check_k2_k3_paths`` with ``onchip_hw``)."""
     import numpy as np
     import torch
 
@@ -544,7 +632,7 @@ def _serve_calls(requests):
     shapes = dict(_build.launch_shapes)
     codes = dict(_build.launch_paths)
     _check_attention_paths(shapes, codes)
-    _check_k2_k3_paths(shapes, codes)
+    _check_k2_k3_paths(shapes, codes, onchip_hw)
     return seconds, outs, launches, shapes, codes, torch.cuda.max_memory_allocated()
 
 
@@ -572,12 +660,14 @@ def _check_attention_paths(shapes, codes) -> None:
         raise AssertionError("the VAE mid-block's attention did not run sm90_split")
 
 
-def _check_k2_k3_paths(shapes, codes) -> None:
+def _check_k2_k3_paths(shapes, codes, onchip_hw: int = 4096) -> None:
     """Every GroupNorm (K2) and int8 conv (K3) launch of a serve went through
     the path its plan names (``groupnorm.plan``, ``conv_int8.conv_path``),
-    every GroupNorm at the UNet's latent sizes (H*W <= 4096) through "onchip"
-    (one launch a call), and every K3 launch through "sm90" (each served 3x3
-    conv is one of SD-1.5's UNet or VAE)."""
+    every GroupNorm at SD-1.5's UNet latent sizes (H*W <= ``onchip_hw``)
+    through "onchip" (one launch a call; the SDXL serve passes 0: its
+    64x64x1920 up-path norm at batch 2 is planned twophase), and every K3
+    launch through "sm90" (each served 3x3 conv is one of SD-1.5's UNet or
+    VAE)."""
     import torch
 
     from image_restoration_and_enhancement_torch.ops import conv_int8 as K3
@@ -590,7 +680,7 @@ def _check_k2_k3_paths(shapes, codes) -> None:
             b, h, w, c = key[:4]
             path = G.plan(b, h * w, c, torch.empty((), dtype=_dtype(key[7])).element_size(),
                           sms).path
-            if h * w <= 4096 and path != "onchip":
+            if h * w <= onchip_hw and path != "onchip":
                 raise AssertionError(f"a UNet-sized GroupNorm is planned {path}: {key}")
             want[(kernel, path)] += n
         elif kernel == "conv3x3_int8":
@@ -943,6 +1033,159 @@ def phase_serve_tasks(tmp, bf16):
             "rrdb_seconds": rrdb_s}
 
 
+def _attention_split(shapes):
+    """K1's UNet launches (head_dim <= 160) of one request by batch, and its
+    launches by (B, Nq, Nk, H, d)."""
+    from image_restoration_and_enhancement_torch.ops import attention as A
+
+    by_batch, by_shape = collections.Counter(), collections.Counter()
+    for (kernel, key), n in shapes.items():
+        if kernel == "attention":
+            by_shape[key[:5]] += n
+            if key[4] <= A.SM90_MAX_HEAD_DIM:
+                by_batch[key[0]] += n
+    return by_batch, by_shape
+
+
+def _check_mode(mode, shapes):
+    """The K1 launch shapes one CFG request of ``mode`` must give at the
+    denoise defaults (11 UNet calls, 32 sites each)."""
+    by_batch, by_shape = _attention_split(shapes)
+    if mode == "tome":  # the 5 level-0 self-attention sites on 2048 merged tokens
+        bad = by_shape[(2, 2048, 2048, 8, 40)] != 5 * 11 or any(
+            k[1] == k[2] == 4096 and k[4] == 40 for k in by_shape)
+    elif mode == "cfg_cache":  # rows 0, 2, 4, 6, 8, 10 full, the rest cond-only
+        bad = dict(by_batch) != {2: 6 * 32, 1: 5 * 32}
+    else:  # dedup: the first level-0 self-attention at the half batch
+        bad = by_shape[(1, 4096, 4096, 8, 40)] != 11 or dict(by_batch) != {2: 341, 1: 11}
+    if bad:
+        raise AssertionError(f"{mode}: K1's UNet launches by batch {dict(by_batch)}, by shape "
+                             f"{dict(by_shape)}")
+
+
+def phase_serve_modes(tmp, bf16):
+    """The opt-in serving modes on the bf16 SD-1.5 stack, one pipeline each:
+    ToMe (tome_ratio=0.5), the CFG cache (cfg_cache_interval=2) and the CFG
+    prefix dedup (IRET_CFG_DEDUP=1); a first and a steady CFG request each."""
+    import torch
+
+    from image_restoration_and_enhancement_torch.ops import token_merge
+
+    image = bf16["image"]
+    modes = (("tome", {"tome_ratio": 0.5}, {}),
+             ("cfg_cache", {"cfg_cache_interval": 2}, {}),
+             ("dedup", {}, {"IRET_CFG_DEDUP": "1"}))
+    rows, shapes, codes, launches = [], collections.Counter(), collections.Counter(), \
+        collections.Counter()
+    profile = None
+    with _Phase("serve_modes"):
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("IRET_TOME", "IRET_TOME_MIN", "IRET_CFG_DEDUP")}
+        for mode, kw, extra in modes:
+            torch.cuda.empty_cache()
+            with mock.patch.dict(os.environ, {**env, **extra}, clear=True):
+                pipe = _pipeline(tmp, **kw)
+                if mode == "tome" and pipe.tome != token_merge.TomeState(0.5, 4096):
+                    raise AssertionError(f"the ToMe pipeline's policy is {pipe.tome}")
+                for label in ("first (includes the stack load)", "steady"):
+                    secs, outs, n, sh, cd, pk = _serve(pipe, image, [(f"{mode} {label}", {})])
+                    if n.get("attention") != UNET_ATTENTION_PER_REQUEST + \
+                            VAE_ATTENTION_PER_REQUEST or n.get("group_norm", 0) <= 0:
+                        raise AssertionError(f"{mode}: launches {n}")
+                    _check_mode(mode, sh)
+                    psnr = _psnr(outs[0], bf16["out_cfg"], 255.0)
+                    by_batch, by_shape = _attention_split(sh)
+                    rows.append({"mode": mode, "request": label, "seconds": secs[0],
+                                 "peak_memory_bytes": pk, "psnr_vs_bf16_db": psnr,
+                                 "k1_unet_launches_by_batch": dict(by_batch)})
+                    log(f"{mode} {label}: {secs[0]:.3f} s, peak {pk / 2**30:.3f} GiB, PSNR "
+                        f"against the bf16 serve {psnr:.2f} dB (random weights: printed, "
+                        f"not gated); K1 UNet launches by batch {dict(by_batch)}")
+                    shapes.update(sh)
+                    codes.update(cd)
+                    launches.update(n)
+                if mode == "tome":
+                    profile = _profile_request(lambda: pipe.denoise(image), rows[-1]["seconds"])
+            del pipe
+        log("serve_modes_json " + json.dumps({"requests": rows}))
+    return {"requests": rows, "launches": dict(launches), "shapes": dict(shapes),
+            "codes": dict(codes), "profile": profile}
+
+
+def phase_serve_sdxl():
+    """config.SDXL at random, written in bf16 and served at 1024x1024 through
+    RestorationPipeline from its own directory (no model_config given)."""
+    import numpy as np
+    import torch
+
+    from image_restoration_and_enhancement_torch import config as C
+    from image_restoration_and_enhancement_torch.core import checkpoint as ckpt
+    from image_restoration_and_enhancement_torch.core import sampling
+    from image_restoration_and_enhancement_torch.models.layers import init_random_
+
+    rows, shapes, codes, launches = [], collections.Counter(), collections.Counter(), \
+        collections.Counter()
+    with _Phase("serve_sdxl"):
+        torch.cuda.empty_cache()
+        tmp = tempfile.mkdtemp(prefix="iret_sdxl_")
+        try:
+            log(f"free space under {tmp}: {shutil.disk_usage(tmp).free / 2**30:.1f} GiB")
+            t0 = time.perf_counter()
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+            mods = sampling.SDModules.create(C.SDXL, torch.bfloat16, "cuda")
+            counts = {}
+            for name, m in mods.components().items():
+                init_random_(m, gen)
+                counts[name] = sum(p.numel() for p in m.parameters())
+            log(f"random SDXL stack: {counts} in {time.perf_counter() - t0:.2f} s")
+            if counts != SDXL_PARAMS:
+                raise AssertionError(f"SDXL parameters {counts}, not {SDXL_PARAMS}")
+            t0 = time.perf_counter()
+            ckpt.save_pipeline(tmp, mods.components(), C.SDXL, dtype=torch.bfloat16)
+            size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(tmp)
+                       for f in fs)
+            log(f"wrote + verified the bf16 SDXL pipeline ({size / 2**30:.2f} GiB) in "
+                f"{time.perf_counter() - t0:.2f} s")
+            del mods
+            torch.cuda.empty_cache()
+
+            pipe = _pipeline(tmp)
+            image = np.random.default_rng(SEED + 2).integers(0, 256, (1024, 1024, 3),
+                                                             dtype=np.uint8)
+            requests = [("sdxl default (gs 5.0, CFG batch 2; includes the stack load)", {}),
+                        ("sdxl default again (steady state)", {}),
+                        ("sdxl guidance=1.0 (steady state, batch 1)", {"guidance": 1.0})]
+            want = 140 * 11 + VAE_ATTENTION_PER_REQUEST
+            for label, kw in requests:
+                secs, outs, n, sh, cd, pk = _serve_calls(
+                    [(label, lambda kw=kw: pipe.denoise(image, **kw), (1024, 1024, 3))],
+                    onchip_hw=0)
+                stack = pipe._stacks["denoise"]
+                if not stack["modules"].is_sdxl or stack["spec"].model_config != C.SDXL:
+                    raise AssertionError("the SDXL directory was not served as SDXL")
+                by_batch, by_shape = _attention_split(sh)
+                d64 = sum(v for k, v in by_shape.items() if k[4] == 64)
+                if n.get("attention") != want or d64 != 140 * 11 or \
+                        n.get("group_norm", 0) <= 0:
+                    raise AssertionError(f"{label}: K1 launched {n.get('attention')} times "
+                                         f"({d64} at head_dim 64), not {want}; {n}")
+                log(f"{label}: peak {pk / 2**30:.3f} GiB; K1 {n['attention']} launches "
+                    f"({d64} at head_dim 64, by batch {dict(by_batch)})")
+                rows.append({"request": label, "seconds": secs[0], "peak_memory_bytes": pk,
+                             "launches": n})
+                shapes.update(sh)
+                codes.update(cd)
+                launches.update(n)
+            log("serve_sdxl_json " + json.dumps({"requests": rows}))
+            profile = _profile_request(lambda: pipe.denoise(image), rows[1]["seconds"])
+            del pipe
+            torch.cuda.empty_cache()
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return {"requests": rows, "launches": dict(launches), "shapes": dict(shapes),
+            "codes": dict(codes), "profile": profile}
+
+
 def _cpu_twin(mod):
     """A CPU copy of a quantized layer: same class, weights, dtype and site."""
     import torch
@@ -1174,8 +1417,12 @@ def _attention_case(kernel):
             bare = {p: _bare_call(q, k, v, p) for p in ("sm90", "mma")} \
                 if kernel == "attention" and dtype == "torch.bfloat16" \
                 and d <= A.SM90_MAX_HEAD_DIM else None
-            return (lambda: run(q, k, v), lambda: _plain(plain, per_head, q, k, v), lib, ops_s,
-                    nbytes, wrong, bare)
+
+            def call():
+                return run(q, k, v)
+            call.qkv = (q, k, v)  # for tolerance.scores_bf16_within
+            return (call, lambda: _plain(plain, per_head, q, k, v), lib, ops_s, nbytes, wrong,
+                    bare)
         qp, kp, vp = (t.flatten(2) for t in (q, k, v))
         run = A.pallas_attention_packed if kernel == "packed_attention" \
             else A.pallas_attention_packed_grid
@@ -1420,7 +1667,12 @@ def phase_kernels(main):
                     raise AssertionError(f"{kernel} {key}: the wrapper did not launch its kernel")
                 code = [c for (_, c) in collections.Counter(_build.launch_paths) - before_codes]
                 tol = tolerance.limits(ref, kernel)
-                ok, err = tolerance.within(got, ref, kernel)
+                if env.get("IRET_ATTN_SCORES_BF16") == "1":
+                    # a row whose max rounds to the other bf16 neighbour on the
+                    # two sides passes only as such (ops/tolerance.py)
+                    ok, err = tolerance.scores_bf16_within(got, ref, *run.qkv)
+                else:
+                    ok, err = tolerance.within(got, ref, kernel)
                 placed = None
                 if wrong is not None and got.dtype == torch.bfloat16:
                     placed = dict(zip(("ok", "right_share", "wrong_share"),
@@ -1569,8 +1821,10 @@ def main() -> int:
         results["serve_flash"] = phase_serve_variant(tmp, results["serve"], "flash")
         results["serve_packed"] = phase_serve_variant(tmp, results["serve"], "pallas_packed")
         results["serve_tasks"] = phase_serve_tasks(tmp, results["serve"])
+        results["serve_modes"] = phase_serve_modes(tmp, results["serve"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    results["serve_sdxl"] = phase_serve_sdxl()
     paths = {name: r["shapes"] for name, r in results.items()}
     launches = {name: r["launches"] for name, r in results.items()}
     codes = collections.Counter()

@@ -11,7 +11,12 @@ Pipeline directory (as the JAX package's ``core/checkpoint.py`` writes it)::
 
 Conv kernels are HWIO and Dense kernels [in, out] there; ``params_from_flax``
 renames and transposes them to the port's state dict (OIHW convs, [out, in]
-Linear weights), and ``flax_from_params`` is its inverse.
+Linear weights), and ``flax_from_params`` is its inverse. A kernel's rank
+tells the two apart, as in the JAX package's ``export_torch_state_dict``: a
+Transformer2D's ``proj_in``/``proj_out`` is a 4-D 1x1 conv in SD-1.5 and a
+2-D Linear in SDXL under the same name. An SDXL pipeline directory also holds
+``text_encoder_2`` (the bigG tower, with its ``text_projection``); the
+diffusers import reads no second tower, as in the JAX package.
 
 A diffusers directory (``unet/`` and ``vae/diffusion_pytorch_model.safetensors``,
 ``text_encoder/model.safetensors`` from transformers) already uses the port's
@@ -46,7 +51,7 @@ TensorLike = Union[torch.Tensor, np.ndarray]
 _ST_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
               "I64": torch.int64}  # I64: transformers' position_ids buffer
 _ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
-COMPONENTS = ("unet", "vae", "text_encoder")
+COMPONENTS = ("unet", "vae", "text_encoder", "text_encoder_2")  # the last: SDXL's bigG
 
 # ---------------------------------------------------------------------------
 # safetensors reader / writer

@@ -1,11 +1,23 @@
-"""Stable-Diffusion img2img and inpaint sampling in PyTorch.
+"""Stable-Diffusion img2img and inpaint sampling in PyTorch (SD-1.5 and SDXL).
 
-Counterpart of the JAX package's ``core/sampling.py`` for the exact img2img
-path: CLIP encode -> VAE encode (posterior sample) -> ``add_noise`` at the
+Counterpart of the JAX package's ``core/sampling.py`` for the img2img path:
+CLIP encode -> VAE encode (posterior sample) -> ``add_noise`` at the
 timestep the strength truncates to -> a PLMS or DDIM loop with classifier-free
 guidance as one batched UNet call over [uncond; cond] ("halves" layout),
 skipped when guidance_scale <= 1 -> VAE decode. The inpaint function runs the
 same loop on the 9-channel UNet input [latents, mask, masked-image latents].
+An SDXL stack (``SDModules.is_sdxl``) takes (context, pooled) pairs from
+``encode_text_sdxl`` and adds the ``text_time`` conditioning at every step.
+
+Two opt-in modes of the JAX loop, both off by default:
+- the CFG prefix dedup (``IRET_CFG_DEDUP=1``, read when a sampling function
+  is built): the UNet takes the half batch and duplicates it at the first
+  cross-attention (``UNet2DCondition.forward``); exact. Off for SDXL.
+- the CFG cache (``cfg_cache_interval`` k > 1): the full CFG pair runs only
+  at the plan rows i with i % k == 0 and at the last row; between them the
+  UNet runs the cond half alone and the last uncond eps is reused. An
+  approximation. Off under the dedup, and never taken by the calibration
+  function (which builds its img2img function with k = 1).
 
 PyTorch runs the loop eagerly, one UNet call per step. JAX draws the posterior
 and add_noise noise inside the function from ``jax.random.split(key)``; here
@@ -17,14 +29,15 @@ to the UNet's and VAE's quantized layers; ``make_calib_img2img_fn`` runs the
 img2img function under dynamic int8 and returns the per-site activation absmax
 that mode ``"int8_static"`` loads as its table.
 
-Not ported yet: the CFG cache (``cfg_cache_interval``), the CFG prefix dedup,
-the interleaved CFG layout and SDXL conditioning.
+Not ported yet: the interleaved CFG layout (multi-device serving, ROADMAP M17).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+import os
+from typing import Callable, Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 import torch.nn.functional as F
@@ -36,8 +49,11 @@ from ..models import layers
 from ..models.layers import CL
 from ..models.unet import UNet2DCondition
 from ..models.vae import AutoencoderKL
-from ..ops import quant
+from ..ops import quant, token_merge
 from . import schedulers as sched
+
+# encode_text's context, or encode_text_sdxl's (context, pooled) pair
+Conditioning = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
 
 @dataclasses.dataclass
@@ -49,14 +65,22 @@ class SDModules:
     unet: UNet2DCondition
     vae: AutoencoderKL
     text_encoder: CLIPTextModel
+    text_encoder_2: Optional[CLIPTextModel] = None  # SDXL's bigG tower
     quant: Optional[quant.QuantState] = None
 
     @property
     def device(self) -> torch.device:
         return self.unet.conv_in.weight.device
 
+    @property
+    def is_sdxl(self) -> bool:
+        return self.config.unet.addition_embed_type == "text_time"
+
     def components(self):
-        return {"unet": self.unet, "vae": self.vae, "text_encoder": self.text_encoder}
+        out = {"unet": self.unet, "vae": self.vae, "text_encoder": self.text_encoder}
+        if self.text_encoder_2 is not None:
+            out["text_encoder_2"] = self.text_encoder_2
+        return out
 
     def set_quant(self, state: Optional[quant.QuantState]) -> None:
         """Serve the UNet and VAE under ``state`` (the CLIP text encoder stays
@@ -66,6 +90,11 @@ class SDModules:
         for module in (self.unet, self.vae):
             layers.set_quant(module, state)
 
+    def set_tome(self, state: Optional[token_merge.TomeState]) -> None:
+        """Serve the UNet's self-attention under the ToMe policy ``state``
+        (None: exact)."""
+        layers.set_tome(self.unet, state)
+
     @classmethod
     def create(cls, config: SDModelConfig, dtype: torch.dtype = torch.bfloat16,
                device: DeviceLike = None,
@@ -74,19 +103,46 @@ class SDModules:
         with uninitialised weights: load a state dict or call ``init_random_``.
         ``attention_backend`` reaches every UNet attention site
         (``ops/attention.py``); the VAE's attention is always exact."""
-        if config.text_encoder_2 is not None:
-            raise NotImplementedError("SDXL stacks are ROADMAP item M13, not ported yet")
         dev = resolve_device(device)
         with torch.device("meta"):
             unet = UNet2DCondition(config.unet, attention_backend).to(dtype, memory_format=CL)
             vae = AutoencoderKL(config.vae).to(dtype, memory_format=CL)
             te = CLIPTextModel(config.text_encoder).to(dtype)
-        return cls(config, *(m.to_empty(device=dev).eval() for m in (unet, vae, te)))
+            te2 = (CLIPTextModel(config.text_encoder_2, with_projection=True).to(dtype)
+                   if config.text_encoder_2 is not None else None)
+        unet, vae, te = (m.to_empty(device=dev).eval() for m in (unet, vae, te))
+        return cls(config, unet, vae, te,
+                   te2.to_empty(device=dev).eval() if te2 is not None else None)
 
 
 def encode_text(modules: SDModules, input_ids: torch.Tensor) -> torch.Tensor:
     """Token ids [B, 77] -> conditioning [B, 77, hidden] (fp32)."""
     return modules.text_encoder(input_ids.to(modules.device))
+
+
+def encode_text_sdxl(modules: SDModules, input_ids: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SDXL's two towers on the same ids: (both penultimate hidden states
+    concatenated [B, 77, d1 + d2], the bigG tower's projected pooled output
+    [B, d2]), fp32."""
+    ids = input_ids.to(modules.device)
+    out1 = modules.text_encoder(ids, return_dict=True)
+    out2 = modules.text_encoder_2(ids, return_dict=True)
+    context = torch.cat([out1["penultimate_hidden_state"],
+                         out2["penultimate_hidden_state"]], dim=-1)
+    return context, out2["pooled"]
+
+
+def sdxl_time_ids(batch: int, size: int, device=None) -> torch.Tensor:
+    """Micro-conditioning ids [batch, 6] (fp32): (orig_h, orig_w, crop_top,
+    crop_left, target_h, target_w) of a square ``size`` image, uncropped."""
+    row = torch.tensor([size, size, 0, 0, size, size], dtype=torch.float32, device=device)
+    return row.expand(batch, 6)
+
+
+def cfg_dedup_from_env() -> bool:
+    """``IRET_CFG_DEDUP=1``, read when a sampling function is built."""
+    return os.environ.get("IRET_CFG_DEDUP") == "1"
 
 
 def encode_image(modules: SDModules, image: torch.Tensor,
@@ -105,10 +161,17 @@ def decode_latents(modules: SDModules, latents: torch.Tensor) -> torch.Tensor:
 def _denoise_loop(modules: SDModules, latents: torch.Tensor, context: torch.Tensor,
                   uncond_context: Optional[torch.Tensor], plan: sched.StepPlan,
                   guidance_scale: float, sampler: str,
-                  extra_channels: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  extra_channels: Optional[torch.Tensor] = None,
+                  added_cond: Optional[Dict[str, torch.Tensor]] = None,
+                  cfg_dedup: bool = False, cfg_cache_interval: int = 1) -> torch.Tensor:
     """The sampling loop: one (CFG-batched) UNet call per plan row.
     ``extra_channels`` (the inpaint mask and masked-image latents) ride along
-    un-noised, concatenated to the latents before the CFG duplication."""
+    un-noised, concatenated to the latents before the CFG duplication.
+    ``added_cond`` (SDXL) is broadcast to the batch and duplicated under CFG.
+    ``cfg_dedup`` asks for the CFG prefix dedup (taken under CFG, not for
+    SDXL, and only with attention at level 0); ``cfg_cache_interval`` k > 1
+    for the CFG cache (taken under CFG without the dedup): see the module
+    docstring."""
     cfg = modules.config.scheduler
     ac = sched.alphas_cumprod_tensor(cfg, latents.device)
     fa = sched.final_alpha_cumprod(cfg)
@@ -121,29 +184,62 @@ def _denoise_loop(modules: SDModules, latents: torch.Tensor, context: torch.Tens
         ctx_all = torch.cat([uncond, context], dim=0)
     else:
         ctx_all = context
-
-    def unet_eps(lat: torch.Tensor, t: int) -> torch.Tensor:
-        model_in = lat if extra_channels is None else torch.cat([lat, extra_channels], dim=-1)
+    added_all = None
+    if added_cond is not None:
+        added_all = {k: v.expand((b,) + v.shape[1:]) for k, v in added_cond.items()}
         if do_cfg:
+            added_all = {k: torch.cat([v, v], dim=0) for k, v in added_all.items()}
+    dedup = (cfg_dedup and do_cfg and not modules.is_sdxl
+             and modules.config.unet.attn_levels[0])
+    cache = int(cfg_cache_interval) > 1 and do_cfg and not dedup
+
+    def call(lat: torch.Tensor, t: int, ctx: torch.Tensor, added, pair: bool = False,
+             dedup_call: bool = False) -> torch.Tensor:
+        """The UNet on the latents (with the extra channels), duplicated for
+        the CFG pair when ``pair``."""
+        model_in = lat if extra_channels is None else torch.cat([lat, extra_channels], dim=-1)
+        if pair:
             model_in = torch.cat([model_in, model_in], dim=0)
         ts = torch.full((model_in.shape[0],), int(t), dtype=torch.int32, device=lat.device)
-        eps = modules.unet(model_in, ts, ctx_all)
-        if do_cfg:
-            eps_u, eps_c = eps.chunk(2, dim=0)
-            eps = eps_u + guidance_scale * (eps_c - eps_u)
-        return eps
+        return modules.unet(model_in, ts, ctx, added, cfg_dedup=dedup_call)
+
+    def unet_eps(lat: torch.Tensor, t: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(guided eps, uncond eps or None) of one full step."""
+        eps = call(lat, t, ctx_all, added_all, pair=do_cfg and not dedup, dedup_call=dedup)
+        if not do_cfg:
+            return eps, None
+        eps_u, eps_c = eps.chunk(2, dim=0)
+        return eps_u + guidance_scale * (eps_c - eps_u), eps_u
+
+    n_rows = len(plan.timesteps)
+    full = np.ones(n_rows, bool)
+    if cache:
+        full = np.arange(n_rows) % int(cfg_cache_interval) == 0
+        full[-1] = True  # the last step always refreshes the guidance
+    added_c = None if added_all is None else {k: v[b:] for k, v in added_all.items()}
+    eps_u_prev = None
+
+    def eps_at(i: int, lat: torch.Tensor, t: int) -> torch.Tensor:
+        nonlocal eps_u_prev
+        if full[i]:
+            eps, eps_u = unet_eps(lat, t)
+            if cache:  # both branches in fp32, as the JAX cache's lax.cond
+                eps, eps_u_prev = eps.float(), eps_u.float()
+            return eps
+        eps_c = call(lat, t, ctx_all[b:], added_c).float()
+        return eps_u_prev + guidance_scale * (eps_c - eps_u_prev)
 
     lat = latents.float()
-    rows = zip(plan.timesteps.tolist(), plan.prev_timesteps.tolist(),
-               plan.order_codes.tolist(), plan.append.tolist())
+    rows = enumerate(zip(plan.timesteps.tolist(), plan.prev_timesteps.tolist(),
+                         plan.order_codes.tolist(), plan.append.tolist()))
     if sampler == "plms":
         carry = sched.plms_init_carry(lat)
-        for t, prev_t, code, append in rows:
-            carry, lat = sched.plms_step(ac, fa, carry, lat, unet_eps(lat, t), t, prev_t,
+        for i, (t, prev_t, code, append) in rows:
+            carry, lat = sched.plms_step(ac, fa, carry, lat, eps_at(i, lat, t), t, prev_t,
                                          code, append)
     elif sampler == "ddim":
-        for t, prev_t, _, _ in rows:
-            lat = sched.ddim_step(ac, fa, lat, unet_eps(lat, t), t, prev_t)
+        for i, (t, prev_t, _, _) in rows:
+            lat = sched.ddim_step(ac, fa, lat, eps_at(i, lat, t), t, prev_t)
     else:
         raise ValueError(f"Unknown sampler: {sampler}")
     return lat
@@ -171,38 +267,54 @@ def _noise(modules: SDModules, image: torch.Tensor, generator: Optional[torch.Ge
 
 
 def make_img2img_fn(modules: SDModules, num_inference_steps: int, strength: float,
-                    guidance_scale: float, sampler: str = "plms") -> Callable:
+                    guidance_scale: float, sampler: str = "plms",
+                    cfg_cache_interval: int = 1) -> Callable:
     """Build fn(image, prompt_ctx, uncond_ctx, generator=None, noise=None) -> image.
 
-    ``image`` is NHWC in [-1, 1]. ``noise`` = (posterior noise, add_noise noise),
+    ``image`` is NHWC in [-1, 1]. The contexts come from ``encode_text``, or
+    for an SDXL stack are (context, pooled) pairs from ``encode_text_sdxl``:
+    under CFG both halves then take the cond pooled embedding and the time
+    ids of the image's height (as in the JAX function; the halves differ
+    only by their context). ``noise`` = (posterior noise, add_noise noise),
     each shaped like the latents; without it both are drawn (fp32, standard
-    normal, posterior first) from ``generator``. Returns the decoded image,
-    NHWC fp32 in [-1, 1].
+    normal, posterior first) from ``generator``. ``cfg_cache_interval`` > 1
+    turns on the CFG cache; ``IRET_CFG_DEDUP=1`` (read now) the dedup.
+    Returns the decoded image, NHWC fp32 in [-1, 1].
     """
     cfg = modules.config.scheduler
     plan_fn = sched.plms_step_plan if sampler == "plms" else sched.ddim_step_plan
     plan = plan_fn(cfg, num_inference_steps, strength)
+    dedup = cfg_dedup_from_env()
 
     @torch.inference_mode()
-    def fn(image: torch.Tensor, prompt_ctx: torch.Tensor,
-           uncond_ctx: Optional[torch.Tensor], generator: Optional[torch.Generator] = None,
+    def fn(image: torch.Tensor, prompt_ctx: Conditioning, uncond_ctx: Optional[Conditioning],
+           generator: Optional[torch.Generator] = None,
            noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
         dev = modules.device
         image = image.to(dev)
+        added = None
+        if modules.is_sdxl:
+            prompt_ctx, pooled = prompt_ctx
+            if uncond_ctx is not None:
+                uncond_ctx, _ = uncond_ctx
+            added = {"text_embeds": pooled.to(dev),
+                     "time_ids": sdxl_time_ids(pooled.shape[0], image.shape[1], dev)}
         enc_noise, step_noise = _noise(modules, image, generator, noise)
         latents0 = encode_image(modules, image, enc_noise)
         ac = sched.alphas_cumprod_tensor(cfg, dev)
         latents = sched.add_noise(ac, latents0, step_noise, plan.init_timestep)
         latents = _denoise_loop(modules, latents, prompt_ctx.to(dev),
                                 None if uncond_ctx is None else uncond_ctx.to(dev),
-                                plan, guidance_scale, sampler)
+                                plan, guidance_scale, sampler, added_cond=added,
+                                cfg_dedup=dedup, cfg_cache_interval=cfg_cache_interval)
         return decode_latents(modules, latents)
 
     return fn
 
 
 def make_inpaint_fn(modules: SDModules, num_inference_steps: int, strength: float,
-                    guidance_scale: float, sampler: str = "ddim") -> Callable:
+                    guidance_scale: float, sampler: str = "ddim",
+                    cfg_cache_interval: int = 1) -> Callable:
     """Build fn(image, mask, prompt_ctx, uncond_ctx, generator=None, noise=None) -> image.
 
     The diffusers 9-channel layout at every step: [latents (4), mask (1),
@@ -210,11 +322,16 @@ def make_inpaint_fn(modules: SDModules, num_inference_steps: int, strength: floa
     [B, H, W, 1] in {0, 1}, 1 = the hole to fill. ``noise`` = (image posterior
     noise, masked-image posterior noise, add_noise noise), each shaped like
     the latents; without it all three are drawn in that order from
-    ``generator``. Returns the decoded image, NHWC fp32 in [-1, 1].
+    ``generator``. ``cfg_cache_interval`` and ``IRET_CFG_DEDUP`` as in
+    ``make_img2img_fn``. An SD-1.5(-inpaint) stack only, as in the JAX
+    package. Returns the decoded image, NHWC fp32 in [-1, 1].
     """
+    if modules.is_sdxl:
+        raise ValueError("the inpaint function takes an SD-1.5 stack, not SDXL")
     cfg = modules.config.scheduler
     plan_fn = sched.plms_step_plan if sampler == "plms" else sched.ddim_step_plan
     plan = plan_fn(cfg, num_inference_steps, strength)
+    dedup = cfg_dedup_from_env()
 
     @torch.inference_mode()
     def fn(image: torch.Tensor, mask: torch.Tensor, prompt_ctx: torch.Tensor,
@@ -236,7 +353,8 @@ def make_inpaint_fn(modules: SDModules, num_inference_steps: int, strength: floa
         latents = _denoise_loop(modules, latents, prompt_ctx.to(dev),
                                 None if uncond_ctx is None else uncond_ctx.to(dev),
                                 plan, guidance_scale, sampler,
-                                extra_channels=torch.cat([mask_lat, masked_latents], dim=-1))
+                                extra_channels=torch.cat([mask_lat, masked_latents], dim=-1),
+                                cfg_dedup=dedup, cfg_cache_interval=cfg_cache_interval)
         return decode_latents(modules, latents)
 
     return fn

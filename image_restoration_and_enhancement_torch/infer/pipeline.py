@@ -1,4 +1,4 @@
-"""RestorationPipeline — the four restoration tasks over the SD-1.5 stack, in PyTorch.
+"""RestorationPipeline — the four restoration tasks over the SD-1.5 or SDXL stack, in PyTorch.
 
 Counterpart of the JAX package's ``infer/pipeline.py``: ``process(image,
 tasks)`` and the per-task methods ``denoise``, ``super_resolve`` (LANCZOS x4
@@ -9,7 +9,14 @@ the auto mask when none is given), with the same checkpoint discovery under
 ``fine_tuned_dir``), the same pretrained search (``pretrained_dir``, then
 ``$IRET_PRETRAINED_ROOT/<pretrained_id>``; the JAX pipeline layout or a
 diffusers directory, imported), the same 64-px bucketing of the input size,
-prompt-context caching and the fixed seed.
+prompt-context caching and the fixed seed. A checkpoint's ``model_index.json``,
+or a per-task ``"model_config"``, may name an SDXL stack: its contexts are
+``encode_text_sdxl``'s (context, pooled) pairs, both towers on the stack's
+tokenizer's ids. The opt-in serving modes of the JAX pipeline are here too:
+``cfg_cache_interval`` (the CFG cache; part of the sampling function's cache
+key), ``tome_ratio`` (token merging, ``ops/token_merge.py``) and
+``IRET_CFG_DEDUP=1`` (the exact CFG prefix dedup, read when a sampling
+function is built).
 
 Differences from the JAX pipeline:
 - a failed SD run is logged ("SD denoise failed; OpenCV fallback") and served
@@ -29,7 +36,12 @@ Differences from the JAX pipeline:
   process-global read at trace time; ``quant=None`` reads ``IRET_QUANT`` once,
   here. Under ``IRET_QUANT_STRICT`` a request that reached a site missing
   from the table raises ``StrictQuantError`` (never served by a fallback).
-- ToMe, the CFG cache and mesh serving are not ported yet (see ROADMAP.md).
+- the ToMe policy is a ``TomeState`` owned by this pipeline and handed to its
+  UNets, likewise: ``tome_ratio``, or when it is not given ``IRET_TOME`` (and
+  ``IRET_TOME_MIN``), read once, here; not a process global read at trace
+  time.
+- mesh serving (``mesh=``, ``model_axis=``, ``spatial_axis=``, and with it
+  the ToMe guard under spatial sharding) is not ported yet (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -49,6 +61,7 @@ from ..device import DeviceLike, resolve_device
 from ..models import rrdbnet
 from ..models.tokenizer import load_tokenizer
 from ..ops import quant as quant_ops
+from ..ops import token_merge
 from ..ops._build import KernelError
 from ..ops.attention import check_backend
 from ..tasks.registry import ALIASES, TASKS, get_task
@@ -110,6 +123,8 @@ class RestorationPipeline:
         attention_backend: Optional[str] = None,
         quant: Optional[str] = None,
         quant_calib: Optional[str] = None,
+        cfg_cache_interval: int = 1,
+        tome_ratio: float = 0.0,
     ):
         self.device = resolve_device(device)
         check_backend(attention_backend)
@@ -121,6 +136,11 @@ class RestorationPipeline:
             quant_ops.mode_from_env(quant),
             load_quant_table(quant_calib) if quant_calib else {})
         self._warned_misses: set = set()
+        # > 1: the CFG cache, an approximation (core/sampling.py); off by default
+        self.cfg_cache_interval = int(cfg_cache_interval)
+        # > 0: token merging, an approximation (ops/token_merge.py); a ratio
+        # of 0 defers to IRET_TOME, read here once
+        self.tome = token_merge.state_from_env(tome_ratio)
         self.seed = seed
         self.dtype = dtype
         self.max_size = max_size
@@ -218,28 +238,35 @@ class RestorationPipeline:
             module.load_state_dict(states.pop(comp), strict=True)
         if self.quant.active:
             modules.set_quant(self.quant)
+        if self.tome.active:
+            modules.set_tome(self.tome)
         tokenizer = load_tokenizer(src_dir, vocab_size=spec.model_config.text_encoder.vocab_size)
         stack = {"modules": modules, "tokenizer": tokenizer, "spec": spec}
         self._stacks[task_name] = stack
         return stack
 
-    def _context(self, stack, prompt: str) -> torch.Tensor:
-        """Text conditioning, cached per (task, prompt)."""
+    def _context(self, stack, prompt: str) -> sampling.Conditioning:
+        """Text conditioning, cached per (task, prompt): a context, or for an
+        SDXL stack the (context, pooled) pair."""
         key = (stack["spec"].name, prompt)
         if key not in self._ctx_cache:
+            modules = stack["modules"]
             ids = torch.as_tensor(stack["tokenizer"]([prompt]))
+            encode = sampling.encode_text_sdxl if modules.is_sdxl else sampling.encode_text
             with torch.inference_mode():
-                self._ctx_cache[key] = sampling.encode_text(stack["modules"], ids)
+                self._ctx_cache[key] = encode(modules, ids)
         return self._ctx_cache[key]
 
     def _sampler_fn(self, stack, kind: str, steps: int, strength: float, gs: float,
                     sampler: str):
         """The sampling function of ``kind`` ("img2img" or "inpaint"), cached."""
-        key = (stack["spec"].name, kind, steps, round(strength, 4), round(gs, 4), sampler)
+        key = (stack["spec"].name, kind, steps, round(strength, 4), round(gs, 4), sampler,
+               self.cfg_cache_interval)
         if key not in self._fn_cache:
             maker = sampling.make_inpaint_fn if kind == "inpaint" else sampling.make_img2img_fn
             self._fn_cache[key] = maker(stack["modules"], num_inference_steps=steps,
-                                        strength=strength, guidance_scale=gs, sampler=sampler)
+                                        strength=strength, guidance_scale=gs, sampler=sampler,
+                                        cfg_cache_interval=self.cfg_cache_interval)
         return self._fn_cache[key]
 
     # ------------------------------------------------------------------

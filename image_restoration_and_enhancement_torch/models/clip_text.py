@@ -1,12 +1,18 @@
-"""CLIP ViT-L/14 text encoder, in PyTorch.
+"""CLIP text encoders (ViT-L/14, and SDXL's OpenCLIP bigG/14), in PyTorch.
 
 Counterpart of the JAX package's ``models/clip_text.py``: pre-LayerNorm causal
 transformer over 77 tokens with quick_gelu (or tanh-GELU for ``hidden_act=
-"gelu"``) and a final LayerNorm. Its attention is plain PyTorch, as the JAX
-encoder's is plain XLA: at 77 tokens no kernel is on this path. Returns
-last_hidden_state [B, 77, hidden] in fp32.
+"gelu"``, the bigG tower) and a final LayerNorm. Its attention is plain
+PyTorch, as the JAX encoder's is plain XLA: at 77 tokens no kernel is on this
+path. Returns last_hidden_state [B, 77, hidden] in fp32; with
+``return_dict=True`` also what SDXL takes from its two towers: the output of
+layer ``num_hidden_layers - 2`` before the final LayerNorm (fp32) and the
+final-LayerNorm output at each sequence's first ``eos_token_id``, through the
+bias-free ``text_projection`` when built ``with_projection`` (bigG).
 """
 from __future__ import annotations
+
+from typing import Dict, Union
 
 import torch
 import torch.nn as nn
@@ -64,9 +70,12 @@ class CLIPEncoderLayer(nn.Module):
 
 
 class CLIPTextModel(nn.Module):
-    """Token ids [B, 77] (integer) -> last_hidden_state [B, 77, hidden] (fp32)."""
+    """Token ids [B, 77] (integer) -> last_hidden_state [B, 77, hidden] (fp32),
+    or with ``return_dict`` {"last_hidden_state", "penultimate_hidden_state",
+    "pooled"} (all fp32)."""
 
-    def __init__(self, config: CLIPTextConfig = CLIPTextConfig()):
+    def __init__(self, config: CLIPTextConfig = CLIPTextConfig(),
+                 with_projection: bool = False):
         super().__init__()
         self.config = config
         self.token_embedding = nn.Embedding(config.vocab_size, config.hidden_size)
@@ -75,12 +84,29 @@ class CLIPTextModel(nn.Module):
         self.layers = nn.ModuleList(
             CLIPEncoderLayer(config) for _ in range(config.num_hidden_layers))
         self.final_layer_norm = nn.LayerNorm(config.hidden_size, eps=config.layer_norm_eps)
+        self.text_projection = (nn.Linear(config.hidden_size, config.hidden_size, bias=False)
+                                if with_projection else None)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        n = input_ids.shape[1]
+    def forward(self, input_ids: torch.Tensor, return_dict: bool = False
+                ) -> Union[torch.Tensor, Dict[str, torch.Tensor]]:
+        cfg = self.config
+        b, n = input_ids.shape
         x = self.token_embedding(input_ids.long()) + self.position_embedding.weight[None, :n]
         causal = torch.triu(
             torch.full((n, n), -1e9, dtype=torch.float32, device=x.device), diagonal=1)
-        for layer in self.layers:
+        penultimate = None
+        for i, layer in enumerate(self.layers):
             x = layer(x, causal[None, None])
-        return _layer_norm(self.final_layer_norm, x, torch.float32)
+            if i == cfg.num_hidden_layers - 2:
+                penultimate = x.float()
+        last = _layer_norm(self.final_layer_norm, x, torch.float32)
+        if not return_dict:
+            return last
+        # the first eos position of each sequence (0 where there is none)
+        eos_pos = (input_ids == cfg.eos_token_id).int().argmax(dim=-1)
+        pooled = last[torch.arange(b, device=last.device), eos_pos.to(last.device)]
+        if self.text_projection is not None:
+            w = self.text_projection.weight
+            pooled = self.text_projection(pooled.to(w.dtype)).float()
+        return {"last_hidden_state": last, "penultimate_hidden_state": penultimate,
+                "pooled": pooled}

@@ -35,7 +35,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..core.checkpoint import flax_module_path
-from ..ops import quant
+from ..ops import quant, token_merge
 from ..ops.attention import attention
 from ..ops.conv_int8 import conv3x3_same_int8
 from ..ops.groupnorm import group_norm
@@ -128,6 +128,14 @@ def set_quant(root: nn.Module, state: Optional[quant.QuantState]) -> None:
     for m in root.modules():
         if isinstance(m, _Quantized):
             m.set_quant(state)
+
+
+def set_tome(root: nn.Module, state: Optional[token_merge.TomeState]) -> None:
+    """Hand the ToMe policy ``state`` to every transformer block under ``root``
+    (None: off)."""
+    for m in root.modules():
+        if isinstance(m, BasicTransformerBlock):
+            m.tome = state
 
 
 def assign_sites(root: nn.Module) -> None:
@@ -295,7 +303,17 @@ class GEGLUFeedForward(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    """LN -> self-attn, LN -> cross-attn, LN -> GEGLU FF, all residual."""
+    """LN -> self-attn, LN -> cross-attn, LN -> GEGLU FF, all residual.
+
+    ``tome`` (``set_tome``): under an active policy, self-attention at a site
+    of at least ``tome.min_tokens`` tokens runs on the merged tokens
+    (``ops/token_merge.py``), matched on the block input ``x`` (not on
+    ``norm1(x)``, as in the JAX block); ``hw`` is the token grid.
+    ``cfg_dedup``: ``x`` arrives at half the context batch (the shared CFG
+    prefix); self-attention runs on it and the batch is duplicated as
+    [x; x] just before the cross-attention."""
+
+    tome: Optional[token_merge.TomeState] = None
 
     def __init__(self, dim: int, heads: int, head_dim: int, context_dim: int,
                  attention_backend: Optional[str] = None):
@@ -307,34 +325,63 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = FusedLayerNorm(dim)
         self.ff = GEGLUFeedForward(dim)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn1(self.norm1(x))
+    def forward(self, x: torch.Tensor, context: torch.Tensor, cfg_dedup: bool = False,
+                hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        n1 = self.norm1(x)
+        if self.tome is not None and hw is not None and self.tome.applies(x.shape[1]):
+            r = token_merge.merge_count(hw[0], hw[1], self.tome.ratio)
+            merge, unmerge, _ = token_merge.build_merge(x, hw[0], hw[1], r)
+            x = x + unmerge(self.attn1(merge(n1)))
+        else:
+            x = x + self.attn1(n1)
+        if cfg_dedup:
+            x = torch.cat([x, x], dim=0)
         x = x + self.attn2(self.norm2(x), context)
         return x + self.ff(self.norm3(x))
 
 
 class Transformer2D(nn.Module):
-    """Spatial transformer: GroupNorm, 1x1 proj in, transformer blocks, 1x1 proj out,
-    residual (the SD-1.5 form; the SDXL linear projection is not ported yet)."""
+    """Spatial transformer: GroupNorm, proj in, transformer blocks, proj out,
+    residual. SD-1.5 projects with 1x1 convs; ``use_linear_projection`` (SDXL)
+    with Linear layers on the flattened tokens, as in the JAX block (both
+    keep their flax sites, ``.../proj_in`` and ``.../proj_out``).
+    ``cfg_dedup``: ``x`` arrives at half the context batch; block 0
+    duplicates it after its self-attention and the rest runs at the full
+    batch, the residual duplicated to match."""
 
     def __init__(self, channels: int, heads: int, head_dim: int, context_dim: int,
-                 depth: int = 1, groups: int = 32, attention_backend: Optional[str] = None):
+                 depth: int = 1, groups: int = 32, attention_backend: Optional[str] = None,
+                 use_linear_projection: bool = False):
         super().__init__()
+        self.use_linear_projection = use_linear_projection
+        proj = (lambda: QLinear(channels, channels)) if use_linear_projection \
+            else (lambda: QConv2d(channels, channels, 1))
         self.norm = FusedGroupNorm(channels, groups, eps=1e-6)
-        self.proj_in = QConv2d(channels, channels, 1)
+        self.proj_in = proj()
         self.transformer_blocks = nn.ModuleList(
             BasicTransformerBlock(channels, heads, head_dim, context_dim, attention_backend)
             for _ in range(depth)
         )
-        self.proj_out = QConv2d(channels, channels, 1)
+        self.proj_out = proj()
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                cfg_dedup: bool = False) -> torch.Tensor:
         b, c, h, w = x.shape
-        t = to_nhwc(self.proj_in(self.norm(x))).view(b, h * w, c)
-        for block in self.transformer_blocks:
-            t = block(t, context)
-        y = from_nhwc(t.view(b, h, w, c))
-        return self.proj_out(y) + x
+        y = self.norm(x)
+        if self.use_linear_projection:
+            t = self.proj_in(to_nhwc(y).view(b, h * w, c))
+        else:
+            t = to_nhwc(self.proj_in(y)).view(b, h * w, c)
+        for i, block in enumerate(self.transformer_blocks):
+            t = block(t, context, cfg_dedup and i == 0, (h, w))
+        out_b = t.shape[0]
+        if self.use_linear_projection:
+            y = from_nhwc(self.proj_out(t).view(out_b, h, w, c))
+        else:
+            y = self.proj_out(from_nhwc(t.view(out_b, h, w, c)))
+        if cfg_dedup:
+            x = torch.cat([x, x], dim=0)
+        return y + x
 
 
 class VAEAttentionBlock(nn.Module):

@@ -1,14 +1,21 @@
-"""UNet2DCondition — the SD-v1.5 denoising UNet (4- or 9-channel), in PyTorch.
+"""UNet2DCondition — the SD-1.5 (4- or 9-channel) and SDXL denoising UNet, in PyTorch.
 
 Counterpart of the JAX package's ``models/unet.py`` (859,520,964 parameters at
 the SD15 preset, 859,535,364 at SD15_INPAINT: ``conv_in`` takes the 9-channel
-inpaint input and stays a plain conv, never quantized). ``forward`` takes and returns NHWC tensors like the JAX
-module; inside, activations are NCHW-shaped in the channels_last format (see
-``layers.py``). The output is fp32. ``attention_backend`` reaches every
-cross-attention site, as in the JAX module; the quantized layers carry their
-flax paths as sites (``layers.assign_sites``). The SDXL ``text_time``
-conditioning, the linear-projection transformer and the CFG prefix dedup are
-not ported yet.
+inpaint input and stays a plain conv, never quantized; 2,567,463,684 at SDXL).
+``forward`` takes and returns NHWC tensors like the JAX module; inside,
+activations are NCHW-shaped in the channels_last format (see ``layers.py``).
+The output is fp32. ``attention_backend`` reaches every cross-attention site,
+as in the JAX module; the quantized layers carry their flax paths as sites
+(``layers.assign_sites``).
+
+SDXL is the same module under another ``UNetConfig``: per-level heads and
+transformer depths (``heads_at``, ``tx_depth_at``), no attention at level 0,
+Linear spatial projections (``use_linear_projection``) and the ``text_time``
+added conditioning (``add_embedding``: the pooled text concatenated with the
+sinusoidal embedding of the six micro-conditioning ids, added to the time
+embedding). ``cfg_dedup`` runs the CFG halves' shared prefix once (see
+``forward``).
 """
 from __future__ import annotations
 
@@ -46,18 +53,23 @@ class CrossAttnDownBlock(nn.Module):
         self.attentions = nn.ModuleList(
             Transformer2D(out_channels, heads, out_channels // heads,
                           cfg.cross_attention_dim, cfg.tx_depth_at(level),
-                          cfg.norm_num_groups, attention_backend)
+                          cfg.norm_num_groups, attention_backend, cfg.use_linear_projection)
             for _ in range(n)
         ) if cfg.attn_levels[level] else None
         self.downsamplers = (
             nn.ModuleList([Downsample2D(out_channels)]) if add_downsample else None
         )
 
-    def forward(self, x, t_emb, context, skips: List[torch.Tensor]):
+    def forward(self, x, t_emb, context, skips: List[torch.Tensor], cfg_dedup: bool = False):
+        """``cfg_dedup``: ``x`` arrives at half the batch of ``t_emb`` and
+        ``context``; the first resnet and self-attention run on it, and the
+        first transformer block duplicates it."""
+        half = x.shape[0]
         for i, resnet in enumerate(self.resnets):
-            x = resnet(x, t_emb)
+            dedup_here = cfg_dedup and i == 0
+            x = resnet(x, t_emb[:half] if dedup_here else t_emb)
             if self.attentions is not None:
-                x = self.attentions[i](x, context)
+                x = self.attentions[i](x, context, dedup_here)
             skips.append(x)
         if self.downsamplers is not None:
             x = self.downsamplers[0](x)
@@ -77,7 +89,8 @@ class UNetMidBlock(nn.Module):
         )
         self.attentions = nn.ModuleList([
             Transformer2D(channels, heads, channels // heads, cfg.cross_attention_dim,
-                          cfg.tx_depth_at(level), cfg.norm_num_groups, attention_backend)
+                          cfg.tx_depth_at(level), cfg.norm_num_groups, attention_backend,
+                          cfg.use_linear_projection)
         ])
 
     def forward(self, x, t_emb, context):
@@ -101,7 +114,7 @@ class CrossAttnUpBlock(nn.Module):
         self.attentions = nn.ModuleList(
             Transformer2D(out_channels, heads, out_channels // heads,
                           cfg.cross_attention_dim, cfg.tx_depth_at(level),
-                          cfg.norm_num_groups, attention_backend)
+                          cfg.norm_num_groups, attention_backend, cfg.use_linear_projection)
             for _ in skip_channels
         ) if cfg.attn_levels[level] else None
         self.upsamplers = nn.ModuleList([Upsample2D(out_channels)]) if add_upsample else None
@@ -119,21 +132,21 @@ class CrossAttnUpBlock(nn.Module):
 class UNet2DCondition(nn.Module):
     """epsilon-prediction UNet conditioned on timestep + text embeddings.
 
-    forward(sample [B, H, W, Cin], timesteps [B] or scalar, context [B, 77, D])
-      -> eps [B, H, W, Cout] in fp32.
+    forward(sample [B, H, W, Cin], timesteps [B] or scalar, context [B, 77, D],
+            added_cond=None, cfg_dedup=False) -> eps [B, H, W, Cout] in fp32.
     """
 
     def __init__(self, config: UNetConfig, attention_backend: Optional[str] = None):
         super().__init__()
-        if config.addition_embed_type is not None or config.use_linear_projection:
-            raise NotImplementedError(
-                "SDXL UNets (text_time conditioning, linear projections) are "
-                "ROADMAP item M13 and not ported yet"
-            )
+        if config.addition_embed_type not in (None, "text_time"):
+            raise ValueError(f"unknown addition_embed_type {config.addition_embed_type!r}")
         cfg = self.config = config
         ch = cfg.block_out_channels
         self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(ch[0], cfg.time_embed_dim)
+        self.add_embedding = (
+            TimestepEmbedding(cfg.projection_class_embeddings_input_dim, cfg.time_embed_dim)
+            if cfg.addition_embed_type == "text_time" else None)
 
         n_levels = len(ch)
         skip_ch = [ch[0]]
@@ -163,8 +176,24 @@ class UNet2DCondition(nn.Module):
         assign_sites(self)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
-                encoder_hidden_states: torch.Tensor) -> torch.Tensor:
+                encoder_hidden_states: torch.Tensor, added_cond: Optional[dict] = None,
+                cfg_dedup: bool = False) -> torch.Tensor:
+        """``added_cond`` (SDXL only): {"text_embeds": [B, pooled], "time_ids":
+        [B, 6]}.
+
+        ``cfg_dedup``: the classifier-free-guidance prefix dedup. ``sample``
+        and ``timesteps`` arrive at half the context batch; the uncond and
+        cond halves are identical through ``conv_in``, the first level-0
+        resnet and its self-attention (only the text context differs), so
+        that prefix runs once and the batch is duplicated as [x; x] at the
+        first cross-attention. The output has the context's batch. It needs
+        attention at level 0 and no ``text_time`` conditioning (the pooled
+        text feeds the time embedding that the prefix takes)."""
         cfg = self.config
+        if cfg_dedup and cfg.addition_embed_type == "text_time":
+            raise ValueError("cfg_dedup is unsupported with SDXL text_time conditioning")
+        if cfg_dedup and not cfg.attn_levels[0]:
+            raise ValueError("cfg_dedup needs cross-attention in down level 0")
         dtype = self.conv_in.weight.dtype
         if timesteps.dim() == 0:
             timesteps = timesteps.expand(sample.shape[0])
@@ -172,11 +201,27 @@ class UNet2DCondition(nn.Module):
         t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0],
                                    cfg.flip_sin_to_cos, cfg.freq_shift)
         t_emb = self.time_embedding(t_emb.to(dtype))
+        if self.add_embedding is not None:
+            if added_cond is None:
+                raise ValueError("an SDXL UNet needs added_cond")
+            time_ids = added_cond["time_ids"].to(t_emb.device)
+            b, n_ids = time_ids.shape
+            id_emb = timestep_embedding(time_ids.reshape(-1), cfg.addition_time_embed_dim,
+                                        cfg.flip_sin_to_cos, cfg.freq_shift)
+            add_emb = torch.cat([added_cond["text_embeds"].to(t_emb.device).float(),
+                                 id_emb.reshape(b, n_ids * cfg.addition_time_embed_dim)], -1)
+            t_emb = t_emb + self.add_embedding(add_emb.to(dtype))
 
         x = self.conv_in(from_nhwc(sample.to(dtype).contiguous()))
-        skips = [x]
-        for block in self.down_blocks:
-            x = block(x, t_emb, context, skips)
+        if cfg_dedup:
+            # the up path takes this skip at the full batch; t_emb's rows are
+            # equal across the halves (one timestep)
+            skips = [torch.cat([x, x], dim=0)]
+            t_emb = torch.cat([t_emb, t_emb], dim=0)
+        else:
+            skips = [x]
+        for i, block in enumerate(self.down_blocks):
+            x = block(x, t_emb, context, skips, cfg_dedup and i == 0)
         x = self.mid_block(x, t_emb, context)
         for block in self.up_blocks:
             x = block(x, skips, t_emb, context)

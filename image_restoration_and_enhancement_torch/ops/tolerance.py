@@ -27,8 +27,18 @@ absolute term covers that as a share of the largest output:
 - attention_scores_bf16: K1 with IRET_ATTN_SCORES_BF16=1, in either input
   dtype, share 2**-8 as attention. Both sides take the exact row max and shift
   by it, but the scores are fp32 sums that each side rounds to bf16, and one
-  summed in another order can round to the neighbouring bf16 value: that
-  moves its P by 2**-8 of itself, in fp32 inputs too.
+  summed in another order can round to the neighbouring bf16 value. A score
+  of |s| < 1 then moves its P by at most 2**-8 of itself, in fp32 inputs too,
+  which the limit covers. A bf16 step of a larger score is larger (2**-5 at
+  |s| in [4, 8)), and when the score that rounds the other way is the row max,
+  every other P of the row moves by that factor against the max's; the limit
+  does not cover that row. ``scores_bf16_within`` passes such a row only when
+  its exact row max lies within MIDPOINT_SLACK of a bf16 step of a rounding
+  midpoint and the plain function with that score rounded to the other
+  neighbour puts the row within the limit (measured on an H100 80GB HBM3: a row
+  max 1.9e-6 of a step below the midpoint 5.921875 gave 15 elements over the
+  limit, and the plain function with it rounded down equals the kernel's row
+  bitwise).
 - group_norm, share 2**-10: the two sides differ before rounding by fp32
   sums taken in another order, which shows where x*w + b cancels near 0, and
   by the kernel's SiLU (the MUFU exponential and reciprocal, a few fp32 ulps).
@@ -84,10 +94,15 @@ K3's.
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
 
+# fp32 sums of up to 512 products sit within ~1e-3 of a bf16 step of the
+# exact score; a row max closer than this to a rounding midpoint can round
+# either way.
+MIDPOINT_SLACK = 2.0**-8
 _BF16_SHARE = {"attention": 2.0**-8, "group_norm": 2.0**-10, "int8_attention": 2.0**-8,
                "flash_attention": 2.0**-8, "packed_attention": 2.0**-8,
                "packed_attention_grid": 2.0**-8, "attention_scores_bf16": 2.0**-8}
@@ -110,6 +125,45 @@ def within(got: torch.Tensor, ref: torch.Tensor, kernel: str) -> Tuple[bool, flo
     atol, rtol = limits(ref, kernel)
     err = (got.float() - ref.float()).abs()
     return bool(torch.all(err <= atol + rtol * ref.float().abs())), float(err.max())
+
+
+def _scores_bf16_row(sb: torch.Tensor, v: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """K1's plain function under IRET_ATTN_SCORES_BF16 (row sum over the fp32 P)
+    for one query row, from its bf16 scores ``sb`` [Nk] and ``v`` [Nk, D]."""
+    pf = torch.exp((sb - sb.max()).float())
+    return ((pf.to(v.dtype).float() @ v.float()) * (1.0 / pf.sum())).to(out_dtype)
+
+
+def scores_bf16_within(got: torch.Tensor, ref: torch.Tensor, q: torch.Tensor,
+                       k: torch.Tensor, v: torch.Tensor) -> Tuple[bool, float]:
+    """``within(got, ref, "attention_scores_bf16")`` for K1 under
+    IRET_ATTN_SCORES_BF16=1 on [B, N, H, D] inputs, where a query row outside
+    the limit passes only when its row max rounds either way: its exact score
+    (q*(1/sqrt(D)) in Q's dtype, then float64 products) lies within
+    MIDPOINT_SLACK of a bf16 step of a rounding midpoint, and the plain
+    function of the row with that score rounded to the other bf16 neighbour
+    is within the limit (see the module docstring)."""
+    from .attention import _prescale
+
+    atol, rtol = limits(ref, "attention_scores_bf16")
+    err = (got.float() - ref.float()).abs()
+    bound = atol + rtol * ref.float().abs()
+    qs = _prescale(q)
+    for b, i, h in (err > bound).any(-1).nonzero().tolist():
+        exact = k[b, :, h].double() @ qs[b, i, h].double()
+        j = int(exact.argmax())
+        x = float(exact[j])
+        step = 2.0 ** (math.floor(math.log2(abs(x))) - 7)
+        low = math.floor(x / step) * step
+        if abs(x - (low + step / 2)) > MIDPOINT_SLACK * step:
+            return False, float(err.max())
+        sb = (k[b, :, h].float() @ qs[b, i, h].float()).to(torch.bfloat16)
+        other = low + step if float(sb[j]) == low else low
+        sb[j] = other
+        row = _scores_bf16_row(sb, v[b, :, h], got.dtype)
+        if not bool(torch.all((got[b, i, h].float() - row.float()).abs() <= bound[b, i, h])):
+            return False, float(err.max())
+    return True, float(err.max())
 
 
 def placement(got: torch.Tensor, right_ref: torch.Tensor, wrong_ref: torch.Tensor

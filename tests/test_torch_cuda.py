@@ -463,6 +463,49 @@ def _kv_tile(design, d):
     return 128 if d <= 80 else 64 if d <= A.SM90_MAX_HEAD_DIM else 32
 
 
+def _max_near_midpoint():
+    """One query row (head_dim 16, so Q's prescale by 1/4 is exact) whose row
+    max has the exact score 5.921875 - 2**-20, 2**-15 of a bf16 step below the
+    rounding midpoint between 5.90625 and 5.9375 (fp32 sums keep it there and
+    round down), and 15 keys 2 below it that together weigh about as much."""
+    q = torch.zeros((1, 1, 1, 16))
+    q[0, 0, 0, :3] = torch.tensor([16.0, 0.5, 2.0**-8])  # x 1/4: 4, 1/8, 2**-10
+    k = torch.zeros((1, 16, 1, 16))
+    k[0, 0, 0, :3] = torch.tensor([1.4765625, 0.125, -2.0**-10])
+    k[0, 1:, 0, 0] = 0.96875 + 0.0078125 * torch.arange(15) / 15  # scores ~3.9
+    v = torch.randn((1, 16, 1, 16), generator=torch.Generator().manual_seed(21)) * 2
+    return tuple(t.to(torch.bfloat16) for t in (q, k, v))
+
+
+def test_scores_bf16_row_max_flip_explained(monkeypatch):
+    """``tolerance.scores_bf16_within`` passes a row that differs from the
+    plain version beyond the limit only by its row max rounded to the other
+    bf16 neighbour, and fails a dropped key or a flip with no midpoint nearby
+    (CPU; what K1's IRET_ATTN_SCORES_BF16 case on the card needs)."""
+    monkeypatch.setenv("IRET_ATTN_SCORES_BF16", "1")
+    q, k, v = _max_near_midpoint()
+    ref = A.pallas_attention_reference(q, k, v)
+    sb = (k[0, :, 0].float() @ A._prescale(q)[0, 0, 0].float()).to(torch.bfloat16)
+    assert float(sb[0]) == 5.90625 and float(sb.max()) == 5.90625
+    torch.testing.assert_close(tolerance._scores_bf16_row(sb, v[0, :, 0], q.dtype),
+                               ref[0, 0, 0], rtol=0, atol=0)
+    flipped = sb.clone()
+    flipped[0] = 5.9375
+    got = tolerance._scores_bf16_row(flipped, v[0, :, 0], q.dtype).view(ref.shape)
+    assert not tolerance.within(got, ref, "attention_scores_bf16")[0]
+    assert tolerance.scores_bf16_within(got, ref, q, k, v)[0]
+    dropped = A.pallas_attention_reference(q, k[:, :-1], v[:, :-1])  # one key missing
+    assert not tolerance.scores_bf16_within(dropped, ref, q, k, v)[0]
+    k_far = k.clone()
+    k_far[0, 0, 0, 1:3] = 0  # the row max 5.90625 exactly: half a step from either midpoint
+    ref_far = A.pallas_attention_reference(q, k_far, v)
+    sb_far = (k_far[0, :, 0].float() @ A._prescale(q)[0, 0, 0].float()).to(torch.bfloat16)
+    sb_far[0] = 5.9375
+    got_far = tolerance._scores_bf16_row(sb_far, v[0, :, 0], q.dtype).view(ref.shape)
+    assert not tolerance.within(got_far, ref_far, "attention_scores_bf16")[0]
+    assert not tolerance.scores_bf16_within(got_far, ref_far, q, k_far, v)[0]
+
+
 @pytest.mark.parametrize("b,nk,h,d", [(2, 4096, 8, 40), (1, 4096, 1, 512)])
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
 @pytest.mark.parametrize("design", ["mma", "sm90"])
@@ -541,7 +584,17 @@ _SERVED_1024 = [(1, 16384, 16384, 8, 40), (1, 16384, 77, 8, 40), (1, 4096, 4096,
                 (1, 256, 256, 8, 160), (1, 256, 77, 8, 160), (1, 16384, 16384, 1, 512)]
 
 
-@pytest.mark.parametrize("b,nq,nk,h,d", _SERVED + [(1, 4096, 4096, 1, 512)] + _SERVED_1024)
+# SDXL's UNet sites at 1024 px (head_dim 64; the CFG pair and the batch-1
+# calls of gs 1.0 and the CFG cache), ToMe's merged level-0 self-attention at
+# 512 px (N = 4096 -> 2048) and the dedup's half-batch one
+_SDXL = [(b, nq, nk, h, 64) for b in (2, 1) for nq, h in ((4096, 10), (1024, 20))
+         for nk in (nq, 77)]
+_SERVED_MODES = _SDXL + [(2, 2048, 2048, 8, 40), (1, 2048, 2048, 8, 40),
+                         (1, 4096, 4096, 8, 40), (1, 4096, 77, 8, 40)]
+
+
+@pytest.mark.parametrize("b,nq,nk,h,d",
+                         _SERVED + [(1, 4096, 4096, 1, 512)] + _SERVED_1024 + _SERVED_MODES)
 @pytest.mark.parametrize("layout", ["bnhd", "packed", "projection_views"])
 def test_kernel_path_served(layout, b, nq, nk, h, d):
     """Every served shape takes an sm90 path, in K1's and K5's [B, N, H, D]
@@ -1121,6 +1174,18 @@ def test_kernels_at_1024px_shapes(cuda, b, nq, nk, h, d):
         assert_within(out, G.group_norm_reference(x, scale, bias, 32, 1e-6, act), "group_norm")
 
 
+@pytest.mark.parametrize("b,nq,nk,h,d", [s for s in _SDXL if s[0] == 2])
+def test_attention_at_sdxl_shapes(cuda, b, nq, nk, h, d):
+    """K1 at the SDXL UNet's CFG shapes (1024 px, head_dim 64), bf16, against
+    its plain version and placed, through "sm90"."""
+    q, k, v = (torch.randn((b, n, h, d), generator=cuda, device="cuda").to(torch.bfloat16)
+               for n in (nq, nk, nk))
+    before = collections.Counter(_build.launch_paths)
+    got = A.attention(q, k, v)
+    assert_launched("attention", before, "sm90")
+    assert_attention_kernel(got, "attention", A.pallas_attention_reference(q, k, v), q, k, v)
+
+
 def _tiny_dirs(root):
     """TINY_SD and TINY_SD_INPAINT stacks at random (fp32), written in the
     pipeline layout; the per-task pipeline config that serves them."""
@@ -1188,6 +1253,44 @@ def test_tasks_match_cpu(cuda, tmp_path, monkeypatch):
         assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1, method
     launched = collections.Counter(_build.launch_counts) - before
     assert launched["attention"] > 0 and launched["group_norm"] > 0
+
+
+def test_sdxl_and_serve_modes_match_cpu(cuda, tmp_path, monkeypatch):
+    """A TINY_SDXL denoise (its directory describes itself) and TINY_SD
+    denoise under ToMe (ratio 0.5, the site threshold lowered to TINY's 64
+    level-0 tokens) and the CFG cache (interval 2), on the card against the
+    CPU, fp32, the same noise: within one uint8 level."""
+    import numpy as np
+
+    from image_restoration_and_enhancement_torch import config as C
+    from image_restoration_and_enhancement_torch.core import checkpoint as ckpt
+    from image_restoration_and_enhancement_torch.core import sampling
+    from image_restoration_and_enhancement_torch.infer.pipeline import RestorationPipeline
+    from image_restoration_and_enhancement_torch.models.layers import init_random_
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)  # fp32 convs, as on the CPU
+    monkeypatch.setenv("IRET_TOME_MIN", "64")
+    gen = torch.Generator().manual_seed(12)
+    for name, cfg in (("sdxl", C.TINY_SDXL), ("sd", C.TINY_SD)):
+        mods = sampling.SDModules.create(cfg, torch.float32, "cpu")
+        for m in mods.components().values():
+            init_random_(m, gen)
+        ckpt.save_pipeline(str(tmp_path / name), mods.components(), cfg)
+    image = np.random.default_rng(13).integers(0, 256, (64, 64, 3), dtype=np.uint8)
+    before = collections.Counter(_build.launch_shapes)
+    for name, kw in (("sdxl", {}), ("sd", {"tome_ratio": 0.5, "cfg_cache_interval": 2})):
+        config = {"denoise": {"fine_tuned_dir": str(tmp_path / name),
+                              "default_backend": "diffusion"}}
+        pipes = [_same_noise(RestorationPipeline(config=config, dtype=torch.float32,
+                                                 device=dev, **kw)) for dev in ("cpu", "cuda")]
+        ref, got = (p.denoise(image) for p in pipes)
+        assert pipes[1]._stacks["denoise"]["modules"].is_sdxl == (name == "sdxl")
+        assert got.dtype == np.uint8 and got.shape == ref.shape == (64, 64, 3), name
+        assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1, name
+    launched = collections.Counter(_build.launch_shapes) - before
+    attn = {key: n for (k, key), n in launched.items() if k == "attention"}
+    assert any(key[1] == key[2] == 32 for key in attn)  # ToMe's merged level 0
+    assert any(key[0] == 1 and key[3] == 2 and key[1] == 64 for key in attn)  # the cache's
 
 
 def test_rrdbnet_matches_cpu(cuda, monkeypatch):

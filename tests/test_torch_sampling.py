@@ -99,6 +99,7 @@ def test_port_imports_no_jax():
     top_ok |= set(sys.stdlib_module_names) | {"__future__"}
     files = _port_files()
     assert len(files) > 15
+    assert REPO / "image_restoration_and_enhancement_torch" / "ops" / "token_merge.py" in files
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
