@@ -97,6 +97,29 @@ Phases (each prints its seconds; any failure exits non-zero):
               serve's output on the same image (random weights, and ToMe
               and the cache are approximations: not gated); profiles the
               steady ToMe request.
+  evaluate    the evaluation path (PR 12), after serve_modes: eight clean
+              512 px images written as PNG from the seed; each task's test
+              split (4 pairs) made on the card by SyntheticPairLoader (sr_x4's
+              at 128 px, served 128 -> 512; inpaint with its masks) and written
+              as PNG input/gt[/mask]; every task's degradation of a batch of 2
+              drawn and applied on the card and again on the CPU from the same
+              draws (within 1e-5; inpaint masks equal but at boundary pixels,
+              JPEG but in blocks with a coefficient at a rounding midpoint:
+              data/degradations.py's near_* functions); generate_predictions
+              over the four tasks on the serve's SD-1.5 stacks (and the inpaint
+              stack) under models_root/<model_dir>/best, its launch counts
+              zeroed just before and read just after (K1 exactly the requests'
+              32 x UNet calls + VAE mid-blocks, the path checks as in serve);
+              evaluate_model with LPIPS on random weights written in the JAX
+              layout under IRET_WEIGHTS_DIR and IRET_FID_RANDOM_INIT=1, under
+              torch's default TF32 settings: the JSON has the JAX script's keys
+              for every task, every value finite, every SSIM statistic <= 1;
+              then the bundle and LPIPS on the CPU from the same files, each
+              statistic within PSNR 1e-4 dB, SSIM 1e-5, ΔE 1e-4, LPIPS 1e-5
+              relative. Prints seconds per request, the metric bundle's ms per
+              512 px image at batch 16, LPIPS ms per pair, Inception ms per
+              image at batch 8, the loader's ms per 512 px batch of 8 per
+              task and the peak memory ("evaluate_json").
   serve_sdxl  config.SDXL at random from a seeded CUDA generator (each
               component's parameter count asserted against SDXL_PARAMS,
               which tests/test_torch_sdxl.py holds against the JAX package),
@@ -1112,6 +1135,317 @@ def phase_serve_modes(tmp, bf16):
             "codes": dict(codes), "profile": profile}
 
 
+EVAL_TASKS = ("denoise", "sr_x4", "colorize", "inpaint")
+EVAL_IMAGES = 4       # test pairs per task
+EVAL_SIZE = 512       # clean images and splits; sr_x4's split is 128 px (served 128 -> 512)
+EVAL_SR_SIZE = 128
+# card against CPU on the same files (tests/test_torch_cuda.py's limits)
+EVAL_LIMITS = {"psnr": 1e-4, "ssim": 1e-5, "delta_e": 1e-4}
+EVAL_LPIPS_REL = 1e-5
+DEGRADE_TOL = 1e-5    # degradations, card against CPU on the same draws (absolute)
+
+
+@contextlib.contextmanager
+def _torch_default_tf32():
+    """torch's default TF32 settings (cuDNN may take TF32, cuBLAS not) for the
+    block, then this script's (both off): the evaluation ops must own their
+    precision."""
+    import torch
+
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32, matmul.allow_tf32 = True, False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+def _clean_images(n: int, size: int, seed: int):
+    """``n`` clean uint8 photos-like images: smooth random colour fields with
+    edges and mild texture."""
+    import numpy as np
+    import torch
+
+    from image_restoration_and_enhancement_torch.ops.image import resize
+
+    g = torch.Generator().manual_seed(seed)
+    coarse = torch.rand((n, 8, 8, 3), generator=g)
+    field = resize(coarse, (size, size), "bicubic")
+    edges = (torch.rand((n, 1, 1, 1), generator=g) * size).long()
+    cols = torch.arange(size)[None, None, :, None]
+    field = field + 0.25 * (cols > edges).float() + 0.03 * torch.randn(field.shape, generator=g)
+    return (field.clamp(0, 1) * 255).round().to(torch.uint8).numpy().astype(np.uint8)
+
+
+def _expected_metrics(task: str):
+    from image_restoration_and_enhancement_torch.tasks.registry import get_task
+
+    spec = get_task(task)
+    names = {"psnr", "ssim"}
+    if spec.with_y_metrics:
+        names |= {"psnr_y", "ssim_y"}
+    if spec.with_color_metrics:
+        names |= {"psnr_l", "ssim_l", "delta_e"}
+    return names
+
+
+def _check_degradations(clean_u8):
+    """Each task's synthetic batch (batch 2 at 512 px), drawn on the card and
+    degraded there and on the CPU from the same draws; JPEG and motion blur
+    alone as well. Returns the largest error of each check."""
+    import numpy as np
+    import torch
+
+    from image_restoration_and_enhancement_torch.data import degradations as D
+    from image_restoration_and_enhancement_torch.data import synthetic as S
+
+    clean = torch.from_numpy(clean_u8[:2].astype(np.float32) / 255.0)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    errs = {}
+    for task in EVAL_TASKS:
+        draws = S.draw_batch(task, gen, 2, EVAL_SIZE, device="cuda")
+        card = {k: v.cpu() for k, v in S.degrade_batch(task, clean.cuda(), draws).items()}
+        host = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict) else v.cpu())
+                for k, v in draws.items()}
+        cpu = S.degrade_batch(task, clean, host)
+        keep = torch.ones(clean.shape[:3] + (1,), dtype=torch.bool)
+        if task == "inpaint":
+            near = D.near_inpaint_boundary((EVAL_SIZE, EVAL_SIZE), host)
+            flips = (card["mask"] != cpu["mask"])[..., 0].numpy()
+            if (flips & ~near).any() or near.mean() > 0.02:
+                raise AssertionError(f"inpaint masks differ off the boundary: "
+                                     f"{int((flips & ~near).sum())} pixels")
+            errs["inpaint_mask_flips"] = int(flips.sum())
+            keep = torch.from_numpy(~near)[..., None]
+        errs[task] = float(((card["input"] - cpu["input"]).abs() * keep).max())
+    quality = torch.tensor([35, 80])
+    got = D.jpeg_quantize(clean.cuda(), quality.cuda()).cpu()
+    bad = ((got - D.jpeg_quantize(clean, quality)).abs() > DEGRADE_TOL).any(dim=-1).numpy()
+    if (bad & ~D.near_jpeg_midpoint(clean, quality)).any():
+        raise AssertionError("JPEG differs outside the rounding-midpoint blocks")
+    errs["jpeg_blocks_at_midpoint_differing"] = int(bad.sum())
+    length, angle = torch.tensor([4.5, 13.0]), torch.tensor([0.7, 2.9])
+    blur = D.motion_blur(clean.cuda(), length.cuda(), angle.cuda()).cpu()
+    errs["motion_blur"] = float((blur - D.motion_blur(clean, length, angle)).abs().max())
+    bad = {k: v for k, v in errs.items() if isinstance(v, float) and not v <= DEGRADE_TOL}
+    if bad:
+        raise AssertionError(f"degradations differ between card and CPU: {bad}")
+    return errs
+
+
+def phase_evaluate(tmp, smi: str):
+    """The evaluation path on the card: synthetic test splits made by the
+    port's SyntheticPairLoader, generate_predictions over the four tasks on
+    the serve's SD-1.5 stacks, evaluate_model with LPIPS and FID on random
+    weights, the card against the CPU, and the path's times."""
+    import numpy as np
+    import torch
+
+    from image_restoration_and_enhancement_torch import evaluate_model, generate_predictions
+    from image_restoration_and_enhancement_torch.data import png
+    from image_restoration_and_enhancement_torch.data.synthetic import SyntheticPairLoader
+    from image_restoration_and_enhancement_torch.infer.pipeline import RestorationPipeline
+    from image_restoration_and_enhancement_torch.metrics import evaluate as E
+    from image_restoration_and_enhancement_torch.metrics import functional as MF
+    from image_restoration_and_enhancement_torch.metrics import inception as I
+    from image_restoration_and_enhancement_torch.metrics import perceptual as P
+    from image_restoration_and_enhancement_torch.models.layers import init_random_
+    from image_restoration_and_enhancement_torch.ops import _build
+    from image_restoration_and_enhancement_torch.tasks.registry import get_task
+
+    with _Phase("evaluate"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        root = os.path.join(tmp, "eval")
+        clean_dir, data, models = (os.path.join(root, d) for d in ("clean", "data", "models"))
+        os.makedirs(clean_dir)
+        clean_u8 = _clean_images(2 * EVAL_IMAGES, EVAL_SIZE, SEED)
+        for i, im in enumerate(clean_u8):
+            png.write_png(os.path.join(clean_dir, f"c{i}.png"), im)
+        paths = sorted(os.path.join(clean_dir, n) for n in os.listdir(clean_dir))
+
+        # 1. test splits, made on the card; the loader's time per batch of 8
+        loader_ms = {}
+        for task in EVAL_TASKS:
+            spec = get_task(task)
+            loader = SyntheticPairLoader(task, paths, image_size=EVAL_SIZE,
+                                         batch_size=2 * EVAL_IMAGES, seed=SEED, device="cuda")
+            times = []
+            for epoch in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                batch = next(iter(loader.epoch(epoch)))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            loader_ms[task] = sorted(times[1:])[1]   # median of the steady three
+            if task == "sr_x4":
+                batch = next(iter(SyntheticPairLoader(
+                    task, paths, image_size=EVAL_SR_SIZE, batch_size=2 * EVAL_IMAGES,
+                    seed=SEED, device="cuda").epoch(0)))
+            split = os.path.join(data, spec.pair_dir, "test")
+            for key in batch:
+                os.makedirs(os.path.join(split, key))
+            for i in range(EVAL_IMAGES):
+                for key, v in batch.items():
+                    arr = v[i].cpu().numpy()
+                    arr = arr[..., 0] * 255 if key == "mask" else (arr + 1.0) * 127.5
+                    png.write_png(os.path.join(split, key, f"t{i}.png"),
+                                  np.clip(np.rint(arr), 0, 255).astype(np.uint8))
+        log(f"test splits written: {EVAL_IMAGES} pairs per task; loader ms per batch of "
+            f"{2 * EVAL_IMAGES} at {EVAL_SIZE} px: {loader_ms}")
+
+        # 2. the degradations, card against CPU on the same draws
+        degrade_errs = _check_degradations(clean_u8)
+        log(f"degradations card vs CPU (same draws): {degrade_errs} (limit {DEGRADE_TOL})")
+
+        # 3. generate_predictions over the four tasks on the serve's stacks
+        for task, src in (("denoising", tmp), ("super_resolution", tmp),
+                          ("colorization", tmp), ("inpainting", os.path.join(tmp, "inpaint"))):
+            os.makedirs(os.path.join(models, task))
+            os.symlink(src, os.path.join(models, task, "best"))
+        request_s = collections.defaultdict(list)
+        process = RestorationPipeline.process
+
+        def timed(pipe, image, tasks, **kw):
+            t0 = time.perf_counter()
+            out = process(pipe, image, tasks, **kw)
+            torch.cuda.synchronize()
+            request_s[tasks[0]].append(time.perf_counter() - t0)
+            return out
+
+        pred_root = os.path.join(root, "pred")
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(RestorationPipeline, "process", timed):
+            rc = generate_predictions.main(["--data_root", data, "--models_root", models,
+                                            "--out_root", pred_root])
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches, shapes, codes = (dict(_build.launch_counts), dict(_build.launch_shapes),
+                                   dict(_build.launch_paths))
+        _check_attention_paths(shapes, codes)
+        _check_k2_k3_paths(shapes, codes)
+        want_k1 = EVAL_IMAGES * sum(_k1_per_request(t) for t in EVAL_TASKS)
+        if rc != 0 or launches.get("attention") != want_k1 or launches.get("group_norm", 0) <= 0:
+            raise AssertionError(f"generate_predictions rc {rc}, launches {launches} (K1 "
+                                 f"{want_k1} expected)")
+        for task in EVAL_TASKS:
+            pair_dir = get_task(task).pair_dir
+            gt_hw = (EVAL_SR_SIZE if task == "sr_x4" else EVAL_SIZE,) * 2
+            out_hw = (EVAL_SIZE, EVAL_SIZE)
+            names = sorted(os.listdir(os.path.join(pred_root, pair_dir)))
+            if names != [f"t{i}.png" for i in range(EVAL_IMAGES)]:
+                raise AssertionError(f"{task}: predictions {names}")
+            shapes_out = {png.read_png(os.path.join(pred_root, pair_dir, n)).shape for n in names}
+            if shapes_out != {out_hw + (3,)} or len(request_s[task]) != EVAL_IMAGES:
+                raise AssertionError(f"{task}: prediction shapes {shapes_out}, gt {gt_hw}")
+        per_request = {t: v for t, v in request_s.items()}
+        log(f"generate_predictions: {gen_s:.2f} s for {4 * EVAL_IMAGES} requests; seconds per "
+            f"request {per_request}; launches {launches}")
+
+        # 4-5. evaluate_model on the card with LPIPS (random weights in the JAX
+        # layout) and FID (random-init trunk), under torch's default TF32 settings
+        wdir = os.path.join(root, "weights")
+        P.save_lpips(init_random_(P.LPIPSAlex(), torch.Generator().manual_seed(SEED)),
+                     os.path.join(wdir, P.LPIPS_FILE))
+        out_json = os.path.join(root, "evaluation_results.json")
+        env = {**os.environ, "IRET_WEIGHTS_DIR": wdir, "IRET_FID_RANDOM_INIT": "1"}
+        with mock.patch.dict(os.environ, env, clear=True), _torch_default_tf32():
+            t0 = time.perf_counter()
+            rc = evaluate_model.main(["--pred_root", pred_root, "--data_root", data,
+                                      "--out_json", out_json])
+            eval_s = time.perf_counter() - t0
+            with open(out_json) as f:
+                results = json.load(f)
+            if rc != 0 or set(results) != set(EVAL_TASKS):
+                raise AssertionError(f"evaluate_model rc {rc}, tasks {sorted(results)}")
+            for task, res in results.items():
+                keys = {"num_images", "metrics", "input_baseline", "paired_delta",
+                        "beats_input_baseline"}
+                if task in ("colorize", "inpaint"):
+                    keys.add("fid_random_init_weights_pending")
+                want = _expected_metrics(task)
+                if (set(res) != keys or set(res["metrics"]) != want | {"lpips"}
+                        or set(res["input_baseline"]) != want or set(res["paired_delta"]) != want
+                        or res["num_images"] != EVAL_IMAGES):
+                    raise AssertionError(f"{task}: keys {sorted(res)}, metrics "
+                                         f"{sorted(res['metrics'])}")
+                values = [v for st in res["metrics"].values() for v in st.values()]
+                values += [v for st in res["input_baseline"].values() for v in st.values()]
+                values += [v for d in res["paired_delta"].values() for v in
+                           (d["mean"], d["win_rate"], *d["ci95"])]
+                values += [res.get("fid_random_init_weights_pending", 0.0)]
+                if not all(math.isfinite(v) for v in values):
+                    raise AssertionError(f"{task}: a value is not finite")
+                for name, st in list(res["metrics"].items()) + \
+                        list(res["input_baseline"].items()):
+                    if name.startswith("ssim") and st["max"] > 1.0:
+                        raise AssertionError(f"{task}: {name} max {st['max']} > 1")
+        log(f"evaluate_model on the card: {eval_s:.2f} s; " + "; ".join(
+            f"{t}: psnr {r['metrics']['psnr']['mean']:.3f} ssim {r['metrics']['ssim']['mean']:.4f}"
+            f" lpips {r['metrics']['lpips']['mean']:.4f}"
+            + (f" fid(random init) {r['fid_random_init_weights_pending']:.4e}"
+               if "fid_random_init_weights_pending" in r else "")
+            for t, r in results.items()))
+
+        # 6. the bundle and LPIPS on the CPU from the same files
+        worst = collections.defaultdict(float)
+        with mock.patch.dict(os.environ, env, clear=True):
+            for task in EVAL_TASKS:
+                spec = get_task(task)
+                cpu = E.evaluate_task(os.path.join(pred_root, spec.pair_dir),
+                                      os.path.join(data, spec.pair_dir, "test", "gt"),
+                                      with_color=spec.with_color_metrics,
+                                      with_y=spec.with_y_metrics, use_lpips=True, device="cpu")
+                for name, stats in cpu["metrics"].items():
+                    for stat, v in stats.items():
+                        got = results[task]["metrics"][name][stat]
+                        err = abs(got - v) / (abs(v) if name == "lpips" else 1.0)
+                        worst[name] = max(worst[name], err)
+        over = {n: e for n, e in worst.items()
+                if e > (EVAL_LPIPS_REL if n == "lpips" else
+                        EVAL_LIMITS[next(k for k in EVAL_LIMITS if n.startswith(k))])}
+        log(f"card vs CPU, largest difference of a statistic: {dict(worst)} (limits "
+            f"{EVAL_LIMITS}, lpips {EVAL_LPIPS_REL} relative)")
+        if over:
+            raise AssertionError(f"the card's metrics differ from the CPU's: {over}")
+
+        # 7. times of the path's parts on the card
+        preds = [png.load_image(os.path.join(pred_root, "denoise", f"t{i}.png"))
+                 for i in range(EVAL_IMAGES)]
+        gts = [png.load_image(os.path.join(data, "denoise", "test", "gt", f"t{i}.png"))
+               for i in range(EVAL_IMAGES)]
+        p16 = torch.from_numpy(np.stack(preds * 4).astype(np.float32) / 255.0).cuda()
+        g16 = torch.from_numpy(np.stack(gts * 4).astype(np.float32) / 255.0).cuda()
+        with _torch_default_tf32(), torch.inference_mode():
+            bundle_ms = _time_ms(lambda: MF.calculate_all(p16, g16, True, True), 5) / 16
+        p01 = [p.astype(np.float32) / 255.0 for p in preds * 4]
+        g01 = [g.astype(np.float32) / 255.0 for g in gts * 4]
+
+        def host_ms(fn, n):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / n
+
+        with mock.patch.dict(os.environ, env, clear=True), _torch_default_tf32():
+            lpips_ms = host_ms(lambda: P.lpips_pairs(p01, g01, "cuda"), 16)
+            inception_ms = host_ms(lambda: I.inception_features(g01[:8], 8, "cuda"), 8)
+        peak = torch.cuda.max_memory_allocated()
+        row = {"card": smi, "generate_predictions_seconds_per_request": per_request,
+               "generate_predictions_seconds": gen_s, "evaluate_model_seconds": eval_s,
+               "metric_bundle_ms_per_512px_image_batch16": bundle_ms,
+               "lpips_ms_per_pair": lpips_ms, "inception_ms_per_image_batch8": inception_ms,
+               "loader_ms_per_512px_batch8": loader_ms, "peak_memory_bytes": peak,
+               "card_vs_cpu_largest": dict(worst), "degradations_card_vs_cpu": degrade_errs}
+        log("evaluate_json " + json.dumps(row))
+    return {"launches": launches, "shapes": shapes, "codes": codes, **row}
+
+
 def phase_serve_sdxl():
     """config.SDXL at random, written in bf16 and served at 1024x1024 through
     RestorationPipeline from its own directory (no model_config given)."""
@@ -1822,6 +2156,7 @@ def main() -> int:
         results["serve_packed"] = phase_serve_variant(tmp, results["serve"], "pallas_packed")
         results["serve_tasks"] = phase_serve_tasks(tmp, results["serve"])
         results["serve_modes"] = phase_serve_modes(tmp, results["serve"])
+        results["evaluate"] = phase_evaluate(tmp, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     results["serve_sdxl"] = phase_serve_sdxl()

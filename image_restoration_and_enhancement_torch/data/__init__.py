@@ -1,0 +1,4 @@
+"""Data: the PNG codec and image-file entry points (``png``), host
+preprocessing (``native``), pair datasets and the batch loader
+(``datasets``), degradations on the card (``degradations``) and the
+synthetic pair loader (``synthetic``)."""

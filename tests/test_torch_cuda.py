@@ -63,8 +63,10 @@ one), and
 both turn cuDNN's TF32 off, so the card's convs are fp32 like the CPU's.
 """
 import collections
+import contextlib
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -1306,3 +1308,132 @@ def test_rrdbnet_matches_cpu(cuda, monkeypatch):
         ref, got = cpu(x), gpu(x.cuda()).cpu()
     assert got.shape == (1, 64, 80, 3)
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+
+
+# --- the evaluation path: metrics, perceptual networks, degradations ----------------
+
+
+@contextlib.contextmanager
+def torch_default_tf32():
+    """torch's default TF32 settings (cuDNN may take TF32, cuBLAS not), restored
+    after: the metric ops must own their precision under them."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32, matmul.allow_tf32 = True, False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+def _evaluation_images(b, h, w, seed):
+    g = torch.Generator().manual_seed(seed)
+    smooth = torch.cumsum(torch.rand((b, h, w, 3), generator=g) - 0.5, dim=2) * 0.02 + 0.5
+    gt = smooth.clamp(0, 1)
+    pred = (gt + 0.03 * torch.randn(gt.shape, generator=g)).clamp(0, 1)
+    return gt, pred
+
+
+def test_metric_ops_on_card_match_cpu_under_default_tf32(cuda):
+    """uniform_filter, resize and the metric bundle (SSIM above all) on the
+    card under torch's default TF32 settings against the CPU: within 1e-5
+    (of the largest value for the filter and the resize; absolute for the
+    metrics, 1e-4 dB for PSNR) and SSIM never above 1. (An fp32 depthwise
+    convolution takes no TF32 on the card even where cuDNN may, PR 12: the
+    control is the networks', below.)"""
+    from image_restoration_and_enhancement_torch.metrics import functional as MF
+    from image_restoration_and_enhancement_torch.ops import image as IM
+
+    gt, pred = _evaluation_images(4, 96, 120, 20)
+    with torch_default_tf32():
+        filt = IM.uniform_filter(gt.cuda(), 7).cpu()
+        small = IM.resize(gt.cuda(), (61, 47), "bicubic").cpu()
+        big = IM.resize(gt.cuda(), (299, 299), "bilinear").cpu()
+        card = {k: v.cpu() for k, v in MF.calculate_all(pred.cuda(), gt.cuda(), True, True)
+                .items()}
+        same = MF.ssim(gt.cuda(), gt.cuda()).cpu()
+    ref = IM.uniform_filter(gt, 7)
+    torch.testing.assert_close(filt, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+    for got, want in ((small, IM.resize(gt, (61, 47), "bicubic")),
+                      (big, IM.resize(gt, (299, 299), "bilinear"))):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+    cpu = MF.calculate_all(pred, gt, True, True)
+    for name, v in card.items():
+        torch.testing.assert_close(v, cpu[name], rtol=0,
+                                   atol=1e-4 if name.startswith("psnr") else 1e-5, msg=name)
+        if name.startswith("ssim"):
+            assert (v <= 1.0).all(), name
+    assert (same <= 1.0).all() and (same > 1 - 1e-6).all()
+
+
+@pytest.mark.parametrize("task", ["denoise", "sr_x4", "colorize", "inpaint"])
+def test_degradations_on_card_match_cpu(cuda, task):
+    """A synthetic batch drawn and degraded on the card against the CPU on the
+    same draws: within 1e-5 of the largest value (noise, blur, resize, LAB),
+    masks equal but at boundary pixels. JPEG and the artifact mode's motion
+    blur on their own: within 1e-5 outside blocks with a DCT coefficient at a
+    rounding midpoint."""
+    from image_restoration_and_enhancement_torch.data import degradations as D
+    from image_restoration_and_enhancement_torch.data import synthetic as S
+
+    gt, _ = _evaluation_images(4, 64, 64, 21)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    draws = S.draw_batch(task, gen, 4, 64, device="cuda")
+    with torch_default_tf32():
+        card = {k: v.cpu() for k, v in S.degrade_batch(task, gt.cuda(), draws).items()}
+    cpu_draws = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict) else v.cpu())
+                 for k, v in draws.items()}
+    cpu = S.degrade_batch(task, gt, cpu_draws)
+    assert set(card) == set(cpu)
+    if task == "inpaint":
+        near = D.near_inpaint_boundary((64, 64), cpu_draws)
+        diff = (card["mask"] != cpu["mask"])[..., 0].numpy()
+        assert not (diff & ~near).any() and near.mean() < 0.02
+        keep = torch.from_numpy(~near)[..., None]
+        torch.testing.assert_close(card["input"] * keep, cpu["input"] * keep, rtol=0, atol=1e-5)
+    else:
+        torch.testing.assert_close(card["input"], cpu["input"], rtol=0, atol=1e-5)
+    if task == "denoise":
+        quality = torch.tensor([31, 55, 72, 90])
+        with torch_default_tf32():
+            got = D.jpeg_quantize(gt.cuda(), quality.cuda()).cpu()
+            length, angle = torch.tensor([3.5, 5.0, 7.2, 8.0]), torch.tensor([0.3, 1.2, 2.5, 4.0])
+            blur = D.motion_blur(gt.cuda(), length.cuda(), angle.cuda(), (3, 8)).cpu()
+        bad = ((got - D.jpeg_quantize(gt, quality)).abs() > 1e-5).any(dim=-1).numpy()
+        assert not (bad & ~D.near_jpeg_midpoint(gt, quality)).any()
+        torch.testing.assert_close(blur, D.motion_blur(gt, length, angle, (3, 8)), rtol=0,
+                                   atol=1e-5)
+
+
+def test_lpips_and_inception_on_card_match_cpu(cuda, tmp_path, monkeypatch):
+    """``lpips_pairs`` (random LPIPS-Alex weights in the JAX layout under
+    IRET_WEIGHTS_DIR) within 1e-5 relative, and ``inception_features`` (the
+    seeded random-init trunk, IRET_FID_RANDOM_INIT=1) within 1e-4 of their
+    largest, card against CPU under torch's default TF32 settings (the
+    networks run in full fp32). Control: the same Inception trunk called
+    without ``full_fp32`` under those settings (cuDNN in TF32) misses the
+    limit."""
+    from image_restoration_and_enhancement_torch.metrics import inception as I
+    from image_restoration_and_enhancement_torch.metrics import perceptual as P
+    from image_restoration_and_enhancement_torch.models.layers import init_random_
+
+    monkeypatch.setenv("IRET_WEIGHTS_DIR", str(tmp_path))
+    monkeypatch.setenv("IRET_FID_RANDOM_INIT", "1")
+    P.save_lpips(init_random_(P.LPIPSAlex(), torch.Generator().manual_seed(24)),
+                 str(tmp_path / P.LPIPS_FILE))
+    gt, pred = _evaluation_images(3, 128, 160, 23)
+    gts, preds = list(gt.numpy()), list(pred.numpy())
+    with torch_default_tf32():
+        got = P.lpips_pairs(preds, gts, device="cuda")
+        card_feats = I.inception_features(gts, device="cuda")
+    ref = P.lpips_pairs(preds, gts, device="cpu")
+    feats = I.inception_features(gts, device="cpu")
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=0)
+    assert min(ref) > 0
+    assert card_feats.shape == feats.shape == (3, 2048)
+    assert np.abs(card_feats - feats).max() <= 1e-4 * np.abs(feats).max()
+    net = I._inception_model(P.inception_weights_path(), "cuda")
+    x = I.resize(torch.from_numpy(np.stack(gts)).cuda(), (299, 299), "bilinear")
+    with torch_default_tf32(), torch.inference_mode():
+        tf32 = net(x.permute(0, 3, 1, 2)).cpu().numpy()
+    assert np.abs(tf32 - feats).max() > 1e-4 * np.abs(feats).max()

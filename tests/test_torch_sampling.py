@@ -91,15 +91,22 @@ def test_port_imports_no_jax():
     package or safetensors (the port has its own reader); at module top they
     import only torch, numpy, the standard library and the port itself, and
     so never PIL or cv2, which the card's machine lacks (the port has its own
-    resizes; cv2 is imported only inside the classical fallbacks, PIL only to
-    decode image files for calibration)."""
+    resizes and its PNG codec; cv2 is imported only inside the classical
+    fallbacks, PIL only to decode image files for calibration and other
+    formats than PNG, scipy only inside FID's matrix square root)."""
     banned = ("jax", "flax", "image_restoration_and_enhancement_tpu", "safetensors")
     not_at_top = ("PIL", "cv2", "safetensors")
     top_ok = {"torch", "numpy", "image_restoration_and_enhancement_torch"}
     top_ok |= set(sys.stdlib_module_names) | {"__future__"}
     files = _port_files()
     assert len(files) > 15
-    assert REPO / "image_restoration_and_enhancement_torch" / "ops" / "token_merge.py" in files
+    port = REPO / "image_restoration_and_enhancement_torch"
+    for module in ("ops/token_merge.py", "ops/image.py", "metrics/functional.py",
+                   "metrics/perceptual.py", "metrics/inception.py", "metrics/calculator.py",
+                   "metrics/evaluate.py", "data/png.py", "data/native.py", "data/datasets.py",
+                   "data/degradations.py", "data/synthetic.py", "generate_predictions.py",
+                   "evaluate_model.py"):
+        assert port / module in files, module
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
