@@ -120,6 +120,33 @@ Phases (each prints its seconds; any failure exits non-zero):
               512 px image at batch 16, LPIPS ms per pair, Inception ms per
               image at batch 8, the loader's ms per 512 px batch of 8 per
               task and the peak memory ("evaluate_json").
+  train       training, after evaluate: one fp32 micro-step of the
+              full-width SD-1.5 stack at 64 px (lambda_img 0.05) on the card
+              and on the CPU from the same weights and draws, loss, L1 and
+              gradient norm within TRAIN_TWIN_REL_TOL, each UNet gradient
+              tensor within TRAIN_TWIN_GRAD_TOL of its largest entry (not
+              counted); 8 train
+              and 2 val 256 px pairs per task degraded on the card and
+              written as PNG; then, counts zeroed just before and read just
+              after: train_task("denoise") at full SD-1.5 width (random
+              weights from the seed, bf16 compute, fp32 masters, the UNet's
+              blocks checkpointed)
+              with batch 2, k = 2, one epoch and save_steps 2 (4
+              micro-steps, 2 optimizer steps; the train state is not
+              written), each micro-step synchronised and timed, the fourth
+              profiled: every loss and gradient norm finite, K1 exactly
+              TRAIN_K1_PER_MICRO_STEP launches a micro-step (the UNet's 32
+              sites forward and in the remat recompute, the VAE's 3) and K2
+              the same count in each, every UNet tensor moved by optimizer
+              step 2 (checkpoint-2 holds the initial weights: step 1's rate
+              is 0); one micro-step of a random SD-1.5-inpaint stack (the
+              9-channel UNet); pretrain_vae for 2 steps at 256 px; one
+              256 px denoise request served by RestorationPipeline from the
+              best/ that train_task wrote (K1 32 x 11 + 2). K1 on
+              "sm90"/"sm90_split" and K2 on its plan at every launch under
+              autograd. Prints seconds per micro-step (steady: the second
+              and third), images/s, peak memory, K1/K2 launches per
+              micro-step ("train_json").
   serve_sdxl  config.SDXL at random from a seeded CUDA generator (each
               component's parameter count asserted against SDXL_PARAMS,
               which tests/test_torch_sdxl.py holds against the JAX package),
@@ -1446,6 +1473,294 @@ def phase_evaluate(tmp, smi: str):
     return {"launches": launches, "shapes": shapes, "codes": codes, **row}
 
 
+TRAIN_SIZE = 256      # train phase: 256 px pairs, batch 2
+TRAIN_PAIRS, TRAIN_VAL = 8, 2
+# K1 launches per train micro-step: the UNet's 32 sites forward and again in
+# the remat recompute of its blocks, the frozen VAE's mid-block in the two
+# posterior encodes, and once in the differentiated decode of the L1 term
+TRAIN_K1_PER_MICRO_STEP = 2 * 32 + 3
+# fp32 full-width micro-step at 64 px, card vs CPU: the loss, L1 and global
+# gradient norm relative, and every UNet gradient tensor relative to its
+# largest entry on the CPU
+TRAIN_TWIN_REL_TOL = 1e-5
+TRAIN_TWIN_GRAD_TOL = 2e-4
+
+
+def _write_train_data(root, gen):
+    """Clean 256 px images; denoise and inpaint pairs degraded on the card
+    (data/synthetic.py); all written as PNG by the port's codec."""
+    import torch
+
+    from image_restoration_and_enhancement_torch.data import png
+    from image_restoration_and_enhancement_torch.data.synthetic import degrade_batch, draw_batch
+    from image_restoration_and_enhancement_torch.tasks.registry import get_task
+
+    n = TRAIN_PAIRS + TRAIN_VAL
+    clean_u8 = _clean_images(n, TRAIN_SIZE, SEED + 7)
+    x = torch.from_numpy(clean_u8).cuda().float() / 255.0
+
+    def write(directory, name, img_u8):
+        os.makedirs(directory, exist_ok=True)
+        png.write_png(os.path.join(directory, name), img_u8)
+
+    for task in ("denoise", "inpaint"):
+        batch = degrade_batch(task, x, draw_batch(task, gen, n, TRAIN_SIZE, device="cuda"))
+        for kind, t in batch.items():
+            u8 = ((t[..., 0] * 255.0) if kind == "mask" else (t + 1.0) * 127.5)
+            u8 = u8.round().clamp(0, 255).to(torch.uint8).cpu().numpy()
+            for i in range(n):
+                split = "train" if i < TRAIN_PAIRS else "val"
+                write(os.path.join(root, "pairs", get_task(task).pair_dir, split, kind),
+                      f"p{i}.png", u8[i])
+    for i in range(n):
+        write(os.path.join(root, "clean", "train" if i < TRAIN_PAIRS else "val"), f"c{i}.png",
+              clean_u8[i])
+
+
+def _train_twin(gen):
+    """One fp32 micro-step of the full-width SD-1.5 stack at 64 px (batch 1,
+    lambda_img 0.05: the differentiated decode too) on the card and on the CPU
+    from the same weights and draws: the loss, L1 and global gradient norm
+    within TRAIN_TWIN_REL_TOL relative, and each of the UNet's gradient tensors
+    within TRAIN_TWIN_GRAD_TOL of its largest entry on the CPU. The card runs
+    K1 "simt" and K2 in fp32 here; these launches are not counted (they
+    precede the phase's count)."""
+    import torch
+
+    from image_restoration_and_enhancement_torch import config as C
+    from image_restoration_and_enhancement_torch.core import sampling
+    from image_restoration_and_enhancement_torch.models.layers import init_random_
+    from image_restoration_and_enhancement_torch.tasks.registry import get_task
+    from image_restoration_and_enhancement_torch.train import loop, optim
+
+    cfg = loop.TrainConfig(gradient_accumulation_steps=1)
+    spec = get_task("denoise")
+    card, cpu = (sampling.SDModules.create(C.SD15, torch.float32, dev)
+                 for dev in ("cuda", "cpu"))
+    for name, m in card.components().items():
+        init_random_(m, gen)
+        cpu.components()[name].load_state_dict(m.state_dict())
+    g = torch.Generator().manual_seed(SEED + 9)
+    batch = {"input": torch.rand((1, 64, 64, 3), generator=g) * 2 - 1,
+             "gt": torch.rand((1, 64, 64, 3), generator=g) * 2 - 1}
+    draws = loop.draw_step(cpu, (1, 64, 64, 3), g)
+    ids = torch.randint(0, C.SD15.text_encoder.vocab_size, (1, 77), generator=g)
+    out, grads = [], []
+    for m in (card, cpu):
+        m.freeze_all_but_unet()
+        with torch.no_grad():
+            ctx = sampling.encode_text(m, ids)
+        loss, metrics = loop.make_loss_fn(m, spec, cfg)(batch, ctx, draws)
+        loss.backward()
+        grads.append({n: p.grad for n, p in m.unet.named_parameters()})
+        norm = optim.global_norm(grads[-1])
+        out.append((float(loss.detach()), float(metrics["img_l1"].detach()), float(norm)))
+    errs = {k: abs(a - b) / abs(b) for k, a, b in zip(("loss", "img_l1", "grad_norm"), *out)}
+    per_tensor = sorted(((float((grads[0][n].cpu() - g).abs().max())
+                          / max(float(g.abs().max()), 1e-30), n)
+                         for n, g in grads[1].items()), reverse=True)
+    errs["largest_tensor_grad"] = per_tensor[0][0]
+    log(f"train twin (fp32, 64 px, full width): card {out[0]}, cpu {out[1]}, "
+        f"relative differences {errs} (limits {TRAIN_TWIN_REL_TOL}, per tensor "
+        f"{TRAIN_TWIN_GRAD_TOL}); largest per-tensor gradient differences {per_tensor[:5]}")
+    if not all(math.isfinite(v) for v in out[0] + out[1]):
+        raise AssertionError(f"train twin: non-finite values {out}")
+    if max(errs[k] for k in ("loss", "img_l1", "grad_norm")) > TRAIN_TWIN_REL_TOL:
+        raise AssertionError(f"the card's fp32 micro-step differs from the CPU's: {errs}")
+    if per_tensor[0][0] > TRAIN_TWIN_GRAD_TOL:
+        raise AssertionError(f"the card's fp32 gradients differ from the CPU's: "
+                             f"{per_tensor[:5]}")
+    return errs
+
+
+def phase_train(tmp, smi: str):
+    """Training on the card at full SD-1.5 width (see the docstring): the fp32
+    twin check, train_task("denoise") (4 micro-steps, 2 optimizer steps), one
+    step of the 9-channel inpaint UNet, pretrain_vae for 2 steps, then one
+    request served from the best/ that train_task wrote."""
+    import numpy as np
+    import torch
+
+    from image_restoration_and_enhancement_torch import config as C
+    from image_restoration_and_enhancement_torch.core import checkpoint as ckpt
+    from image_restoration_and_enhancement_torch.core import sampling
+    from image_restoration_and_enhancement_torch.data.datasets import BatchLoader, PairDataset
+    from image_restoration_and_enhancement_torch.models.layers import init_random_
+    from image_restoration_and_enhancement_torch.models.tokenizer import HashTokenizer
+    from image_restoration_and_enhancement_torch.ops import _build
+    from image_restoration_and_enhancement_torch.tasks.registry import get_task
+    from image_restoration_and_enhancement_torch.train import loop, trainer
+    from image_restoration_and_enhancement_torch.train.vae_pretrain import (VAEPretrainConfig,
+                                                                            pretrain_vae)
+
+    with _Phase("train"):
+        torch.cuda.empty_cache()
+        root = os.path.join(tmp, "train")
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+        t0 = time.perf_counter()
+        twin = _train_twin(gen)
+        log(f"train twin: {time.perf_counter() - t0:.2f} s")
+        torch.cuda.empty_cache()
+        _write_train_data(root, gen)
+        log(f"free disk under {tmp}: {shutil.disk_usage(tmp).free / 2**30:.1f} GiB")
+
+        # 1. train_task("denoise"): every micro-step timed (synchronised) with
+        # its launches; the fourth profiled
+        steps = []
+        real_make = trainer.make_train_step
+
+        def timed_make(*args, **kw):
+            step = real_make(*args, **kw)
+
+            def timed(state, *a):
+                run = lambda: steps[-1].update(metrics=step(state, *a))  # noqa: E731
+                torch.cuda.synchronize()
+                before = collections.Counter(_build.launch_counts)
+                steps.append({})
+                t = time.perf_counter()
+                if len(steps) == 4:
+                    # against micro-step 2, which steps the optimizer as this one does
+                    steps[-1]["profile"] = _profile_request(
+                        run, steps[1]["seconds"], mma_label="K1 attention (sm90)")
+                else:
+                    run()
+                torch.cuda.synchronize()
+                steps[-1]["seconds"] = time.perf_counter() - t
+                counts = collections.Counter(_build.launch_counts) - before
+                steps[-1].update(k1=counts["attention"], k2=counts["group_norm"])
+                return steps[-1]["metrics"]
+
+            return timed
+
+        out_dir = os.path.join(root, "denoise_run")
+        cfg = loop.TrainConfig(num_epochs=1, batch_size=2, gradient_accumulation_steps=2,
+                               save_steps=2, image_size=TRAIN_SIZE, state_save_epochs=-1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(trainer, "make_train_step", timed_make):
+            val = trainer.train_task("denoise", data_root=os.path.join(root, "pairs"),
+                                     output_dir=out_dir, cfg=cfg, use_mesh=False, device="cuda")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_peak = torch.cuda.max_memory_allocated()
+        rows = [{"seconds": s["seconds"], "loss": float(s["metrics"]["loss"]),
+                 "grad_norm": float(s["metrics"]["grad_norm"]), "k1": s["k1"], "k2": s["k2"]}
+                for s in steps]
+        log(f"train_task denoise: {train_s:.2f} s, val {val}, micro-steps {rows}")
+        if len(rows) != 4:
+            raise AssertionError(f"{len(rows)} micro-steps, not 4")
+        if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in rows):
+            raise AssertionError(f"a non-finite loss or grad norm: {rows}")
+        if any(r["k1"] != TRAIN_K1_PER_MICRO_STEP for r in rows):
+            raise AssertionError(f"K1 launches per micro-step {[r['k1'] for r in rows]}, not "
+                                 f"{TRAIN_K1_PER_MICRO_STEP} (forward + remat recompute)")
+        if len({r["k2"] for r in rows}) != 1:
+            raise AssertionError(f"K2 launches differ between micro-steps: {rows}")
+        if not all(math.isfinite(v) for v in val.values()):
+            raise AssertionError(f"non-finite validation metrics {val}")
+        names = set(os.listdir(out_dir))
+        want = {"best", "final", "checkpoint-2", "checkpoint-4", "val_samples",
+                "metrics_denoise.csv", "training_denoise.log"}
+        if not want <= names:
+            raise AssertionError(f"train_task wrote {sorted(names)}, not {sorted(want)}")
+        # optimizer step 1 has lr 0 (the warmup's first value): checkpoint-2
+        # holds the initial weights; step 2 must have moved every tensor
+        a, b = (ckpt.load_safetensors(os.path.join(out_dir, c, "unet", "model.safetensors"))
+                for c in ("checkpoint-2", "checkpoint-4"))
+        still = [k for k in a if torch.equal(a[k], b[k])]
+        moved = max(float((a[k] - b[k]).abs().max()) for k in a)
+        log(f"optimizer step 2 moved {len(a) - len(still)} of {len(a)} UNet tensors, "
+            f"largest change {moved:.3e}")
+        if still:
+            raise AssertionError(f"optimizer step 2 left {len(still)} tensors unchanged "
+                                 f"(first {still[0]})")
+        del a, b
+        counts = [collections.Counter(_build.launch_counts), collections.Counter(_build.launch_shapes),
+                  collections.Counter(_build.launch_paths)]
+        torch.cuda.empty_cache()
+
+        # 2. one micro-step of the 9-channel inpaint UNet
+        _build.reset_launch_counts()
+        mods = sampling.SDModules.create(C.SD15_INPAINT, torch.bfloat16, "cuda")
+        for m in mods.components().values():
+            init_random_(m, gen)
+        mods.freeze_all_but_unet()
+        spec = get_task("inpaint")
+        icfg = loop.TrainConfig(gradient_accumulation_steps=1, image_size=TRAIN_SIZE)
+        state = loop.create_train_state(icfg, mods.unet, 1)
+        batch = next(BatchLoader(PairDataset("inpaint", os.path.join(root, "pairs"), "train",
+                                             TRAIN_SIZE, 2), 2, shuffle=False).epoch(0))
+        with torch.no_grad():
+            ctx = sampling.encode_text(mods, torch.as_tensor(
+                HashTokenizer(C.SD15.text_encoder.vocab_size)([spec.prompt])))
+        draws = loop.draw_step(mods, batch["gt"].shape, loop.step_generator(SEED, 0, "cuda"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        im = loop.make_train_step(mods, spec, icfg)(state, batch, ctx, draws)
+        torch.cuda.synchronize()
+        inpaint_s = time.perf_counter() - t0
+        im = {k: float(v) for k, v in im.items()}
+        log(f"inpaint micro-step (9-channel UNet, first call): {inpaint_s:.3f} s, {im}, "
+            f"K1 {_build.launch_counts['attention']}")
+        if not all(math.isfinite(v) for v in im.values()):
+            raise AssertionError(f"inpaint step: non-finite {im}")
+        if _build.launch_counts["attention"] != TRAIN_K1_PER_MICRO_STEP:
+            raise AssertionError(f"inpaint step: {_build.launch_counts['attention']} K1 launches")
+        del mods, state
+        torch.cuda.empty_cache()
+        for c, now in zip(counts, (_build.launch_counts, _build.launch_shapes,
+                                   _build.launch_paths)):
+            c.update(now)
+
+        # 3. pretrain_vae: 2 steps (4 images, batch 2), then its validation
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        vae_val = pretrain_vae(os.path.join(root, "clean"), os.path.join(root, "vae_run"),
+                               VAEPretrainConfig(num_epochs=1, batch_size=2,
+                                                 image_size=TRAIN_SIZE),
+                               max_train_samples=4, use_mesh=False, device="cuda")
+        torch.cuda.synchronize()
+        vae_s = time.perf_counter() - t0
+        log(f"pretrain_vae: {vae_s:.2f} s, val {vae_val}, launches "
+            f"{dict(_build.launch_counts)}")
+        if not all(math.isfinite(v) for v in vae_val.values()):
+            raise AssertionError(f"pretrain_vae: non-finite {vae_val}")
+        for c, now in zip(counts, (_build.launch_counts, _build.launch_shapes,
+                                   _build.launch_paths)):
+            c.update(now)
+
+        # 4. serve one denoise request from the best/ that train_task wrote
+        pipe = _pipeline(os.path.join(out_dir, "best"))
+        image = np.random.default_rng(SEED + 3).integers(0, 256, (TRAIN_SIZE, TRAIN_SIZE, 3),
+                                                         dtype=np.uint8)
+        sec, _, n, sh, cd, _ = _serve_calls([(
+            "denoise served from the trained best/", lambda: pipe.denoise(image),
+            (TRAIN_SIZE, TRAIN_SIZE, 3))])
+        if n.get("attention", 0) != _k1_per_request("denoise"):
+            raise AssertionError(f"the trained stack's request launched K1 {n} times")
+        del pipe
+        for c, now in zip(counts, (n, sh, cd)):
+            c.update(now)
+        launches, shapes, codes = (dict(c) for c in counts)
+        _check_attention_paths(shapes, codes)
+        _check_k2_k3_paths(shapes, codes)
+        steady = float(np.mean([r["seconds"] for r in rows[1:3]]))
+        row = {"card": smi, "train_task_seconds": train_s, "micro_steps": rows,
+               "seconds_per_micro_step_steady": steady,
+               "images_per_second": cfg.batch_size / steady,
+               "peak_memory_bytes": train_peak,
+               "k1_per_micro_step": rows[0]["k1"], "k2_per_micro_step": rows[0]["k2"],
+               "inpaint_micro_step_seconds_first": inpaint_s,
+               "pretrain_vae_seconds": vae_s, "serve_from_best_seconds": sec[0],
+               "twin_relative_differences": twin, "profile": steps[3].get("profile")}
+        log("train_json " + json.dumps(row))
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return {"launches": launches, "shapes": shapes, "codes": codes, **row}
+
+
 def phase_serve_sdxl():
     """config.SDXL at random, written in bf16 and served at 1024x1024 through
     RestorationPipeline from its own directory (no model_config given)."""
@@ -1631,7 +1946,7 @@ def _kernel_group(name: str, mma_label: str) -> str:
         return "K2 group_norm (onchip)"
     if "gn_stats_kernel" in name or "gn_apply_kernel" in name:
         return "K2 group_norm (twophase)"
-    if any(w in low for w in ("fprop", "conv", "implicit", "dgrad")):
+    if any(w in low for w in ("fprop", "conv", "implicit", "dgrad", "wgrad")):
         return "convolution (cuDNN)"
     if any(w in low for w in ("gemm", "cutlass", "nvjet")):
         return "matmul (cuBLAS)"
@@ -2157,6 +2472,7 @@ def main() -> int:
         results["serve_tasks"] = phase_serve_tasks(tmp, results["serve"])
         results["serve_modes"] = phase_serve_modes(tmp, results["serve"])
         results["evaluate"] = phase_evaluate(tmp, smi)
+        results["train"] = phase_train(tmp, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     results["serve_sdxl"] = phase_serve_sdxl()

@@ -212,19 +212,27 @@ def norm_module_names(module: torch.nn.Module):
 
 
 def save_pipeline(directory: str, modules: Mapping[str, torch.nn.Module], config,
-                  dtype: Optional[torch.dtype] = None) -> None:
+                  dtype: Optional[torch.dtype] = None, extra_meta: Optional[dict] = None,
+                  skip_existing=(), states: Optional[Mapping[str, Mapping]] = None) -> None:
     """Write ``modules`` ({component: nn.Module}) in the JAX pipeline layout,
-    each tensor cast to ``dtype`` when given."""
+    each tensor cast to ``dtype`` when given. ``states`` ({component: {name:
+    tensor}}) replaces a module's own tensors by name (the trainer's fp32
+    masters); a component in ``skip_existing`` whose file exists is not
+    written again; ``extra_meta`` joins model_index.json."""
     os.makedirs(directory, exist_ok=True)
     for comp, module in modules.items():
-        state = {k: (v.to(dtype) if dtype is not None else v)
-                 for k, v in module.state_dict().items()}
+        path = os.path.join(directory, comp, "model.safetensors")
+        if comp in skip_existing and os.path.exists(path):
+            continue
+        state = {**module.state_dict(), **((states or {}).get(comp) or {})}
+        state = {k: (v.to(dtype) if dtype is not None else v) for k, v in state.items()}
         flat = flax_from_params(state, norm_module_names(module))
-        save_safetensors(flat, os.path.join(directory, comp, "model.safetensors"))
+        save_safetensors(flat, path)
     meta = {
         "_framework": "image_restoration_and_enhancement_torch",
         "components": [c for c in COMPONENTS if c in modules],
         "config": dataclasses.asdict(config) if dataclasses.is_dataclass(config) else config,
+        **(extra_meta or {}),
     }
     with open(os.path.join(directory, "model_index.json"), "w") as f:
         json.dump(meta, f, indent=2, default=str)

@@ -95,6 +95,12 @@ class SDModules:
         (None: exact)."""
         layers.set_tome(self.unet, state)
 
+    def freeze_all_but_unet(self) -> None:
+        """Training: the UNet's parameters require grad, the VAE's and the text
+        encoders' do not (they stay frozen, as in the JAX trainer)."""
+        for name, module in self.components().items():
+            module.requires_grad_(name == "unet")
+
     @classmethod
     def create(cls, config: SDModelConfig, dtype: torch.dtype = torch.bfloat16,
                device: DeviceLike = None,
@@ -102,7 +108,8 @@ class SDModules:
         """Allocate the stack on ``device`` (``cuda`` unless ``"cpu"`` is asked for)
         with uninitialised weights: load a state dict or call ``init_random_``.
         ``attention_backend`` reaches every UNet attention site
-        (``ops/attention.py``); the VAE's attention is always exact."""
+        (``ops/attention.py``); the VAE's attention is always exact. Under
+        autograd the UNet checkpoints its blocks (``models/unet.py``)."""
         dev = resolve_device(device)
         with torch.device("meta"):
             unet = UNet2DCondition(config.unet, attention_backend).to(dtype, memory_format=CL)
@@ -156,6 +163,14 @@ def encode_image(modules: SDModules, image: torch.Tensor,
 def decode_latents(modules: SDModules, latents: torch.Tensor) -> torch.Tensor:
     img = modules.vae.decode(latents / modules.config.vae.scaling_factor)
     return torch.clamp(img, -1.0, 1.0)
+
+
+def mask_to_latents(mask: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+    """[B, H, W, 1] mask -> [B, h, w, 1] as jax.image.resize's "nearest", which
+    samples at the cells' centres: "nearest-exact", not "nearest" (the
+    top-left pixel of each cell)."""
+    return F.interpolate(mask.permute(0, 3, 1, 2), size=hw,
+                         mode="nearest-exact").permute(0, 2, 3, 1)
 
 
 def _denoise_loop(modules: SDModules, latents: torch.Tensor, context: torch.Tensor,
@@ -344,10 +359,7 @@ def make_inpaint_fn(modules: SDModules, num_inference_steps: int, strength: floa
         enc_noise, mask_enc_noise, step_noise = _noise(modules, image, generator, noise, 3)
         latents0 = encode_image(modules, image, enc_noise)
         masked_latents = encode_image(modules, image * (1.0 - mask), mask_enc_noise)
-        # jax.image.resize(..., "nearest") samples at the cells' centres:
-        # "nearest-exact", not "nearest" (the top-left pixel of each cell).
-        mask_lat = F.interpolate(mask.permute(0, 3, 1, 2), size=latents0.shape[1:3],
-                                 mode="nearest-exact").permute(0, 2, 3, 1)
+        mask_lat = mask_to_latents(mask, tuple(latents0.shape[1:3]))
         ac = sched.alphas_cumprod_tensor(cfg, dev)
         latents = sched.add_noise(ac, latents0, step_noise, plan.init_timestep)
         latents = _denoise_loop(modules, latents, prompt_ctx.to(dev),

@@ -6,9 +6,10 @@ Counterpart of the JAX package's ``core/schedulers.py``, with the same split:
    numpy arrays of per-call timesteps, previous timesteps and PLMS order codes,
    with diffusers' "leading" spacing, ``steps_offset`` and the img2img strength
    truncation baked in; the plan functions are copied unchanged;
-2. step functions on tensors. PyTorch runs the loop eagerly, so the PLMS
-   history is a small Python-side carry (``PlmsCarry``) and the order code
-   picks its combination with an ordinary branch.
+2. step functions on tensors (DDIM, PLMS, the ancestral DDPM step, and
+   ``pred_x0_from_eps`` for the training loss). PyTorch runs the loop
+   eagerly, so the PLMS history is a small Python-side carry (``PlmsCarry``)
+   and the order code picks its combination with an ordinary branch.
 
 All step math is fp32, as in the JAX functions.
 """
@@ -75,6 +76,15 @@ def add_noise(alphas_cumprod: torch.Tensor, sample: torch.Tensor, noise: torch.T
     ac = _at(alphas_cumprod, timesteps, sample)
     out = torch.sqrt(ac) * sample.float() + torch.sqrt(1.0 - ac) * noise.float()
     return out.to(sample.dtype)
+
+
+def pred_x0_from_eps(alphas_cumprod: torch.Tensor, sample: torch.Tensor, eps: torch.Tensor,
+                     timesteps) -> torch.Tensor:
+    """The x_0 estimate of an epsilon prediction (the L1 image loss's),
+    (x_t - sqrt(1 - a_bar_t) eps) / sqrt(a_bar_t), math in fp32."""
+    ac = _at(alphas_cumprod, timesteps, sample)
+    x0 = (sample.float() - torch.sqrt(1.0 - ac) * eps.float()) / torch.sqrt(ac)
+    return x0.to(sample.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -195,6 +205,26 @@ def ddim_step(alphas_cumprod: torch.Tensor, final_alpha: float, sample: torch.Te
     a_prev = _alpha_prev(alphas_cumprod, final_alpha, prev_t, sample)
     x0 = (sample - torch.sqrt(1.0 - a_t) * eps) / torch.sqrt(a_t)
     return torch.sqrt(a_prev) * x0 + torch.sqrt(1.0 - a_prev) * eps
+
+
+def ddpm_step(alphas_cumprod: torch.Tensor, sample: torch.Tensor, eps: torch.Tensor,
+              t, noise: torch.Tensor) -> torch.Tensor:
+    """Ancestral DDPM update with the fixed-small posterior variance, fp32.
+    ``t``: an int or an integer tensor ([B] or scalar); ``noise`` is the
+    standard-normal draw, added where t > 0."""
+    sample, eps = sample.float(), eps.float()
+    t = torch.as_tensor(t, device=alphas_cumprod.device).long()
+    expand = lambda v: v.reshape(v.shape + (1,) * (sample.dim() - v.dim()))  # noqa: E731
+    live = expand(t > 0)
+    a_t = expand(alphas_cumprod[t]).float()
+    a_prev = torch.where(live, expand(alphas_cumprod[(t - 1).clamp(min=0)]).float(), 1.0)
+    alpha_t = a_t / a_prev
+    beta_t = 1.0 - alpha_t
+    x0 = (sample - torch.sqrt(1.0 - a_t) * eps) / torch.sqrt(a_t)
+    mean = (torch.sqrt(a_prev) * beta_t / (1.0 - a_t) * x0
+            + torch.sqrt(alpha_t) * (1.0 - a_prev) / (1.0 - a_t) * sample)
+    var = torch.clamp(beta_t * (1.0 - a_prev) / (1.0 - a_t), min=1e-20)
+    return mean + torch.where(live, torch.sqrt(var) * noise.float(), 0.0)
 
 
 class PlmsCarry(NamedTuple):

@@ -15,14 +15,17 @@ Linear spatial projections (``use_linear_projection``) and the ``text_time``
 added conditioning (``add_embedding``: the pooled text concatenated with the
 sinusoidal embedding of the six micro-conditioning ids, added to the time
 embedding). ``cfg_dedup`` runs the CFG halves' shared prefix once (see
-``forward``).
+``forward``). Under autograd the down, mid and up blocks run under activation
+checkpointing, as the JAX module's ``remat`` (``_run_block``); serving, under
+``inference_mode``, runs them plainly.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import UNetConfig
 from .layers import (
@@ -60,11 +63,14 @@ class CrossAttnDownBlock(nn.Module):
             nn.ModuleList([Downsample2D(out_channels)]) if add_downsample else None
         )
 
-    def forward(self, x, t_emb, context, skips: List[torch.Tensor], cfg_dedup: bool = False):
-        """``cfg_dedup``: ``x`` arrives at half the batch of ``t_emb`` and
-        ``context``; the first resnet and self-attention run on it, and the
-        first transformer block duplicates it."""
+    def forward(self, x, t_emb, context, cfg_dedup: bool = False
+                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+        """Returns (x, this block's skip connections in order). ``cfg_dedup``:
+        ``x`` arrives at half the batch of ``t_emb`` and ``context``; the
+        first resnet and self-attention run on it, and the first transformer
+        block duplicates it."""
         half = x.shape[0]
+        skips = []
         for i, resnet in enumerate(self.resnets):
             dedup_here = cfg_dedup and i == 0
             x = resnet(x, t_emb[:half] if dedup_here else t_emb)
@@ -74,7 +80,7 @@ class CrossAttnDownBlock(nn.Module):
         if self.downsamplers is not None:
             x = self.downsamplers[0](x)
             skips.append(x)
-        return x
+        return x, tuple(skips)
 
 
 class UNetMidBlock(nn.Module):
@@ -119,9 +125,12 @@ class CrossAttnUpBlock(nn.Module):
         ) if cfg.attn_levels[level] else None
         self.upsamplers = nn.ModuleList([Upsample2D(out_channels)]) if add_upsample else None
 
-    def forward(self, x, skips: List[torch.Tensor], t_emb, context):
+    def forward(self, x, skips: Tuple[torch.Tensor, ...], t_emb, context):
+        """``skips``: this block's skip connections, deepest last (taken in
+        reverse). A tuple, not a list the block pops: a checkpointed block
+        runs twice, and the recompute must see the same skips."""
         for i, resnet in enumerate(self.resnets):
-            x = resnet(torch.cat([x, skips.pop()], dim=1), t_emb)
+            x = resnet(torch.cat([x, skips[-1 - i]], dim=1), t_emb)
             if self.attentions is not None:
                 x = self.attentions[i](x, context)
         if self.upsamplers is not None:
@@ -216,16 +225,29 @@ class UNet2DCondition(nn.Module):
         if cfg_dedup:
             # the up path takes this skip at the full batch; t_emb's rows are
             # equal across the halves (one timestep)
-            skips = [torch.cat([x, x], dim=0)]
+            skips = (torch.cat([x, x], dim=0),)
             t_emb = torch.cat([t_emb, t_emb], dim=0)
         else:
-            skips = [x]
+            skips = (x,)
+        run = self._run_block
         for i, block in enumerate(self.down_blocks):
-            x = block(x, t_emb, context, skips, cfg_dedup and i == 0)
-        x = self.mid_block(x, t_emb, context)
+            x, new_skips = run(block, x, t_emb, context, cfg_dedup and i == 0)
+            skips += new_skips
+        x = run(self.mid_block, x, t_emb, context)
         for block in self.up_blocks:
-            x = block(x, skips, t_emb, context)
+            n = len(block.resnets)
+            x = run(block, x, skips[-n:], t_emb, context)
+            skips = skips[:-n]
         if skips:
             raise RuntimeError("skip connection bookkeeping mismatch")
         x = self.conv_out(self.conv_norm_out(x))
         return to_nhwc(x).float()
+
+    def _run_block(self, block: nn.Module, *args):
+        """``block(*args)``; while autograd records, under activation
+        checkpointing (the JAX module's ``nn.remat`` of the down, mid and up
+        blocks, which its trainer always turns on): the block keeps only its
+        inputs, and the backward pass runs it again."""
+        if torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)

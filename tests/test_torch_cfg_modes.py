@@ -32,6 +32,7 @@ from image_restoration_and_enhancement_tpu.core import sampling as js
 from test_torch_inpaint import _hole
 from test_torch_sdxl import load_jax_weights
 from test_torch_serving import ATOL, _jax_encode_text, fill_params
+from test_torch_serving import one_torch_thread  # noqa: F401  (autouse)
 
 STEPS, STRENGTH = 10, 0.6  # 6 DDIM rows, 7 PLMS rows
 

@@ -29,7 +29,7 @@ from image_restoration_and_enhancement_tpu import config as JC
 from image_restoration_and_enhancement_tpu.core import checkpoint as jck
 from image_restoration_and_enhancement_tpu.core import sampling as js
 from scripts.import_weights import make_rehearsal_dir
-from test_torch_serving import fill_params
+from test_torch_serving import fill_params, one_torch_thread  # noqa: F401  (autouse)
 
 SD_ID = "sd-legacy/stable-diffusion-v1-5"
 

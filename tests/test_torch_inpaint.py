@@ -30,6 +30,7 @@ from image_restoration_and_enhancement_tpu.core import checkpoint as jck
 from image_restoration_and_enhancement_tpu.core import sampling as js
 from test_torch_models import ATOL as UNET_ATOL
 from test_torch_serving import ATOL, _jax_encode_text, fill_params
+from test_torch_serving import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

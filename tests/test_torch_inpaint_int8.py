@@ -52,6 +52,7 @@ from test_torch_inpaint import _hole
 from test_torch_models import ATOL as MODEL_ATOL
 from test_torch_sdxl import load_jax_weights
 from test_torch_serving import ATOL, _jax_encode_text, fill_params
+from test_torch_serving import one_torch_thread  # noqa: F401  (autouse)
 
 STEPS, STRENGTH, GS = 4, 1.0, 5.0
 LAYER_ROUNDINGS = 4

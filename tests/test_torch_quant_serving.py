@@ -49,6 +49,7 @@ from image_restoration_and_enhancement_tpu.core import sampling as js
 from image_restoration_and_enhancement_tpu.ops import conv_int8 as jconv
 from image_restoration_and_enhancement_tpu.ops import quant as jq
 from test_torch_serving import _jax_encode_text, fill_params
+from test_torch_serving import one_torch_thread  # noqa: F401  (autouse)
 
 STEPS = 4
 

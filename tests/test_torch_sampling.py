@@ -22,7 +22,7 @@ from image_restoration_and_enhancement_torch.core import schedulers as tsch
 from image_restoration_and_enhancement_torch.infer.pipeline import RestorationPipeline
 from image_restoration_and_enhancement_tpu import config as JC
 from image_restoration_and_enhancement_tpu.core import schedulers as jsch
-from test_torch_serving import check_img2img, stacks  # noqa: F401  (fixture)
+from test_torch_serving import check_img2img, one_torch_thread, stacks  # noqa: F401  (fixtures)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -87,14 +87,14 @@ def _port_files():
 
 
 def test_port_imports_no_jax():
-    """No module of the port and not chip_smoke.py imports jax, flax, the JAX
-    package or safetensors (the port has its own reader); at module top they
+    """No module of the port and not chip_smoke.py imports jax, flax, optax, the
+    JAX package or safetensors (the port has its own reader); at module top they
     import only torch, numpy, the standard library and the port itself, and
     so never PIL or cv2, which the card's machine lacks (the port has its own
     resizes and its PNG codec; cv2 is imported only inside the classical
     fallbacks, PIL only to decode image files for calibration and other
     formats than PNG, scipy only inside FID's matrix square root)."""
-    banned = ("jax", "flax", "image_restoration_and_enhancement_tpu", "safetensors")
+    banned = ("jax", "flax", "optax", "image_restoration_and_enhancement_tpu", "safetensors")
     not_at_top = ("PIL", "cv2", "safetensors")
     top_ok = {"torch", "numpy", "image_restoration_and_enhancement_torch"}
     top_ok |= set(sys.stdlib_module_names) | {"__future__"}
@@ -105,7 +105,10 @@ def test_port_imports_no_jax():
                    "metrics/perceptual.py", "metrics/inception.py", "metrics/calculator.py",
                    "metrics/evaluate.py", "data/png.py", "data/native.py", "data/datasets.py",
                    "data/degradations.py", "data/synthetic.py", "generate_predictions.py",
-                   "evaluate_model.py"):
+                   "evaluate_model.py", "train/loop.py", "train/optim.py", "train/trainer.py",
+                   "train/vae_pretrain.py", "train_cli.py", "train_denoising.py",
+                   "train_super_resolution.py", "train_colorization.py", "train_inpainting.py",
+                   "pretrain_vae.py"):
         assert port / module in files, module
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -37,7 +37,7 @@ from image_restoration_and_enhancement_tpu.infer.pipeline import (
     RestorationPipeline as JaxPipeline,
 )
 from test_torch_models import ATOL as MODEL_ATOL
-from test_torch_serving import ATOL, fill_params
+from test_torch_serving import ATOL, fill_params, one_torch_thread  # noqa: F401  (autouse)
 from test_torch_tasks import IMAGE_TOL
 
 

@@ -34,6 +34,18 @@ from image_restoration_and_enhancement_tpu.models.tokenizer import HashTokenizer
 ATOL = 2e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch on one thread for the whole module: TINY pipelines are thousands
+    of tiny ops, whose thread-pool barriers stall when the Tier-1 command's
+    parallel workers share the CPU's cores. Files that import this fixture
+    get it too."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 def fill_params(shapes, seed):
     """Random values for a flax parameter tree of ShapeDtypeStructs."""
     rng = np.random.default_rng(seed)

@@ -29,7 +29,7 @@ from image_restoration_and_enhancement_tpu.core import sampling as js
 from image_restoration_and_enhancement_tpu.infer.pipeline import (
     RestorationPipeline as JaxPipeline,
 )
-from test_torch_serving import fill_params
+from test_torch_serving import fill_params, one_torch_thread  # noqa: F401  (autouse)
 
 IMAGE_TOL = 1.0 / 127.5 + 1e-6
 

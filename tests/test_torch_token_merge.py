@@ -38,6 +38,7 @@ from image_restoration_and_enhancement_tpu.ops import token_merge as jtm
 from test_torch_models import ATOL as MODEL_ATOL
 from test_torch_sdxl import exported, load_jax_weights
 from test_torch_serving import ATOL, _jax_encode_text, fill_params
+from test_torch_serving import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("h,w", [(8, 8), (7, 5), (64, 64), (32, 48), (1, 3)])
