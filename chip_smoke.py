@@ -147,6 +147,32 @@ Phases (each prints its seconds; any failure exits non-zero):
               autograd. Prints seconds per micro-step (steady: the second
               and third), images/s, peak memory, K1/K2 launches per
               micro-step ("train_json").
+  tools       the single-device tools chained as a user runs them,
+              after train: 4 clean 512 px PNGs (port codec, seeded) under
+              data/clean/val; make_synthetic_pairs --splits val at its
+              defaults (the four task trees and file names, sr inputs
+              128x128, colorize inputs one channel, masks in {0, 255}, the
+              denoise noise's sigma estimated from the unclipped pixels
+              within [5, 8]); make_demo_data (4 images, 1 mask);
+              import_weights.make_rehearsal_dir(config.SD15) at full width
+              from a seeded CUDA generator (fp32, ~4 GiB), imported with
+              --sd15 to pretrained/sd15; goldens recorded with --device cpu
+              (fp32, 256 px probes) and checked on the card, every probe
+              within import_weights.THRESHOLDS (check_goldens' exit code)
+              and within GOLDEN_CARD_LIMITS (1e-4 each module, 2.5e-4
+              img2img: the card against the CPU, its max |delta| printed),
+              counts zeroed around the check: K1 on "simt" (fp32) at every
+              launch, K2 on its plan; one 512 px denoise request served from
+              the import (bf16, K1 32 x 11 + 2); eval_quant_quality on the
+              card (--n 4 --size 256 --batch 4 --modes int8,int8_static
+              --cfg_cache 2 --tome 0.5, IRET_TOME_MIN=1024 so that ToMe
+              merges the 32x32 latent's sites), counts zeroed around each of
+              its six runs: K1 in every run, K3 in the five quantized ones
+              and on "sm90" at every launch, K1 at the merged token count in
+              the ToMe and combo runs only, the path checks as in serve, and
+              no site missing from the int8_static table. Prints every
+              report line (random weights: no quality gate), seconds per
+              step ("tools_json").
   serve_sdxl  config.SDXL at random from a seeded CUDA generator (each
               component's parameter count asserted against SDXL_PARAMS,
               which tests/test_torch_sdxl.py holds against the JAX package),
@@ -1761,6 +1787,264 @@ def phase_train(tmp, smi: str):
     return {"launches": launches, "shapes": shapes, "codes": codes, **row}
 
 
+TOOLS_IMAGES = 4      # tools phase: clean images of the pair factory
+TOOLS_SIZE = 512
+GATE_SIZE = 256       # eval_quant_quality: --n 4 --size 256 --batch 4
+GATE_TOME_MIN = 1024  # IRET_TOME_MIN for the gate: ToMe merges the 32x32 latent's sites
+GATE_LABELS = ("bf16", "int8", "int8_static", "turbo(k=2)", "tome(0.5)", "combo(k2+t0.5)")
+SIGMA_PER_ABS = math.sqrt(math.pi / 2)  # sigma / E|z| of a normal z
+# Card against CPU on the fp32 probes, tighter than import_weights.THRESHOLDS
+# (the gate of a cross-framework import). An H100 80GB HBM3 at 700 W read
+# 4.1e-6 (text encoder), 1.8e-6 (VAE encode), 1.0e-5 (decode), 1.2e-5 (UNet)
+# and 2.8e-5 (img2img, five PLMS steps). The limits keep a margin of 8x or
+# more over those and lie below one rounding of an input to TF32's 10-bit
+# mantissa (4.9e-4 of its size) or to bf16's 7-bit one (3.9e-3), which a
+# probe that left fp32 would take at every product.
+GOLDEN_CARD_LIMITS = {"text_encoder": 1e-4, "vae_encode": 1e-4, "vae_decode": 1e-4,
+                      "unet": 1e-4, "img2img": 2.5e-4}
+
+
+def _check_fp32_paths(shapes, codes) -> None:
+    """The golden check's fp32 probes: every attention launch K1 in fp32
+    through "simt" (CUDA cores; the sm90 code takes bf16 only), every K2
+    launch on its plan."""
+    kernels = ATTENTION_KERNELS + ("int8_attention",)
+    n = 0
+    for (kernel, key), count in shapes.items():
+        if kernel in kernels:
+            if kernel != "attention" or key[5] != "torch.float32":
+                raise AssertionError(f"a {kernel} {key} launch among the fp32 probes")
+            n += count
+    got = {k: c for k, c in codes.items() if k[0] in kernels}
+    log(f"fp32 probe attention launches by path: {got}")
+    if got != {("attention", "simt"): n} or not n:
+        raise AssertionError(f"fp32 probe attention launches {got}, not {n} on simt")
+    _check_k2_k3_paths(shapes, codes, onchip_hw=0)
+
+
+def _tools_pairs(root):
+    """Steps 1-3: clean PNGs, make_synthetic_pairs --splits val, make_demo_data;
+    checks the layouts. Returns the denoise inputs' sigma estimates."""
+    import numpy as np
+
+    from image_restoration_and_enhancement_torch import make_demo_data, make_synthetic_pairs
+    from image_restoration_and_enhancement_torch.data.png import load_image, read_png, save_image
+
+    clean_dir = os.path.join(root, "data", "clean", "val")
+    os.makedirs(clean_dir)
+    names = [f"clean_{i}.png" for i in range(TOOLS_IMAGES)]
+    for name, img in zip(names, _clean_images(TOOLS_IMAGES, TOOLS_SIZE, SEED + 11)):
+        save_image(os.path.join(clean_dir, name), img)
+    pairs = os.path.join(root, "data", "pairs")
+    if make_synthetic_pairs.main(["--clean_root", os.path.dirname(clean_dir),
+                                  "--out_root", pairs, "--splits", "val"]) != 0:
+        raise AssertionError("make_synthetic_pairs failed")
+    layout = {"denoise": ("input", "gt"), "sr_x4": ("input", "gt"),
+              "colorize": ("input", "gt"), "inpaint": ("input", "gt", "mask")}
+    if sorted(os.listdir(pairs)) != sorted(layout):
+        raise AssertionError(f"pair tasks {sorted(os.listdir(pairs))}")
+    for task, kinds in layout.items():
+        split = os.path.join(pairs, task, "val")
+        if sorted(os.listdir(split)) != sorted(kinds):
+            raise AssertionError(f"{task}: {sorted(os.listdir(split))}, not {kinds}")
+        for kind in kinds:
+            if sorted(os.listdir(os.path.join(split, kind))) != names:
+                raise AssertionError(f"{task}/{kind}: {os.listdir(os.path.join(split, kind))}")
+    sigmas = []
+    for name in names:
+        gt = load_image(os.path.join(pairs, "denoise", "val", "gt", name)).astype(np.int64)
+        noisy = load_image(os.path.join(pairs, "denoise", "val", "input", name)).astype(np.int64)
+        keep = (gt >= 40) & (gt <= 215)   # 5 sigma from either end: no clipping
+        sigmas.append(float(np.abs(noisy - gt)[keep].mean() * SIGMA_PER_ABS))
+        lr = read_png(os.path.join(pairs, "sr_x4", "val", "input", name))
+        grey = read_png(os.path.join(pairs, "colorize", "val", "input", name))
+        mask = read_png(os.path.join(pairs, "inpaint", "val", "mask", name))
+        size = TOOLS_SIZE // 4
+        if lr.shape != (size, size, 3) or grey.shape != (TOOLS_SIZE,) * 2 \
+                or not set(np.unique(mask)) <= {0, 255}:
+            raise AssertionError(f"{name}: sr input {lr.shape}, colorize input {grey.shape}, "
+                                 f"mask values {np.unique(mask)[:5]}")
+    log(f"denoise inputs: sigma estimated from the unclipped pixels {sigmas}")
+    if not all(4.95 <= s <= 8.05 for s in sigmas):
+        raise AssertionError(f"denoise noise sigma {sigmas} outside [5, 8]")
+    demo = os.path.join(root, "demo")
+    if make_demo_data.main(["--out_root", demo]) != 0:
+        raise AssertionError("make_demo_data failed")
+    got = (sorted(os.listdir(os.path.join(demo, "images"))),
+           sorted(os.listdir(os.path.join(demo, "mask"))))
+    if got != ([f"demo_{i}.png" for i in range(4)], ["demo_3.png"]):
+        raise AssertionError(f"make_demo_data wrote {got}")
+    return pairs, sigmas
+
+
+def phase_tools(tmp, smi: str):
+    """The single-device tools chained as a user runs them (see the
+    docstring): pairs, demo data, a full-width SD-1.5 rehearsal imported to
+    pretrained/sd15, goldens recorded on the CPU and checked on the card, a
+    request served from the import, and eval_quant_quality's gate."""
+    import numpy as np
+    import torch
+
+    from image_restoration_and_enhancement_torch import config as C
+    from image_restoration_and_enhancement_torch import eval_quant_quality as eqq
+    from image_restoration_and_enhancement_torch import import_weights as iw
+    from image_restoration_and_enhancement_torch.core import checkpoint as ckpt
+    from image_restoration_and_enhancement_torch.core import sampling
+    from image_restoration_and_enhancement_torch.ops import _build, token_merge
+
+    with _Phase("tools"):
+        torch.cuda.empty_cache()
+        root = os.path.join(tmp, "tools")
+        seconds = {}
+        counts = [collections.Counter() for _ in range(3)]   # launches, shapes, codes
+
+        def add(launches, shapes, codes):
+            for c, now in zip(counts, (launches, shapes, codes)):
+                c.update(now)
+
+        @contextlib.contextmanager
+        def timed(name):
+            t0 = time.perf_counter()
+            yield
+            seconds[name] = time.perf_counter() - t0
+            log(f"tools {name}: {seconds[name]:.2f} s")
+
+        # 1-3. pairs and demo data (host numpy, no kernel)
+        with timed("pairs_and_demo"):
+            pairs, sigmas = _tools_pairs(root)
+
+        # 4. a full-width SD-1.5 rehearsal directory, imported with --sd15
+        with timed("rehearsal"):
+            reh, pre = os.path.join(root, "rehearsal"), os.path.join(root, "pretrained")
+            cfg = iw.make_rehearsal_dir(reh, C.SD15, seed=SEED + 12, device="cuda")
+            if cfg != C.SD15:
+                raise AssertionError("the SD-1.5 rehearsal changed the config")
+            torch.cuda.empty_cache()
+            reh_bytes = sum(os.path.getsize(os.path.join(d, f))
+                            for d, _, fs in os.walk(reh) for f in fs)
+        with timed("import"):
+            if iw.main(["--sd15", reh, "--pretrained_root", pre]) != 0:
+                raise AssertionError("import_weights --sd15 failed")
+            sd15 = os.path.join(pre, "sd15")
+            if ckpt.load_pipeline_model_config(sd15) != C.SD15:
+                raise AssertionError("the imported pipeline's config is not SD-1.5")
+            shutil.rmtree(reh)
+        log(f"rehearsal {reh_bytes / 2**30:.2f} GiB; free disk under {tmp}: "
+            f"{shutil.disk_usage(tmp).free / 2**30:.1f} GiB")
+
+        # 5. goldens: recorded on the CPU (fp32), checked on the card
+        goldens = os.path.join(root, "goldens")
+        with timed("record_goldens_cpu"):
+            if iw.main(["--pretrained_root", pre, "--record_goldens", goldens,
+                        "--device", "cpu"]) != 0:
+                raise AssertionError("import_weights --record_goldens failed")
+        with timed("check_goldens_card"):
+            probes = {}
+            real_probes = iw.run_our_probes
+
+            def kept_probes(*a, **kw):
+                probes.update(real_probes(*a, **kw))
+                return probes
+
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            with mock.patch.object(iw, "run_our_probes", kept_probes):
+                rc = iw.main(["--pretrained_root", pre, "--check_goldens", goldens])
+            torch.cuda.synchronize()
+        golden_launches = (dict(_build.launch_counts), dict(_build.launch_shapes),
+                           dict(_build.launch_paths))
+        ref = dict(np.load(os.path.join(goldens, "sd15_goldens.npz")))
+        deltas = {k: float(np.abs(v - ref[k]).max()) for k, v in probes.items()}
+        log(f"goldens, card against CPU, max |delta| by probe: {deltas} "
+            f"(limits {GOLDEN_CARD_LIMITS}; check_goldens' thresholds {iw.THRESHOLDS}); "
+            f"launches {golden_launches[0]}")
+        if rc != 0 or sorted(deltas) != sorted(iw.THRESHOLDS) \
+                or any(deltas[k] > GOLDEN_CARD_LIMITS[k] for k in deltas):
+            raise AssertionError(f"check_goldens on the card failed: rc {rc}, {deltas}")
+        for k in ("attention", "group_norm"):
+            if golden_launches[0].get(k, 0) <= 0:
+                raise AssertionError(f"the fp32 probes did not launch {k}")
+        _check_fp32_paths(*golden_launches[1:])
+        add(*golden_launches)
+        torch.cuda.empty_cache()
+
+        # 6. one 512 px denoise request from the imported pipeline (bf16)
+        with timed("serve_from_import"):
+            pipe = _pipeline(sd15)
+            image = np.random.default_rng(SEED + 13).integers(0, 256, (TOOLS_SIZE, TOOLS_SIZE, 3),
+                                                              dtype=np.uint8)
+            sec, _, n, sh, cd, _ = _serve_calls([(
+                "denoise served from the imported pretrained/sd15", lambda: pipe.denoise(image),
+                (TOOLS_SIZE, TOOLS_SIZE, 3))])
+            if n.get("attention", 0) != _k1_per_request("denoise"):
+                raise AssertionError(f"the imported stack's request launched K1 {n} times")
+            add(n, sh, cd)
+            del pipe
+            torch.cuda.empty_cache()
+
+        # 7. eval_quant_quality on the card; counts zeroed around each run
+        with timed("eval_quant_quality"):
+            runs, states = [], []
+            real_run, real_set_quant = eqq.run, sampling.SDModules.set_quant
+
+            def counted(*a, **kw):
+                torch.cuda.synchronize()
+                _build.reset_launch_counts()
+                out = real_run(*a, **kw)
+                torch.cuda.synchronize()
+                runs.append((dict(_build.launch_counts), dict(_build.launch_shapes),
+                             dict(_build.launch_paths)))
+                return out
+
+            def recorded(self, state):
+                if state is not None:
+                    states.append(state)
+                return real_set_quant(self, state)
+
+            argv = ["--checkpoint", sd15, "--pairs", os.path.join(pairs, "denoise", "val"),
+                    "--n", "4", "--size", str(GATE_SIZE), "--batch", "4",
+                    "--modes", "int8,int8_static", "--cfg_cache", "2", "--tome", "0.5"]
+            with mock.patch.object(eqq, "run", counted), \
+                    mock.patch.object(sampling.SDModules, "set_quant", recorded), \
+                    mock.patch.dict(os.environ, {"IRET_TOME_MIN": str(GATE_TOME_MIN)}):
+                if eqq.main(argv) != 0:
+                    raise AssertionError("eval_quant_quality failed")
+        if len(runs) != len(GATE_LABELS):
+            raise AssertionError(f"{len(runs)} gate runs, not {len(GATE_LABELS)}")
+        lat = GATE_SIZE // 8
+        merged = lat * lat - token_merge.merge_count(lat, lat, 0.5)
+        gate = {}
+        for label, (launches, shapes, codes) in zip(GATE_LABELS, runs):
+            k3 = launches.get("conv3x3_int8", 0)
+            tome_sites = sum(c for (k, key), c in shapes.items()
+                             if k == "attention" and key[1] == merged)
+            gate[label] = {"k1": launches.get("attention", 0), "k2": launches.get("group_norm", 0),
+                           "k3": k3, "k1_at_merged_tokens": tome_sites}
+            if launches.get("attention", 0) <= 0:
+                raise AssertionError(f"gate run {label}: K1 did not launch")
+            if (k3 > 0) != (label != "bf16"):
+                raise AssertionError(f"gate run {label}: K3 launched {k3} times")
+            if (tome_sites > 0) != label.startswith(("tome", "combo")):
+                raise AssertionError(f"gate run {label}: {tome_sites} K1 launches at "
+                                     f"{merged} merged tokens")
+            _check_attention_paths(shapes, codes)
+            _check_k2_k3_paths(shapes, codes, onchip_hw=lat * lat)
+            add(launches, shapes, codes)
+        static = [s for s in states if s.mode == "int8_static"]
+        missed = set().union(*(s.misses for s in static)) if static else {"(no static run)"}
+        log(f"gate launches by run: {gate}; int8_static states {len(static)}, "
+            f"sites missing from the table {sorted(missed)}")
+        if missed:
+            raise AssertionError(f"int8_static sites missed the table: {sorted(missed)[:5]}")
+        row = {"card": smi, "seconds": seconds, "denoise_sigma_estimates": sigmas,
+               "rehearsal_bytes": reh_bytes, "golden_max_abs_delta": deltas,
+               "serve_from_import_seconds": sec[0], "gate_launches": gate}
+        log("tools_json " + json.dumps(row))
+        shutil.rmtree(root, ignore_errors=True)
+        launches, shapes, codes = (dict(c) for c in counts)
+    return {"launches": launches, "shapes": shapes, "codes": codes, **row}
+
+
 def phase_serve_sdxl():
     """config.SDXL at random, written in bf16 and served at 1024x1024 through
     RestorationPipeline from its own directory (no model_config given)."""
@@ -2473,6 +2757,7 @@ def main() -> int:
         results["serve_modes"] = phase_serve_modes(tmp, results["serve"])
         results["evaluate"] = phase_evaluate(tmp, smi)
         results["train"] = phase_train(tmp, smi)
+        results["tools"] = phase_tools(tmp, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     results["serve_sdxl"] = phase_serve_sdxl()

@@ -95,6 +95,13 @@ class SDModules:
         (None: exact)."""
         layers.set_tome(self.unet, state)
 
+    def set_attn_int8(self, min_tokens: int = 0) -> None:
+        """Serve the UNet's and the VAE's default-backend attention with Nq and
+        Nk >= ``min_tokens`` by the plain s8 attention (0: off;
+        ``models/layers.set_attn_int8``)."""
+        for module in (self.unet, self.vae):
+            layers.set_attn_int8(module, min_tokens)
+
     def freeze_all_but_unet(self) -> None:
         """Training: the UNet's parameters require grad, the VAE's and the text
         encoders' do not (they stay frozen, as in the JAX trainer)."""

@@ -138,6 +138,16 @@ def set_tome(root: nn.Module, state: Optional[token_merge.TomeState]) -> None:
             m.tome = state
 
 
+def set_attn_int8(root: nn.Module, min_tokens: int = 0) -> None:
+    """Send every default-backend attention call under ``root`` (UNet sites
+    and the VAE's mid-block) whose Nq and Nk are at least ``min_tokens`` to
+    the plain s8 Q.K^T / P.V attention (``ops/attention.attention``'s
+    ``int8_min``). 0 turns it off."""
+    for m in root.modules():
+        if isinstance(m, (CrossAttention, VAEAttentionBlock)):
+            m.attn_int8_min = int(min_tokens)
+
+
 def assign_sites(root: nn.Module) -> None:
     """Give every quantized layer under ``root`` its flax module path as site."""
     for name, m in root.named_modules():
@@ -254,7 +264,10 @@ class Upsample2D(nn.Module):
 
 class CrossAttention(nn.Module):
     """Multi-head attention over tokens [B, N, C]; self-attention when context is None.
-    ``attention_backend`` selects the attention function (``ops/attention.py``)."""
+    ``attention_backend`` selects the attention function (``ops/attention.py``);
+    ``attn_int8_min`` (``set_attn_int8``) is its ``int8_min``."""
+
+    attn_int8_min: int = 0
 
     def __init__(self, query_dim: int, heads: int, head_dim: int,
                  context_dim: Optional[int] = None, attention_backend: Optional[str] = None):
@@ -274,7 +287,8 @@ class CrossAttention(nn.Module):
         q = self.to_q(x).view(b, nq, self.heads, self.head_dim)
         k = self.to_k(ctx).view(b, nk, self.heads, self.head_dim)
         v = self.to_v(ctx).view(b, nk, self.heads, self.head_dim)
-        o = attention(q, k, v, self.attention_backend).reshape(b, nq, self.heads * self.head_dim)
+        o = attention(q, k, v, self.attention_backend, self.attn_int8_min)
+        o = o.reshape(b, nq, self.heads * self.head_dim)
         return self.to_out[0](o)
 
 
@@ -385,7 +399,10 @@ class Transformer2D(nn.Module):
 
 
 class VAEAttentionBlock(nn.Module):
-    """Single-head self-attention over spatial tokens (VAE mid block)."""
+    """Single-head self-attention over spatial tokens (VAE mid block), on the
+    default attention backend; ``attn_int8_min`` as in ``CrossAttention``."""
+
+    attn_int8_min: int = 0
 
     def __init__(self, channels: int, groups: int = 32):
         super().__init__()
@@ -398,7 +415,9 @@ class VAEAttentionBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
         y = to_nhwc(self.group_norm(x)).view(b, h * w, 1, c)
-        o = attention(self.to_q(y), self.to_k(y), self.to_v(y)).view(b, h * w, c)
+        q, k, v = self.to_q(y), self.to_k(y), self.to_v(y)
+        o = attention(q, k, v, None, self.attn_int8_min)
+        o = o.view(b, h * w, c)
         o = self.to_out[0](o).view(b, h, w, c)
         return x + from_nhwc(o)
 

@@ -38,6 +38,13 @@ backend)`` picks the function as the JAX package's ``attention`` does:
 - ``"xla_int8"`` and ``"xla_int8_pv"``: the JAX package's plain XLA int8
   variants (s8 Q.K^T; s8 Q.K^T and s8 P.V), in plain PyTorch on any device.
 
+``int8_min`` (0: off) is the JAX package's ``IRET_ATTN_XLA_INT8_MIN`` as an
+argument: under the default backend (None), a call whose Nq and Nk are both at
+least ``int8_min`` computes ``xla_attention_int8_pv`` instead. It changes the
+function, not only the routing. The JAX package honours it on the TPU only;
+the port on every device. The model layers carry it
+(``models/layers.set_attn_int8``).
+
 For a kernel's backend a CUDA tensor goes to the kernel and a CPU tensor to
 its plain version; there is no other branch. Which device code of
 ``csrc/attention.cu`` serves K1, K5, K6a and K6b is ``kernel_path``'s answer,
@@ -575,15 +582,17 @@ def check_backend(backend: Optional[str]) -> None:
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              backend: Optional[str] = None) -> torch.Tensor:
+              backend: Optional[str] = None, int8_min: int = 0) -> torch.Tensor:
     """Multi-head softmax attention, [B, Nq, H, D] x [B, Nk, H, D] -> [B, Nq, H, D].
 
     ``backend``: None (K1 on the card, ``attention_reference`` on the CPU),
     "pallas" (K1), "xla" (``attention_reference`` everywhere), "flash" (K5),
     "pallas_packed" (K6b), "int8" (K4), "xla_int8" or "xla_int8_pv" (plain int8
-    variants)."""
+    variants). ``int8_min``: see the module docstring."""
     check_backend(backend)
     _check(q, k, v)
+    if backend is None and 0 < int8_min <= min(q.shape[1], k.shape[1]):
+        backend = "xla_int8_pv"
     return _BACKENDS[backend](q, k, v)
 
 

@@ -90,12 +90,13 @@ def test_port_imports_no_jax():
     """No module of the port and not chip_smoke.py imports jax, flax, optax, the
     JAX package or safetensors (the port has its own reader); at module top they
     import only torch, numpy, the standard library and the port itself, and
-    so never PIL or cv2, which the card's machine lacks (the port has its own
-    resizes and its PNG codec; cv2 is imported only inside the classical
-    fallbacks, PIL only to decode image files for calibration and other
-    formats than PNG, scipy only inside FID's matrix square root)."""
+    so never PIL, cv2 or gradio, which the card's machine lacks (the port has
+    its own resizes and its PNG codec; cv2 is imported only inside the
+    classical fallbacks and the JPEG degradation, PIL only to decode image
+    files for calibration and other formats than PNG, gradio only by the
+    app's interface, scipy only inside FID's matrix square root)."""
     banned = ("jax", "flax", "optax", "image_restoration_and_enhancement_tpu", "safetensors")
-    not_at_top = ("PIL", "cv2", "safetensors")
+    not_at_top = ("PIL", "cv2", "safetensors", "gradio")
     top_ok = {"torch", "numpy", "image_restoration_and_enhancement_torch"}
     top_ok |= set(sys.stdlib_module_names) | {"__future__"}
     files = _port_files()
@@ -108,7 +109,9 @@ def test_port_imports_no_jax():
                    "evaluate_model.py", "train/loop.py", "train/optim.py", "train/trainer.py",
                    "train/vae_pretrain.py", "train_cli.py", "train_denoising.py",
                    "train_super_resolution.py", "train_colorization.py", "train_inpainting.py",
-                   "pretrain_vae.py"):
+                   "pretrain_vae.py", "data/host_degradations.py", "make_synthetic_pairs.py",
+                   "make_demo_data.py", "import_weights.py", "eval_quant_quality.py",
+                   "utils/observability.py", "app.py"):
         assert port / module in files, module
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -156,7 +156,7 @@ def test_pipeline_kernel_failure_propagates(stacks, tmp_path, monkeypatch, caplo
     served by the OpenCV fallback."""
     pipe = _tiny_pipeline(stacks, tmp_path)
 
-    def failing_attention(q, k, v):
+    def failing_attention(*args):
         raise KernelError("attention kernel launch failed: cudaError 1 (invalid argument)")
 
     monkeypatch.setattr(tlayers, "attention", failing_attention)
@@ -174,7 +174,7 @@ def test_pipeline_falls_back_only_on_the_cpu(stacks, tmp_path, monkeypatch, capl
     failure of the SD run raises."""
     pipe = _tiny_pipeline(stacks, tmp_path)
 
-    def broken_attention(q, k, v):
+    def broken_attention(*args):
         raise ValueError("broken attention")
 
     monkeypatch.setattr(tlayers, "attention", broken_attention)
