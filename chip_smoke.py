@@ -173,6 +173,26 @@ Phases (each prints its seconds; any failure exits non-zero):
               no site missing from the int8_static table. Prints every
               report line (random weights: no quality gate), seconds per
               step ("tools_json").
+  demo        the restoration-learning demo chained as a user runs it, after
+              tools: the clean-image source (make_procedural_clean's
+              procedural_image, 2 images at 256 px from seed 42, written as
+              PNG and read back equal; its own JPEG output must raise an
+              error naming PIL with PIL hidden, and, where the machine has
+              PIL, write JPEG); then, counts zeroed
+              just before and read just after each run,
+              demo_restoration_learning at 64 px (the demo's published
+              stack: UNet (32, 64, 64, 64) with 4 heads, VAE (16, 32, 32,
+              32); 16 train and 8 val pairs at sigma 80, batch 8,
+              pretrain_vae 1 epoch, train_task 1 epoch, fp32), the summary's
+              input baseline against the same function on the CPU (1e-4
+              dB), demo_eval_sweep (the round trip, strength 0.1, a 2-seed
+              ensemble), probe_vae_roundtrip on the val pairs (fp32, its
+              input_vs_gt equal to the baseline) and summarize_workflow over
+              the artifacts (the epoch row and the logged baseline). K1 and
+              K2 launch counts per run must equal _demo_launches's (worked
+              out from the stack's modules and the runs' call counts); every
+              K1 launch on "simt" (fp32), every K2 launch on its plan
+              ("demo_json").
   serve_sdxl  config.SDXL at random from a seeded CUDA generator (each
               component's parameter count asserted against SDXL_PARAMS,
               which tests/test_torch_sdxl.py holds against the JAX package),
@@ -2045,6 +2065,230 @@ def phase_tools(tmp, smi: str):
     return {"launches": launches, "shapes": shapes, "codes": codes, **row}
 
 
+DEMO_SIZE = 64        # demo phase: the demo's published 64 px family
+DEMO_TRAIN, DEMO_VAL = 16, 8
+DEMO_BATCH = 8
+DEMO_STRENGTH, DEMO_ENSEMBLE, DEMO_STEPS = 0.1, 2, 20   # the sweep: one point, two seeds
+PROCEDURAL_IMAGES, PROCEDURAL_SIZE = 2, 256  # make_procedural_clean's defaults
+
+
+def _demo_launches(modules, plms_calls) -> dict:
+    """K1 and K2 launches of the demo phase's runs, worked out from the code:
+    one launch per CrossAttention / VAEAttentionBlock / FusedGroupNorm forward,
+    each module running once per forward of its model; under autograd the
+    UNet's down, mid and up blocks run again in the remat recompute. Per run:
+
+    - pretrain_vae: an encode and a decode per step (n_train // batch an
+      epoch) and per val batch (batch min(batch, 4));
+    - train_task: per micro-step the UNet forward and its blocks' recompute,
+      two posterior encodes and the L1 term's decode; per epoch the val
+      batches' img2img (batch min(batch, 8): an encode, ``plms_calls(0.6)``
+      UNet calls, a decode);
+    - the sweep: the round trip, the strength point and the ensemble's
+      samples, each one batch of the val images;
+    - the probe: a round trip per batch of inputs and of gts.
+    """
+    from image_restoration_and_enhancement_torch.models import layers
+
+    def count(module, cls):
+        return sum(isinstance(m, cls) for m in module.modules())
+
+    unet, vae = modules.unet, modules.vae
+    blocks = list(unet.down_blocks) + [unet.mid_block] + list(unet.up_blocks)
+    steps = DEMO_TRAIN // DEMO_BATCH      # per epoch, one epoch each
+    vae_val = -(-DEMO_VAL // min(DEMO_BATCH, 4))
+    task_val = -(-DEMO_VAL // min(DEMO_BATCH, 8))
+    per = {}
+    for kernel, cls in (("attention", (layers.CrossAttention, layers.VAEAttentionBlock)),
+                        ("group_norm", layers.FusedGroupNorm)):
+        u, enc, dec = count(unet, cls), count(vae.encoder, cls), count(vae.decoder, cls)
+        u_blocks = sum(count(b, cls) for b in blocks)
+        serve = lambda s: enc + plms_calls(s) * u + dec  # noqa: E731
+        per[kernel] = {
+            "pretrain_vae": (steps + vae_val) * (enc + dec),
+            "train_task": steps * (u + u_blocks + 2 * enc + dec) + task_val * serve(0.6),
+            "sweep": (enc + dec) + (1 + DEMO_ENSEMBLE) * serve(DEMO_STRENGTH),
+            "probe": 2 * -(-DEMO_VAL // 8) * (enc + dec),
+        }
+    return per
+
+
+def _procedural_source(root) -> str:
+    """The workflow's clean-image source on the card: make_procedural_clean's
+    images written as PNG and read back, and its own JPEG output, which goes
+    through PIL: without PIL (hidden here where the machine has it) the
+    script must raise an error naming PIL and write nothing; with PIL it
+    writes JPEG."""
+    import importlib.util
+
+    import numpy as np
+
+    from image_restoration_and_enhancement_torch import make_procedural_clean as mpc
+    from image_restoration_and_enhancement_torch.data.png import read_png, save_image
+
+    clean = os.path.join(root, "procedural", "val")
+    os.makedirs(clean)
+    rng = np.random.default_rng(42)
+    for i in range(PROCEDURAL_IMAGES):
+        img = mpc.procedural_image(rng, PROCEDURAL_SIZE)
+        path = os.path.join(clean, f"val_{i:06d}.png")
+        save_image(path, img)
+        if not np.array_equal(read_png(path), img):
+            raise AssertionError(f"{path} does not read back as written")
+    jpeg_root = os.path.join(root, "procedural_jpeg")
+    argv = ["--out_root", jpeg_root, "--num_train", "1", "--num_val", "0", "--num_test",
+            "0", "--size", "64"]
+    with mock.patch.dict(sys.modules, {"PIL": None}):
+        try:
+            mpc.main(argv)
+        except RuntimeError as e:
+            if "PIL" not in str(e):
+                raise AssertionError(f"make_procedural_clean's JPEG error names no PIL: {e}")
+            refused = str(e)
+        else:
+            raise AssertionError("make_procedural_clean wrote JPEG without PIL")
+    if any(fs for _, _, fs in os.walk(jpeg_root)):
+        raise AssertionError("make_procedural_clean wrote files without PIL")
+    if importlib.util.find_spec("PIL") is None:
+        return f"no PIL on this machine; JPEG refused: {refused}"
+    mpc.main(argv)
+    with open(os.path.join(jpeg_root, "train", "train_000000.jpg"), "rb") as f:
+        if f.read(2) != b"\xff\xd8":
+            raise AssertionError("make_procedural_clean did not write JPEG")
+    return f"PIL present: JPEG written; with PIL hidden, refused: {refused}"
+
+
+def phase_demo(tmp, smi: str):
+    """The restoration-learning demo chained as a user runs it, after tools
+    (see the docstring): the clean-image source, demo_restoration_learning at
+    64 px (16 train and 8 val pairs, one VAE and one task epoch), the input
+    baseline against the CPU's, demo_eval_sweep (one strength, two seeds),
+    probe_vae_roundtrip on the val pairs and summarize_workflow."""
+    import io
+
+    import torch
+
+    from image_restoration_and_enhancement_torch import demo_eval_sweep, probe_vae_roundtrip
+    from image_restoration_and_enhancement_torch import demo_restoration_learning as demo
+    from image_restoration_and_enhancement_torch import summarize_workflow
+    from image_restoration_and_enhancement_torch.core import sampling
+    from image_restoration_and_enhancement_torch.core import schedulers as sched
+    from image_restoration_and_enhancement_torch.ops import _build
+    from image_restoration_and_enhancement_torch.train import trainer, vae_pretrain
+
+    with _Phase("demo"):
+        torch.cuda.empty_cache()
+        root = os.path.join(tmp, "demo")
+        source = _procedural_source(root)
+        log(f"clean-image source: {PROCEDURAL_IMAGES} procedural {PROCEDURAL_SIZE} px PNGs "
+            f"read back equal; {source}")
+        out, art = os.path.join(root, "run"), os.path.join(root, "artifacts")
+        runs, seconds, counts = {}, {}, [collections.Counter() for _ in range(3)]
+
+        def run(name, fn):
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            runs[name] = (dict(_build.launch_counts), dict(_build.launch_shapes),
+                          dict(_build.launch_paths))
+            for c, now in zip(counts, runs[name]):
+                c.update(now)
+            log(f"demo {name}: {seconds[name]:.2f} s, launches {runs[name][0]}")
+            return result
+
+        # demo_restoration_learning, split at its stages to count each run
+        args = ["--out", out, "--size", str(DEMO_SIZE), "--n_train", str(DEMO_TRAIN),
+                "--n_val", str(DEMO_VAL), "--vae_epochs", "1", "--epochs", "1",
+                "--batch_size", str(DEMO_BATCH), "--device", "cuda", "--artifact_dir", art]
+        real_vae, real_train = vae_pretrain.pretrain_vae, trainer.train_task
+        with mock.patch.object(vae_pretrain, "pretrain_vae",
+                               lambda *a, **kw: run("pretrain_vae", lambda: real_vae(*a, **kw))), \
+                mock.patch.object(trainer, "train_task",
+                                  lambda *a, **kw: run("train_task", lambda: real_train(*a, **kw))):
+            if demo.main(args) != 0:
+                raise AssertionError("demo_restoration_learning failed")
+        with open(os.path.join(art, "summary.json")) as f:
+            summary = json.load(f)
+        cpu_base = round(demo.input_baseline(os.path.join(out, "pairs", "denoise", "val"),
+                                             "cpu"), 4)
+        log(f"demo summary {summary}; input baseline on the CPU {cpu_base}")
+        if abs(summary["input_baseline_psnr"] - cpu_base) > 1e-4:
+            raise AssertionError(f"input baseline {summary['input_baseline_psnr']} on the card, "
+                                 f"{cpu_base} on the CPU")
+        if summary["epochs"] != 1 or not math.isfinite(summary["best_psnr"]):
+            raise AssertionError(f"demo summary {summary}")
+
+        sweep_argv = ["--out", out, "--strengths", str(DEMO_STRENGTH), "--ensemble",
+                      str(DEMO_ENSEMBLE), "--steps", str(DEMO_STEPS), "--device", "cuda",
+                      "--artifact_dir", art]
+        if run("sweep", lambda: demo_eval_sweep.main(sweep_argv)) != 0:
+            raise AssertionError("demo_eval_sweep failed")
+        with open(os.path.join(art, "summary.json")) as f:
+            summary = json.load(f)
+        served = summary["serving_sweep"]
+        if sorted(served) != sorted(["vae_roundtrip", f"strength_{DEMO_STRENGTH:g}",
+                                     f"ensemble_{DEMO_ENSEMBLE}_strength_{DEMO_STRENGTH:g}"]) \
+                or not all(math.isfinite(v["psnr"]) for v in served.values()):
+            raise AssertionError(f"the sweep wrote {served}")
+
+        probe_out = io.StringIO()
+        probe_argv = ["--checkpoint", os.path.join(out, "vae_pretrained", "best"),
+                      "--pairs", os.path.join(out, "pairs", "denoise", "val"),
+                      "--n", str(DEMO_VAL), "--size", str(DEMO_SIZE), "--dtype", "float32",
+                      "--device", "cuda"]
+
+        def probe_run():
+            with contextlib.redirect_stdout(probe_out):
+                return probe_vae_roundtrip.main(probe_argv)
+
+        rc = run("probe", probe_run)
+        probe = json.loads(probe_out.getvalue().strip().splitlines()[-1])
+        log(f"probe {probe}")
+        if rc != 0 or probe["n"] != DEMO_VAL or \
+                abs(probe["input_vs_gt"] - summary["input_baseline_psnr"]) > 1e-3:
+            raise AssertionError(f"probe_vae_roundtrip: rc {rc}, {probe}")
+
+        table = summarize_workflow.summarize(art, os.path.join(root, "models"),
+                                             os.path.join(root, "evaluation_results.json"))
+        log("summarize_workflow:\n" + table)
+        row = next((line for line in table.splitlines() if line.startswith("| denoise |")), "")
+        cells = [c.strip() for c in row.strip("|").split("|")]
+        with open(os.path.join(art, "training_denoise.log")) as f:
+            lines = f.read().splitlines()
+        epoch_lines = [m for m in map(summarize_workflow.EPOCH_RE.search, lines) if m]
+        # one epoch: its row and the logged baseline (to 2 decimals; no warm
+        # epoch to take)
+        if len(cells) < 8 or cells[1] != "1" or not cells[5] \
+                or abs(float(cells[5]) - cpu_base) > 0.0051 or len(epoch_lines) != 1:
+            raise AssertionError(f"summarize_workflow: row {row!r}, {len(epoch_lines)} epoch "
+                                 "lines in the log")
+
+        # the launches the code works out for these runs
+        cpu_stack = sampling.SDModules.create(demo.demo_model_config(), torch.float32, "cpu")
+
+        def plms(strength):
+            return sched.plms_step_plan(cpu_stack.config.scheduler, DEMO_STEPS,
+                                        strength).num_calls
+
+        want = _demo_launches(cpu_stack, plms)
+        got = {k: {name: r[0].get(k, 0) for name, r in runs.items()} for k in want}
+        log(f"demo launches by run {got}, worked out {want}")
+        if got != want:
+            raise AssertionError(f"demo launches {got}, not {want}")
+        launches, shapes, codes = (dict(c) for c in counts)
+        if set(launches) != {"attention", "group_norm"}:
+            raise AssertionError(f"the demo launched {launches}")
+        _check_fp32_paths(shapes, codes)
+        row = {"card": smi, "seconds": seconds, "summary": summary, "probe": probe,
+               "launches_by_run": got, "clean_source": source}
+        log("demo_json " + json.dumps(row))
+        shutil.rmtree(root, ignore_errors=True)
+    return {"launches": launches, "shapes": shapes, "codes": codes, **row}
+
+
 def phase_serve_sdxl():
     """config.SDXL at random, written in bf16 and served at 1024x1024 through
     RestorationPipeline from its own directory (no model_config given)."""
@@ -2758,6 +3002,7 @@ def main() -> int:
         results["evaluate"] = phase_evaluate(tmp, smi)
         results["train"] = phase_train(tmp, smi)
         results["tools"] = phase_tools(tmp, smi)
+        results["demo"] = phase_demo(tmp, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     results["serve_sdxl"] = phase_serve_sdxl()

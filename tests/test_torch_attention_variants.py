@@ -37,7 +37,7 @@ from image_restoration_and_enhancement_tpu import config as JC
 from image_restoration_and_enhancement_tpu.core import checkpoint as jck
 from image_restoration_and_enhancement_tpu.core import sampling as js
 from image_restoration_and_enhancement_tpu.ops import attention as ja
-from test_torch_serving import ATOL, _jax_encode_text, fill_params
+from test_torch_serving import ATOL, _jax_encode_text, fill_params, one_torch_thread  # noqa: F401  (fixture)
 
 BF16_MIN_SHARE = 0.99
 

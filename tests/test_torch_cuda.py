@@ -77,6 +77,21 @@ from image_restoration_and_enhancement_torch.ops import groupnorm as G
 from image_restoration_and_enhancement_torch.ops import tolerance
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """Without a card, torch on one thread for the whole module: under the
+    Tier-1 command's parallel workers the CPU emulations' thread-pool
+    barriers stall on the shared cores. With a card, the CPU references keep
+    torch's default."""
+    if torch.cuda.is_available():
+        yield
+        return
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 def assert_within(got, ref, kernel):
     atol, rtol = tolerance.limits(ref, kernel)
     torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)

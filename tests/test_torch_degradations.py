@@ -25,6 +25,7 @@ from image_restoration_and_enhancement_torch.data import degradations as T
 from image_restoration_and_enhancement_torch.data import synthetic as TS
 from image_restoration_and_enhancement_tpu.data import degradations as J
 from image_restoration_and_enhancement_tpu.data import synthetic as JS
+from test_torch_serving import one_torch_thread  # noqa: F401  (fixture)
 
 H, W = 36, 44
 

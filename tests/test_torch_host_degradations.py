@@ -48,6 +48,7 @@ from image_restoration_and_enhancement_tpu.data import host_degradations as jhd
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
 import make_demo_data as j_demo  # noqa: E402
 import make_synthetic_pairs as j_pairs  # noqa: E402
+from test_torch_serving import one_torch_thread  # noqa: F401  (fixture)
 
 NOISE_ULPS = 4        # a differing noisy byte must lie this close to an integer
 CUBIC_SHARE, CUBIC_HALF = 5e-3, 1e-2

@@ -14,6 +14,7 @@ import torch
 
 from image_restoration_and_enhancement_torch.ops import image as T
 from image_restoration_and_enhancement_tpu.ops import image as J
+from test_torch_serving import one_torch_thread  # noqa: F401  (fixture)
 
 REL = 1e-5
 

@@ -16,6 +16,7 @@ from PIL import Image
 from image_restoration_and_enhancement_torch.infer import fallbacks as tfb
 from image_restoration_and_enhancement_torch.infer import imaging
 from image_restoration_and_enhancement_tpu.infer import fallbacks as jfb
+from test_torch_serving import one_torch_thread  # noqa: F401  (fixture)
 
 SIZES = [((96, 80), (48, 40)),      # down x2
          ((40, 52), (160, 208)),    # up x4

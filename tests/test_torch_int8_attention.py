@@ -27,6 +27,7 @@ import torch
 
 from image_restoration_and_enhancement_torch.ops import attention as ta
 from image_restoration_and_enhancement_tpu.ops import attention as ja
+from test_torch_serving import one_torch_thread  # noqa: F401  (fixture)
 
 
 def _qkv(b, nq, nk, h, d, seed, k_shift=0.0, scale=1.0):

@@ -32,6 +32,7 @@ from image_restoration_and_enhancement_tpu.metrics import evaluate as JE
 from image_restoration_and_enhancement_tpu.metrics import functional as JF
 from image_restoration_and_enhancement_tpu.metrics import perceptual as JP
 from test_torch_perceptual import jax_lpips_flat
+from test_torch_serving import one_torch_thread  # noqa: F401  (fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LIMITS = {"psnr": 1e-4, "ssim": 2e-6, "delta_e": 1e-4}

@@ -25,6 +25,7 @@ from image_restoration_and_enhancement_tpu import config as JC
 from image_restoration_and_enhancement_tpu.core import checkpoint as jck
 from image_restoration_and_enhancement_tpu.core import sampling as js
 from image_restoration_and_enhancement_tpu.models import layers as jl
+from test_torch_serving import one_torch_thread  # noqa: F401  (fixture)
 
 ATOL = 1e-4
 

@@ -20,6 +20,7 @@ from image_restoration_and_enhancement_torch.ops import attention as tattn
 from image_restoration_and_enhancement_torch.ops import groupnorm as tgn
 from image_restoration_and_enhancement_tpu.ops import attention as jattn
 from image_restoration_and_enhancement_tpu.ops import groupnorm as jgn
+from test_torch_serving import one_torch_thread  # noqa: F401  (fixture)
 
 ATTN_CASES = [
     (1, 64, 64, 2, 40),     # SD level-0 head_dim

@@ -22,6 +22,7 @@ from image_restoration_and_enhancement_torch.metrics import perceptual as TP
 from image_restoration_and_enhancement_tpu.core.checkpoint import flatten_params, unflatten_params
 from image_restoration_and_enhancement_tpu.metrics import inception as JI
 from image_restoration_and_enhancement_tpu.metrics import perceptual as JP
+from test_torch_serving import one_torch_thread  # noqa: F401  (fixture)
 
 
 def jax_lpips_flat(seed):

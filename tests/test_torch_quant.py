@@ -27,6 +27,7 @@ from image_restoration_and_enhancement_torch.ops import quant as tq
 from image_restoration_and_enhancement_tpu.models.layers import QConv, QDense
 from image_restoration_and_enhancement_tpu.ops import conv_int8 as jconv
 from image_restoration_and_enhancement_tpu.ops import quant as jq
+from test_torch_serving import one_torch_thread  # noqa: F401  (fixture)
 
 
 def _rng(seed):

@@ -16,7 +16,7 @@ import torch
 from image_restoration_and_enhancement_torch.models import rrdbnet as trr
 from image_restoration_and_enhancement_tpu.core import checkpoint as jck
 from image_restoration_and_enhancement_tpu.models import rrdbnet as jrr
-from test_torch_serving import fill_params
+from test_torch_serving import fill_params, one_torch_thread  # noqa: F401  (fixture)
 
 REL = 1e-4
 

@@ -111,7 +111,9 @@ def test_port_imports_no_jax():
                    "train_super_resolution.py", "train_colorization.py", "train_inpainting.py",
                    "pretrain_vae.py", "data/host_degradations.py", "make_synthetic_pairs.py",
                    "make_demo_data.py", "import_weights.py", "eval_quant_quality.py",
-                   "utils/observability.py", "app.py"):
+                   "utils/observability.py", "app.py", "make_procedural_clean.py",
+                   "demo_restoration_learning.py", "demo_eval_sweep.py",
+                   "probe_vae_roundtrip.py", "summarize_workflow.py"):
         assert port / module in files, module
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

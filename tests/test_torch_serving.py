@@ -64,9 +64,15 @@ def fill_params(shapes, seed):
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
+_ENCODERS = {}   # id(modules) -> (modules, jitted encode_text): one compile per stack
+
+
 def _jax_encode_text(jm, params, ids):
     # jitted: one compile instead of one per op of the eager flax apply
-    return jax.jit(lambda p, i: js.encode_text(jm, p, i))(params, jnp.asarray(ids))
+    entry = _ENCODERS.get(id(jm))
+    if entry is None or entry[0] is not jm:
+        entry = _ENCODERS[id(jm)] = (jm, jax.jit(lambda p, i: js.encode_text(jm, p, i)))
+    return entry[1](params, jnp.asarray(ids))
 
 
 @pytest.fixture(scope="module")
