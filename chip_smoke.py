@@ -2,7 +2,7 @@
 """Drive the PyTorch port on one NVIDIA H100 and hold its CUDA kernels against
 their plain PyTorch versions.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only multidevice]
 
 Phases (each prints its seconds; any failure exits non-zero):
   build       compile csrc/*.cu (one nvcc process per source, started together,
@@ -193,6 +193,35 @@ Phases (each prints its seconds; any failure exits non-zero):
               out from the stack's modules and the runs' call counts); every
               K1 launch on "simt" (fp32), every K2 launch on its plan
               ("demo_json").
+  multidevice multi-device serving, after demo: torch.cuda.device_count()
+              ranks (at most 4), one card each, over NCCL (parallel/launch.py
+              spawns them; each runs parallel/serve.run_cases), serve (a)
+              SD-1.5 img2img at full width, bf16, 512 px, batch 4, 20-step
+              DDIM with CFG (gs 7.5) through make_sharded_img2img_fn over a
+              (data 2, model 2) mesh, (b) the denoise task on one 2048 px
+              image through RestorationPipeline(mesh, spatial_axis="sp",
+              max_size=2048) over sp 4, and (c) make_sharded_inpaint_fn on
+              the SD-1.5-inpaint stack at 512 px, batch 2, over (data 2,
+              sp 2); two requests each. Each output (rank 0's; every rank
+              returns the whole image) is held against the same request
+              served unsharded on card 0 from the same weights, inputs and
+              generator seed (MD_MEAN_TOL, MD_PSNR_MIN: see their comment).
+              Launch counts are zeroed in every rank just before its
+              requests and read just after, and summed over the ranks: K1
+              and K2 launched, every K1 launch "sm90" / "sm90_split", K2 on
+              its plan, and K2's sharded entries (group_norm_stats,
+              group_norm_apply) launched. Prints request
+              seconds and peak memory by rank and the errors, each beside
+              the card's name and power limit ("multidevice_json"). With
+              one card, (a) and (c) run over (1, 1) meshes of one NCCL rank
+              (the sharded factories, the interleaved CFG layout, the NCCL
+              set-up and, through (c)'s sp axis of one, the height-sharded
+              code with zero halos and K2's sharded entries on the card,
+              each equal to the unsharded serve) and the log names the
+              four-card command. `python3 chip_smoke.py --only
+              multidevice` runs this phase alone (build, multidevice,
+              kernels); on a machine with four cards it is the multi-rank
+              check.
   serve_sdxl  config.SDXL at random from a seeded CUDA generator (each
               component's parameter count asserted against SDXL_PARAMS,
               which tests/test_torch_sdxl.py holds against the JAX package),
@@ -2289,6 +2318,155 @@ def phase_demo(tmp, smi: str):
     return {"launches": launches, "shapes": shapes, "codes": codes, **row}
 
 
+MD_SIZE = 512          # multidevice (a) and (c): 512 px
+MD_SP_SIZE = 2048      # multidevice (b): one 2048 px image over sp = 4
+MD_BATCH = 4           # (a): 4 images, 20-step DDIM, CFG
+MD_INPAINT_BATCH = 2   # (c): 2 images over (data 2, sp 2)
+# Sharded against unsharded, bf16 images in [-1, 1] ((a), (c)) or uint8 ((b)):
+# the ranks compute each output element from the same products, but the
+# tensor-parallel partial products are summed over the ranks (in fp32) and
+# rounded once more, GroupNorm's partials are reduced in another order, and
+# cuDNN may pick another algorithm for a shard's height; each such difference
+# of a bf16 rounding is carried through 20 (11) UNet calls of a random-weight
+# network. The limits: mean |delta| within MD_MEAN_TOL of the range and PSNR
+# over MD_PSNR_MIN dB (peak 2 for [-1, 1], 255 for uint8). A missing halo row
+# or a shard normalised with its own statistics gives whole rows of wrong
+# pixels (tests/test_torch_spatial.py holds the same paths in fp32 to 2e-4).
+MD_MEAN_TOL = 0.02
+MD_PSNR_MIN = 25.0
+
+
+def _md_stacks(tmp):
+    """The SD-1.5 and SD-1.5-inpaint bf16 stacks at ``tmp`` and ``tmp/inpaint``
+    (the serve phases' own; written here from the seed when absent)."""
+    import torch
+
+    from image_restoration_and_enhancement_torch import config as C
+    from image_restoration_and_enhancement_torch.core import checkpoint as ckpt
+    from image_restoration_and_enhancement_torch.core import sampling
+    from image_restoration_and_enhancement_torch.models.layers import init_random_
+
+    for path, cfg in ((tmp, C.SD15), (os.path.join(tmp, "inpaint"), C.SD15_INPAINT)):
+        if ckpt.pipeline_exists(path):
+            continue
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        mods = sampling.SDModules.create(cfg, torch.bfloat16, "cuda")
+        for m in mods.components().values():
+            init_random_(m, gen)
+        ckpt.save_pipeline(path, mods.components(), cfg, dtype=torch.bfloat16)
+        log(f"wrote the random bf16 stack {path} in {time.perf_counter() - t0:.2f} s")
+        del mods
+        torch.cuda.empty_cache()
+    return tmp, os.path.join(tmp, "inpaint")
+
+
+def _md_compare(name, got, want, peak: float):
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"multidevice {name}: output {got.shape}, not {want.shape}, "
+                             "or not finite")
+    err = np.abs(got - want)
+    psnr = _psnr(got, want, peak)
+    row = {"max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
+           "psnr_db": psnr, "mean_tol": MD_MEAN_TOL * peak, "psnr_min_db": MD_PSNR_MIN}
+    if not (row["mean_abs_err"] <= row["mean_tol"] and psnr >= MD_PSNR_MIN):
+        raise AssertionError(f"multidevice {name}: sharded disagrees with unsharded: {row}")
+    return row
+
+
+def phase_multidevice(tmp, smi: str):
+    """Multi-device serving (see the docstring): torch.cuda.device_count()
+    ranks (at most 4) over NCCL, one card each, serve (a) SD-1.5 img2img over
+    (data 2, model 2), (b) a 2048 px denoise through RestorationPipeline over
+    sp 4 and (c) SD-1.5-inpaint over (data 2, sp 2), each held against the
+    same request unsharded on card 0; with one card, (a) and (c) over (1, 1)
+    meshes.
+    Returns the ranks' launches (summed over the ranks) as the path's."""
+    import numpy as np
+    import torch
+
+    from image_restoration_and_enhancement_torch import config as C
+    from image_restoration_and_enhancement_torch.parallel import launch, serve
+
+    with _Phase("multidevice"):
+        n = min(torch.cuda.device_count(), 4)
+        sd15, inpaint_dir = _md_stacks(tmp)
+        rng = np.random.default_rng(SEED)
+        vocab = C.SD15.text_encoder.vocab_size  # CLIP's last id is its eos
+        ids = rng.integers(1, vocab - 1, (MD_BATCH, 77)).astype(np.int64)
+        uncond_ids = np.full((MD_BATCH, 77), vocab - 1, np.int64)
+        img = lambda b, s: rng.uniform(-1, 1, (b, s, s, 3)).astype(np.float32)  # noqa: E731
+        base = dict(dtype="bfloat16", requests=2)
+        dd = dict(num_inference_steps=20, strength=1.0, guidance_scale=7.5, sampler="ddim")
+        cases = {"a_img2img": dict(
+            base, config="sd15", weights=sd15, kind="img2img", sampling=dd,
+            mesh=((2, 2), ("data", "model")) if n == 4 else ((1, 1), ("data", "model")),
+            axes={"data_axis": "data", "model_axis": "model"},
+            inputs=dict(image=img(MD_BATCH, MD_SIZE), ids=ids, uncond_ids=uncond_ids,
+                        seed=SEED))}
+        mask = np.zeros((MD_INPAINT_BATCH, MD_SIZE, MD_SIZE, 1), np.float32)
+        mask[:, 128:384, 96:416] = 1.0
+        if n == 4:
+            cases["b_denoise_2048"] = dict(
+                base, weights=sd15, kind="denoise", mesh=((4,), ("sp",)),
+                axes={"spatial_axis": "sp"}, pipeline={"max_size": MD_SP_SIZE},
+                inputs=dict(image=rng.integers(0, 256, (MD_SP_SIZE, MD_SP_SIZE, 3),
+                                               dtype=np.uint8)))
+        # over one card a (1, 1) mesh: one shard of every sp-gated level, the
+        # height-sharded code (zero halos, K2's sharded entries) with no peer
+        cases["c_inpaint"] = dict(
+            base, config="sd15_inpaint", weights=inpaint_dir, kind="inpaint", sampling=dd,
+            mesh=((2, 2) if n == 4 else (1, 1), ("data", "sp")),
+            axes={"data_axis": "data", "spatial_axis": "sp"},
+            inputs=dict(image=img(MD_INPAINT_BATCH, MD_SIZE), mask=mask,
+                        ids=ids[:MD_INPAINT_BATCH], uncond_ids=uncond_ids[:MD_INPAINT_BATCH],
+                        seed=SEED + 1))
+        refs = {}
+        for name, case in cases.items():
+            refs[name] = serve.unsharded(case, "cuda:0")
+            log(f"multidevice {name} unsharded on card 0: request seconds "
+                f"{refs[name]['seconds']} ({smi})")
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = launch.launch(serve.run_cases, n, "nccl", (list(cases.values()),))
+        log(f"multidevice: {n} NCCL ranks served {len(cases)} cases in "
+            f"{time.perf_counter() - t0:.2f} s (start-up included)")
+        shapes, codes, summary = collections.Counter(), collections.Counter(), {}
+        for i, name in enumerate(cases):
+            per_rank = [r[i] for r in ranks]
+            for r in per_rank:
+                shapes.update(r["launch_shapes"])
+                codes.update(r["launch_paths"])
+            peak = 2.0 if cases[name]["kind"] != "denoise" else 255.0
+            summary[name] = {
+                "mesh": list(cases[name]["mesh"][0]), "axes": list(cases[name]["mesh"][1]),
+                "request_seconds_by_rank": [r["seconds"] for r in per_rank],
+                "unsharded_request_seconds": refs[name]["seconds"],
+                "peak_memory_bytes_by_rank": [r["peak_bytes"] for r in per_rank],
+                "collectives_by_rank": [r["collectives"] for r in per_rank],
+                **_md_compare(name, per_rank[0]["out"], refs[name]["out"], peak)}
+            log(f"multidevice {name}: " + json.dumps(summary[name]) + f" ({smi})")
+        shapes, codes = dict(shapes), dict(codes)
+        _check_attention_paths(shapes, codes)
+        _check_k2_k3_paths(shapes, codes, 0)  # (a)'s CFG batch 8 plans 64x64x960 twophase
+        launches = collections.Counter()
+        for (k, _), c in shapes.items():
+            launches[k] += c
+        for k in ("attention", "group_norm", "group_norm_stats", "group_norm_apply"):
+            if launches.get(k, 0) <= 0:
+                raise AssertionError(f"kernel {k} did not launch on the multidevice path")
+        if n < 4:
+            log(f"multidevice: {n} card(s): (a) and (c) over (1, 1) NCCL meshes only; the "
+                "multi-rank check is `python3 chip_smoke.py --only multidevice` on a "
+                "machine with four cards")
+        log("multidevice_json " + json.dumps({"ranks": n, "cases": summary,
+                                              "launches": dict(launches), "device": smi}))
+    return {"launches": dict(launches), "shapes": shapes, "codes": codes, "cases": summary}
+
+
 def phase_serve_sdxl():
     """config.SDXL at random, written in bf16 and served at 1024x1024 through
     RestorationPipeline from its own directory (no model_config given)."""
@@ -2657,6 +2835,73 @@ def _gn_case(key, gen):
             None, bare)
 
 
+def _gn_sharded_inputs(b, hh, ww, c, groups, dtype, gen, sp: int):
+    """A shard (the first of ``sp``) of a random NHWC tensor of ``sp`` times its
+    height, its affine, and the partials of all ``sp`` shards from the stats
+    kernel, in shard order."""
+    import torch
+
+    from image_restoration_and_enhancement_torch.ops import groupnorm as G
+
+    full = (torch.randn((b, hh * sp, ww, c), generator=gen, device="cuda") * 2 + 0.5
+            ).to(_dtype(dtype))
+    shards = [t.contiguous() for t in full.chunk(sp, dim=1)]
+    scale = torch.randn((c,), generator=gen, device="cuda") * 0.5 + 1.0
+    bias = torch.randn((c,), generator=gen, device="cuda") * 0.1
+    parts = torch.cat([G.group_norm_stats(t, groups) for t in shards], dim=1)
+    return shards[0], scale, bias, parts
+
+
+def _gn_stats_case(key, gen):
+    """K2's sharded stats entry on a shard against the plain per-slab sums."""
+    import torch
+
+    from image_restoration_and_enhancement_torch.ops import groupnorm as G
+
+    b, hh, ww, c, groups, dtype = key
+    x = (torch.randn((b, hh, ww, c), generator=gen, device="cuda") * 2 + 0.5).to(_dtype(dtype))
+    rows = G.twophase_plan(b, hh * ww, torch.cuda.get_device_properties(0)
+                           .multi_processor_count).rows_per_block
+    n = b * hh * ww * c
+    ops_s = 3.0 * n / PEAK_FLOPS[dtype]
+    nbytes = n * x.element_size() + b * (-(-hh * ww // rows)) * groups * 8
+    return (lambda: G.group_norm_stats(x, groups),
+            lambda: G.group_norm_stats_reference(x, groups, rows),
+            lambda: x.float().sum(dim=(1, 2)), ops_s, nbytes, None)
+
+
+def _gn_apply_case(key, gen):
+    """K2's sharded apply entry on a shard, with every shard's partials,
+    against the plain split's apply on the same partials. No PyTorch call
+    computes it: F.group_norm of the shard stands in as a yardstick."""
+    import torch.nn.functional as F
+
+    from image_restoration_and_enhancement_torch.ops import groupnorm as G
+
+    b, hh, ww, c, groups, eps, act, dtype, nparts = key
+    blocks = -(-hh * ww // G.twophase_plan(b, hh * ww, _sms()).rows_per_block)
+    x, scale, bias, parts = _gn_sharded_inputs(b, hh, ww, c, groups, dtype, gen,
+                                               nparts // blocks)
+    count = float(hh * (nparts // blocks) * ww * (c // groups))
+    n = b * hh * ww * c
+    ops_s = (9.0 if act == "silu" else 5.0) * n / PEAK_FLOPS[dtype]
+    nbytes = 2 * n * x.element_size() + 2 * c * 4 + parts.numel() * 4
+
+    def lib():
+        y = F.group_norm(x.permute(0, 3, 1, 2), groups, scale.to(x.dtype), bias.to(x.dtype), eps)
+        return F.silu(y) if act == "silu" else y
+
+    return (lambda: G.group_norm_apply(x, scale, bias, parts, count, groups, eps, act),
+            lambda: G.group_norm_apply_reference(x, scale, bias, parts, count, groups, eps, act),
+            lib, ops_s, nbytes, None)
+
+
+def _sms() -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def _bare_conv(x, wq, scale, dt, path, splits):
     """K3 through the C entry alone on ``path`` with ``splits`` (no Python
     wrapper; not counted as a launch): the wrapper's path and split, and
@@ -2777,6 +3022,7 @@ def _int8_attention_case(key, gen):
 
 
 _CASES = {"attention": _attention_case("attention"), "group_norm": _gn_case,
+          "group_norm_stats": _gn_stats_case, "group_norm_apply": _gn_apply_case,
           "conv3x3_int8": _conv_int8_case, "int8_attention": _int8_attention_case,
           "flash_attention": _attention_case("flash_attention"),
           "packed_attention": _attention_case("packed_attention"),
@@ -2804,6 +3050,12 @@ def phase_kernels(main):
         ("conv3x3_int8", (1, 5, 7, 24, 20, "torch.float32")),
         ("conv3x3_int8", (2, 8, 8, 1280, 1280, "torch.bfloat16")),
         ("group_norm", (1, 3, 5, 40, 8, 1e-5, "silu", "torch.bfloat16")),
+        # the sharded entries at a UNet shard of 512 px over sp 2 (the path's
+        # own shapes are added when it ran over several cards)
+        ("group_norm_stats", (2, 32, 64, 320, 32, "torch.bfloat16")),
+        ("group_norm_apply", (2, 32, 64, 320, 32, 1e-5, "silu", "torch.bfloat16",
+                              2 * -(-32 * 64 // G.twophase_plan(2, 32 * 64, _sms())
+                                    .rows_per_block))),
         ("int8_attention", (1, 4096, 77, 8, 40, "torch.bfloat16")),
         ("int8_attention", (1, 256, 77, 8, 40, "torch.float32")),
         ("int8_attention", (1, 1024, 1024, 8, 80, "torch.float32")),
@@ -2911,6 +3163,11 @@ _SOURCES = {
                               "image_restoration_and_enhancement_tpu/ops/attention.py:319"),
     "group_norm": ("image_restoration_and_enhancement_torch/csrc/groupnorm.cu",
                    "image_restoration_and_enhancement_tpu/ops/groupnorm.py:36"),
+    # K2's two-phase kernels as the height-sharded entries (global statistics)
+    "group_norm_stats": ("image_restoration_and_enhancement_torch/csrc/groupnorm.cu",
+                         "image_restoration_and_enhancement_tpu/ops/groupnorm.py:36"),
+    "group_norm_apply": ("image_restoration_and_enhancement_torch/csrc/groupnorm.cu",
+                         "image_restoration_and_enhancement_tpu/ops/groupnorm.py:36"),
     "conv3x3_int8": ("image_restoration_and_enhancement_torch/csrc/conv_int8.cu",
                      "image_restoration_and_enhancement_tpu/ops/conv_int8.py:47"),
     "int8_attention": ("image_restoration_and_enhancement_torch/csrc/attention.cu",
@@ -2969,6 +3226,12 @@ def _kernel_line(rows, paths, codes):
 
 
 def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Drive the port on the card (see the docstring).")
+    parser.add_argument("--only", choices=["multidevice"], default=None,
+                        help="run this phase alone (with the build and the kernels phase)")
+    only = parser.parse_args().only
     t_start = time.perf_counter()
     import torch
 
@@ -2990,6 +3253,13 @@ def main() -> int:
         f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
 
     phase_build()
+    if only == "multidevice":
+        tmp = tempfile.mkdtemp(prefix="iret_smoke_")
+        try:
+            results = {"multidevice": phase_multidevice(tmp, smi)}
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        return _finish(results, smi, t_start)
     phase_parity()
     tmp = tempfile.mkdtemp(prefix="iret_smoke_")
     try:
@@ -3003,9 +3273,17 @@ def main() -> int:
         results["train"] = phase_train(tmp, smi)
         results["tools"] = phase_tools(tmp, smi)
         results["demo"] = phase_demo(tmp, smi)
+        results["multidevice"] = phase_multidevice(tmp, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     results["serve_sdxl"] = phase_serve_sdxl()
+    return _finish(results, smi, t_start)
+
+
+def _finish(results, smi: str, t_start: float) -> int:
+    """The kernels phase on the paths' shapes, the kernels line, the last line."""
+    import torch
+
     paths = {name: r["shapes"] for name, r in results.items()}
     launches = {name: r["launches"] for name, r in results.items()}
     codes = collections.Counter()

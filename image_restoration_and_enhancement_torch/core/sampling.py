@@ -29,7 +29,18 @@ to the UNet's and VAE's quantized layers; ``make_calib_img2img_fn`` runs the
 img2img function under dynamic int8 and returns the per-site activation absmax
 that mode ``"int8_static"`` loads as its table.
 
-Not ported yet: the interleaved CFG layout (multi-device serving, ROADMAP M17).
+CFG layouts (``cfg_layout``): "halves" (the default, [all uncond; all cond],
+as diffusers) or "interleaved" ([img0 uncond, img0 cond, img1 uncond, ...]),
+which the sharded factories use so that each image's CFG pair stays on the
+rank that holds the image. Both compute the same function.
+
+Multi-device serving (``make_sharded_img2img_fn``, ``make_sharded_inpaint_fn``):
+every rank of a ``parallel/mesh.Mesh`` runs the same function on its share of
+the request: its rows of the batch over the data axis, its slices of the UNet's
+projections over the model axis (``parallel/sharding_rules.py``) and its rows of
+the image height over the spatial axis (``parallel/spatial.py``). Every rank
+draws the same global noise and slices it, so the output does not depend on the
+mesh; every rank returns the whole [B, H, W, 3] image.
 """
 from __future__ import annotations
 
@@ -50,6 +61,8 @@ from ..models.layers import CL
 from ..models.unet import UNet2DCondition
 from ..models.vae import AutoencoderKL
 from ..ops import quant, token_merge
+from ..parallel import collectives, sharding_rules, spatial
+from ..parallel.mesh import Mesh, shard_batch
 from . import schedulers as sched
 
 # encode_text's context, or encode_text_sdxl's (context, pooled) pair
@@ -185,15 +198,20 @@ def _denoise_loop(modules: SDModules, latents: torch.Tensor, context: torch.Tens
                   guidance_scale: float, sampler: str,
                   extra_channels: Optional[torch.Tensor] = None,
                   added_cond: Optional[Dict[str, torch.Tensor]] = None,
-                  cfg_dedup: bool = False, cfg_cache_interval: int = 1) -> torch.Tensor:
+                  cfg_dedup: bool = False, cfg_cache_interval: int = 1,
+                  cfg_layout: str = "halves") -> torch.Tensor:
     """The sampling loop: one (CFG-batched) UNet call per plan row.
     ``extra_channels`` (the inpaint mask and masked-image latents) ride along
     un-noised, concatenated to the latents before the CFG duplication.
     ``added_cond`` (SDXL) is broadcast to the batch and duplicated under CFG.
     ``cfg_dedup`` asks for the CFG prefix dedup (taken under CFG, not for
-    SDXL, and only with attention at level 0); ``cfg_cache_interval`` k > 1
-    for the CFG cache (taken under CFG without the dedup): see the module
+    SDXL, only with attention at level 0 and in the "halves" layout);
+    ``cfg_cache_interval`` k > 1 for the CFG cache (taken under CFG without
+    the dedup); ``cfg_layout`` "halves" or "interleaved": see the module
     docstring."""
+    if cfg_layout not in ("halves", "interleaved"):
+        raise ValueError(f"unknown cfg_layout {cfg_layout!r}")
+    interleaved = cfg_layout == "interleaved"
     cfg = modules.config.scheduler
     ac = sched.alphas_cumprod_tensor(cfg, latents.device)
     fa = sched.final_alpha_cumprod(cfg)
@@ -203,15 +221,19 @@ def _denoise_loop(modules: SDModules, latents: torch.Tensor, context: torch.Tens
     context = context.expand((b,) + context.shape[1:])
     if do_cfg:
         uncond = uncond_context.expand((b,) + uncond_context.shape[1:])
-        ctx_all = torch.cat([uncond, context], dim=0)
+        ctx_all = (torch.stack([uncond, context], dim=1).reshape((2 * b,) + context.shape[1:])
+                   if interleaved else torch.cat([uncond, context], dim=0))
     else:
         ctx_all = context
+    pair_up = ((lambda v: v.repeat_interleave(2, dim=0)) if interleaved
+               else (lambda v: torch.cat([v, v], dim=0)))
+    cond_rows = (lambda v: v[1::2]) if interleaved else (lambda v: v[b:])
     added_all = None
     if added_cond is not None:
         added_all = {k: v.expand((b,) + v.shape[1:]) for k, v in added_cond.items()}
         if do_cfg:
-            added_all = {k: torch.cat([v, v], dim=0) for k, v in added_all.items()}
-    dedup = (cfg_dedup and do_cfg and not modules.is_sdxl
+            added_all = {k: pair_up(v) for k, v in added_all.items()}
+    dedup = (cfg_dedup and do_cfg and not modules.is_sdxl and not interleaved
              and modules.config.unet.attn_levels[0])
     cache = int(cfg_cache_interval) > 1 and do_cfg and not dedup
 
@@ -221,7 +243,7 @@ def _denoise_loop(modules: SDModules, latents: torch.Tensor, context: torch.Tens
         the CFG pair when ``pair``."""
         model_in = lat if extra_channels is None else torch.cat([lat, extra_channels], dim=-1)
         if pair:
-            model_in = torch.cat([model_in, model_in], dim=0)
+            model_in = pair_up(model_in)
         ts = torch.full((model_in.shape[0],), int(t), dtype=torch.int32, device=lat.device)
         return modules.unet(model_in, ts, ctx, added, cfg_dedup=dedup_call)
 
@@ -230,7 +252,7 @@ def _denoise_loop(modules: SDModules, latents: torch.Tensor, context: torch.Tens
         eps = call(lat, t, ctx_all, added_all, pair=do_cfg and not dedup, dedup_call=dedup)
         if not do_cfg:
             return eps, None
-        eps_u, eps_c = eps.chunk(2, dim=0)
+        eps_u, eps_c = (eps[0::2], eps[1::2]) if interleaved else eps.chunk(2, dim=0)
         return eps_u + guidance_scale * (eps_c - eps_u), eps_u
 
     n_rows = len(plan.timesteps)
@@ -238,7 +260,7 @@ def _denoise_loop(modules: SDModules, latents: torch.Tensor, context: torch.Tens
     if cache:
         full = np.arange(n_rows) % int(cfg_cache_interval) == 0
         full[-1] = True  # the last step always refreshes the guidance
-    added_c = None if added_all is None else {k: v[b:] for k, v in added_all.items()}
+    added_c = None if added_all is None else {k: cond_rows(v) for k, v in added_all.items()}
     eps_u_prev = None
 
     def eps_at(i: int, lat: torch.Tensor, t: int) -> torch.Tensor:
@@ -248,7 +270,7 @@ def _denoise_loop(modules: SDModules, latents: torch.Tensor, context: torch.Tens
             if cache:  # both branches in fp32, as the JAX cache's lax.cond
                 eps, eps_u_prev = eps.float(), eps_u.float()
             return eps
-        eps_c = call(lat, t, ctx_all[b:], added_c).float()
+        eps_c = call(lat, t, cond_rows(ctx_all), added_c).float()
         return eps_u_prev + guidance_scale * (eps_c - eps_u_prev)
 
     lat = latents.float()
@@ -290,7 +312,7 @@ def _noise(modules: SDModules, image: torch.Tensor, generator: Optional[torch.Ge
 
 def make_img2img_fn(modules: SDModules, num_inference_steps: int, strength: float,
                     guidance_scale: float, sampler: str = "plms",
-                    cfg_cache_interval: int = 1) -> Callable:
+                    cfg_cache_interval: int = 1, cfg_layout: str = "halves") -> Callable:
     """Build fn(image, prompt_ctx, uncond_ctx, generator=None, noise=None) -> image.
 
     ``image`` is NHWC in [-1, 1]. The contexts come from ``encode_text``, or
@@ -300,8 +322,11 @@ def make_img2img_fn(modules: SDModules, num_inference_steps: int, strength: floa
     only by their context). ``noise`` = (posterior noise, add_noise noise),
     each shaped like the latents; without it both are drawn (fp32, standard
     normal, posterior first) from ``generator``. ``cfg_cache_interval`` > 1
-    turns on the CFG cache; ``IRET_CFG_DEDUP=1`` (read now) the dedup.
-    Returns the decoded image, NHWC fp32 in [-1, 1].
+    turns on the CFG cache; ``IRET_CFG_DEDUP=1`` (read now) the dedup;
+    ``cfg_layout`` orders the CFG batch. Returns the decoded image, NHWC fp32
+    in [-1, 1]. Under a height-sharding policy (``parallel/spatial.py``) the
+    inputs are whole, each rank computes on its rows of them and the image is
+    gathered whole.
     """
     cfg = modules.config.scheduler
     plan_fn = sched.plms_step_plan if sampler == "plms" else sched.ddim_step_plan
@@ -322,21 +347,24 @@ def make_img2img_fn(modules: SDModules, num_inference_steps: int, strength: floa
             added = {"text_embeds": pooled.to(dev),
                      "time_ids": sdxl_time_ids(pooled.shape[0], image.shape[1], dev)}
         enc_noise, step_noise = _noise(modules, image, generator, noise)
-        latents0 = encode_image(modules, image, enc_noise)
+        spatial.request(image.shape[1], enc_noise.shape[1])
+        enc_noise, step_noise = spatial.scatter_rows(enc_noise), spatial.scatter_rows(step_noise)
+        latents0 = encode_image(modules, spatial.scatter_rows(image), enc_noise)
         ac = sched.alphas_cumprod_tensor(cfg, dev)
         latents = sched.add_noise(ac, latents0, step_noise, plan.init_timestep)
         latents = _denoise_loop(modules, latents, prompt_ctx.to(dev),
                                 None if uncond_ctx is None else uncond_ctx.to(dev),
                                 plan, guidance_scale, sampler, added_cond=added,
-                                cfg_dedup=dedup, cfg_cache_interval=cfg_cache_interval)
-        return decode_latents(modules, latents)
+                                cfg_dedup=dedup, cfg_cache_interval=cfg_cache_interval,
+                                cfg_layout=cfg_layout)
+        return spatial.gather_rows(decode_latents(modules, latents), image.shape[1])
 
     return fn
 
 
 def make_inpaint_fn(modules: SDModules, num_inference_steps: int, strength: float,
                     guidance_scale: float, sampler: str = "ddim",
-                    cfg_cache_interval: int = 1) -> Callable:
+                    cfg_cache_interval: int = 1, cfg_layout: str = "halves") -> Callable:
     """Build fn(image, mask, prompt_ctx, uncond_ctx, generator=None, noise=None) -> image.
 
     The diffusers 9-channel layout at every step: [latents (4), mask (1),
@@ -344,9 +372,10 @@ def make_inpaint_fn(modules: SDModules, num_inference_steps: int, strength: floa
     [B, H, W, 1] in {0, 1}, 1 = the hole to fill. ``noise`` = (image posterior
     noise, masked-image posterior noise, add_noise noise), each shaped like
     the latents; without it all three are drawn in that order from
-    ``generator``. ``cfg_cache_interval`` and ``IRET_CFG_DEDUP`` as in
-    ``make_img2img_fn``. An SD-1.5(-inpaint) stack only, as in the JAX
-    package. Returns the decoded image, NHWC fp32 in [-1, 1].
+    ``generator``. ``cfg_cache_interval``, ``cfg_layout``, ``IRET_CFG_DEDUP``
+    and height sharding as in ``make_img2img_fn``. An SD-1.5(-inpaint) stack
+    only, as in the JAX package. Returns the decoded image, NHWC fp32 in
+    [-1, 1].
     """
     if modules.is_sdxl:
         raise ValueError("the inpaint function takes an SD-1.5 stack, not SDXL")
@@ -363,18 +392,23 @@ def make_inpaint_fn(modules: SDModules, num_inference_steps: int, strength: floa
         dev = modules.device
         image = image.to(dev, torch.float32)
         mask = mask.to(dev, torch.float32)
-        enc_noise, mask_enc_noise, step_noise = _noise(modules, image, generator, noise, 3)
-        latents0 = encode_image(modules, image, enc_noise)
-        masked_latents = encode_image(modules, image * (1.0 - mask), mask_enc_noise)
-        mask_lat = mask_to_latents(mask, tuple(latents0.shape[1:3]))
+        enc_noise, mask_enc_noise, step_noise = (
+            spatial.scatter_rows(n) for n in _noise(modules, image, generator, noise, 3))
+        lat_hw = latent_shape(modules, image.shape)[1:3]
+        spatial.request(image.shape[1], lat_hw[0])
+        latents0 = encode_image(modules, spatial.scatter_rows(image), enc_noise)
+        masked_latents = encode_image(modules, spatial.scatter_rows(image * (1.0 - mask)),
+                                      mask_enc_noise)
+        mask_lat = spatial.scatter_rows(mask_to_latents(mask, lat_hw))
         ac = sched.alphas_cumprod_tensor(cfg, dev)
         latents = sched.add_noise(ac, latents0, step_noise, plan.init_timestep)
         latents = _denoise_loop(modules, latents, prompt_ctx.to(dev),
                                 None if uncond_ctx is None else uncond_ctx.to(dev),
                                 plan, guidance_scale, sampler,
                                 extra_channels=torch.cat([mask_lat, masked_latents], dim=-1),
-                                cfg_dedup=dedup, cfg_cache_interval=cfg_cache_interval)
-        return decode_latents(modules, latents)
+                                cfg_dedup=dedup, cfg_cache_interval=cfg_cache_interval,
+                                cfg_layout=cfg_layout)
+        return spatial.gather_rows(decode_latents(modules, latents), image.shape[1])
 
     return fn
 
@@ -410,3 +444,107 @@ def make_calib_img2img_fn(modules: SDModules, num_inference_steps: int, strength
         return out, dict(zip(names, values))
 
     return fn
+
+
+def make_sharded_img2img_fn(modules: SDModules, mesh: Mesh, num_inference_steps: int,
+                            strength: float, guidance_scale: float, sampler: str = "plms",
+                            data_axis: Optional[str] = "data",
+                            model_axis: Optional[str] = None,
+                            spatial_axis: Optional[str] = None,
+                            cfg_cache_interval: int = 1):
+    """Multi-device serving: ``make_img2img_fn`` run by every rank of ``mesh``.
+
+    ``data_axis`` shards the image batch (and per-image contexts) over that
+    axis; None replicates it (one image served by a spatial or model mesh).
+    The loop uses the "interleaved" CFG layout, so each image's pair stays on
+    its rank and pure data parallelism calls no collective inside the loop.
+    ``model_axis`` makes the UNet's projections tensor parallel over it
+    (Megatron-style, ``parallel/sharding_rules.py``; the collectives are the
+    row-parallel products' all-reduces). ``spatial_axis`` shards the image
+    height over it under the level-gated policy of ``parallel/spatial.py``
+    (halo rows, global GroupNorm statistics, gathered K/V); the image height
+    must divide by its size. int8 and ToMe under a mesh are not ported (ROADMAP
+    M17b) and raise.
+
+    Returns (fn, shard_params_fn): call ``shard_params_fn()`` once (it makes
+    ``modules`` this rank's part, in place, and returns them), then
+    ``fn(image, prompt_ctx, uncond_ctx, generator=None, noise=None)`` on every
+    rank with the global batch (divisible by the data-axis size) and the same
+    generator state or noise; it returns the whole [B, H, W, 3] image on every
+    rank.
+    """
+    inner = make_img2img_fn(modules, num_inference_steps, strength, guidance_scale, sampler,
+                            cfg_cache_interval=cfg_cache_interval, cfg_layout="interleaved")
+    return _shard_serving_fn(modules, mesh, inner, data_axis, model_axis, spatial_axis,
+                             n_spatial_args=1, n_noise=2)
+
+
+def make_sharded_inpaint_fn(modules: SDModules, mesh: Mesh, num_inference_steps: int,
+                            strength: float, guidance_scale: float, sampler: str = "ddim",
+                            data_axis: Optional[str] = "data",
+                            model_axis: Optional[str] = None,
+                            spatial_axis: Optional[str] = None,
+                            cfg_cache_interval: int = 1):
+    """Multi-device inpaint serving: ``make_inpaint_fn`` over ``mesh``, with the
+    layout contract of ``make_sharded_img2img_fn``; the mask shards like the
+    image. Returns (fn, shard_params_fn) with
+    ``fn(image, mask, prompt_ctx, uncond_ctx, generator=None, noise=None)``."""
+    inner = make_inpaint_fn(modules, num_inference_steps, strength, guidance_scale, sampler,
+                            cfg_cache_interval=cfg_cache_interval, cfg_layout="interleaved")
+    return _shard_serving_fn(modules, mesh, inner, data_axis, model_axis, spatial_axis,
+                             n_spatial_args=2, n_noise=3)
+
+
+def _check_mesh_modes(modules: SDModules) -> None:
+    if modules.quant is not None and modules.quant.active:
+        raise NotImplementedError(f"int8 serving ({modules.quant.mode}) under a mesh is not "
+                                  "ported yet: ROADMAP M17b")
+    if any(getattr(m, "tome", None) is not None and m.tome.active
+           for m in modules.unet.modules()):
+        raise NotImplementedError("token merging under a mesh is not ported yet: ROADMAP M17b")
+
+
+def _shard_serving_fn(modules: SDModules, mesh: Mesh, inner: Callable,
+                      data_axis: Optional[str], model_axis: Optional[str],
+                      spatial_axis: Optional[str], n_spatial_args: int, n_noise: int):
+    """The sharding wrapper the serving factories share. ``inner(*spatial_args,
+    prompt_ctx, uncond_ctx, noise=...)``: the first ``n_spatial_args`` tensors
+    are [B, H, ...] and shard over (data_axis, spatial_axis), the contexts over
+    data_axis; ``n_noise`` latent-shaped noise tensors."""
+    _check_mesh_modes(modules)
+    sp_size = mesh.size(spatial_axis)
+    data_group = mesh.group(data_axis) if data_axis is not None else None
+
+    def shard_params_fn() -> SDModules:
+        if model_axis is not None:
+            sharding_rules.shard_module(modules.unet, mesh, model_axis)
+        return modules
+
+    def local_ctx(ctx, batch: int):
+        if ctx is None or data_axis is None:
+            return ctx
+        if isinstance(ctx, tuple):
+            return tuple(local_ctx(c, batch) for c in ctx)
+        return shard_batch(ctx, mesh, data_axis) if ctx.shape[0] == batch else ctx
+
+    def fn(*args, generator: Optional[torch.Generator] = None,
+           noise: Optional[Tuple[torch.Tensor, ...]] = None) -> torch.Tensor:
+        spatial_args = args[:n_spatial_args]
+        prompt_ctx, uncond_ctx = args[n_spatial_args:]
+        image = spatial_args[0]
+        if sp_size > 1 and image.shape[1] % sp_size:
+            raise ValueError(f"spatial sharding: image height {image.shape[1]} must divide by "
+                             f"the {spatial_axis!r} axis size {sp_size} (uneven input shards)")
+        batch = image.shape[0]
+        noise = _noise(modules, image, generator, noise, n_noise)
+        spatial_args = tuple(shard_batch(a, mesh, data_axis) for a in spatial_args)
+        noise = tuple(shard_batch(n, mesh, data_axis) for n in noise)
+        ctxs = local_ctx(prompt_ctx, batch), local_ctx(uncond_ctx, batch)
+        if spatial_axis is None:
+            out = inner(*spatial_args, *ctxs, noise=noise)
+        else:
+            with spatial.spatial_sharding(mesh, spatial_axis):
+                out = inner(*spatial_args, *ctxs, noise=noise)
+        return collectives.all_gather(out, data_group, 0)
+
+    return fn, shard_params_fn

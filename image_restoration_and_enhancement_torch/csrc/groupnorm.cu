@@ -42,6 +42,14 @@
 //   partials in the same fixed order (the finalize is folded into it) and
 //   writes y from a second read of x.
 //
+// Height-sharded GroupNorm (parallel/spatial.py in the port) runs the twophase
+// kernels as two entries of their own, with the partials in a tensor the
+// caller owns: iret_group_norm_stats writes a shard's [B][blocks][G] pairs;
+// the caller all-gathers the shards' partials into [B][P][G] in (rank, block)
+// order; iret_group_norm_apply reduces those P partials in the same fixed order
+// as the unsharded apply reduces its blocks, with the global element count
+// H_global * W * C / G, and writes y from the shard's x.
+//
 // A thread owns one 16-byte vector of channels (8 bf16 or 4 fp32) and walks
 // every rsplit-th row of the slab, so no index is divided per element and a
 // warp reads or writes contiguous bytes. A vector may straddle two groups
@@ -354,7 +362,8 @@ gn_onchip_kernel(const T* __restrict__ x, const W* __restrict__ scale,
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gn_stats_kernel(const T* __restrict__ x, int HW, int C, int G, int rows_per_block) {
+gn_stats_kernel(const T* __restrict__ x, float2* part, int HW, int C, int G,
+                int rows_per_block) {
   extern __shared__ __align__(128) unsigned char smem[];
   float2* red = reinterpret_cast<float2*>(smem);
   const int b = blockIdx.y;
@@ -364,14 +373,16 @@ gn_stats_kernel(const T* __restrict__ x, int HW, int C, int G, int rows_per_bloc
   constexpr int VE = Vec<T>::N;
   channel_sums<T>([&](int r, int v) { return load_global(xb + (int64_t)r * C + v * VE); },
                   rows, C, red);
-  group_partials(red, C, G, g_partials + ((int64_t)b * gridDim.x + blockIdx.x) * G);
+  group_partials(red, C, G,
+                 (part ? part : g_partials) + ((int64_t)b * gridDim.x + blockIdx.x) * G);
 }
 
 template <typename T, typename W, bool kSilu>
 __global__ void __launch_bounds__(kThreads)
 gn_apply_kernel(const T* __restrict__ x, const W* __restrict__ scale,
-                const W* __restrict__ bias, T* __restrict__ y, int HW, int C, int G,
-                int rows_per_block, float eps) {
+                const W* __restrict__ bias, const float2* part, int nparts,
+                T* __restrict__ y, int HW, int C, int G, int rows_per_block, float count,
+                float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float2 stat[kMaxGroups];
   float2* wb = reinterpret_cast<float2*>(smem);
@@ -379,8 +390,8 @@ gn_apply_kernel(const T* __restrict__ x, const W* __restrict__ scale,
   const int r0 = blockIdx.x * rows_per_block;
   const int rows = min(rows_per_block, HW - r0);
   const int64_t off = ((int64_t)b * HW + r0) * C;
-  fold_affine(g_partials + (int64_t)b * gridDim.x * G, gridDim.x, C, G, (float)HW * (C / G),
-              eps, load_affine(scale, bias, C), wb, stat);
+  fold_affine((part ? part : g_partials) + (int64_t)b * nparts * G, nparts, C, G, count, eps,
+              load_affine(scale, bias, C), wb, stat);
   const T* xb = x + off;
   constexpr int VE = Vec<T>::N;
   apply_rows<T, kSilu>([&](int r, int v) { return load_global(xb + (int64_t)r * C + v * VE); },
@@ -405,11 +416,13 @@ cudaError_t launch(int path, const void* xv, const void* sv, const void* bv, voi
     return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), grid,
                                        dim3(kThreads), args, smem, stream);
   }
-  gn_stats_kernel<T><<<grid, kThreads, kRedBytes, stream>>>(x, HW, C, G, rows_per_block);
+  // nullptr: the kernels use the file-scope g_partials
+  gn_stats_kernel<T><<<grid, kThreads, kRedBytes, stream>>>(x, nullptr, HW, C, G,
+                                                            rows_per_block);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   gn_apply_kernel<T, W, kSilu><<<grid, kThreads, C * sizeof(float2), stream>>>(
-      x, scale, bias, y, HW, C, G, rows_per_block, eps);
+      x, scale, bias, nullptr, grid.x, y, HW, C, G, rows_per_block, (float)HW * (C / G), eps);
   return cudaGetLastError();
 }
 
@@ -429,6 +442,46 @@ cudaError_t dispatch(int wdtype, int path, const void* x, const void* s, const v
     return dispatch_silu<T, float>(path, x, s, b, y, B, HW, C, G, rows, eps, silu, stream);
   return dispatch_silu<T, __nv_bfloat16>(path, x, s, b, y, B, HW, C, G, rows, eps, silu,
                                          stream);
+}
+
+// Arguments both sharded entries check (x as in iret_group_norm).
+bool sharded_args_ok(int dtype, const void* x, int B, int HW, int C, int G, int rows) {
+  const int elt = dtype == 0 ? 4 : 2;
+  return B > 0 && HW > 0 && C > 0 && G > 0 && G <= kMaxGroups && C <= kMaxChannels &&
+         C % G == 0 && (C * elt) % 16 == 0 && rows > 0 && (dtype == 0 || dtype == 1) &&
+         reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         (int64_t)B * ((HW + rows - 1) / rows) <= 65535LL * 65535LL;
+}
+
+template <typename T, typename W>
+cudaError_t launch_apply(const void* x, const void* s, const void* b, const float2* part,
+                         int nparts, void* y, int B, int HW, int C, int G, int rows,
+                         float count, float eps, int silu, cudaStream_t stream) {
+  const dim3 grid((HW + rows - 1) / rows, B);
+  const size_t smem = C * sizeof(float2);
+  const T* xt = static_cast<const T*>(x);
+  const W* st = static_cast<const W*>(s);
+  const W* bt = static_cast<const W*>(b);
+  T* yt = static_cast<T*>(y);
+  if (silu)
+    gn_apply_kernel<T, W, true><<<grid, kThreads, smem, stream>>>(
+        xt, st, bt, part, nparts, yt, HW, C, G, rows, count, eps);
+  else
+    gn_apply_kernel<T, W, false><<<grid, kThreads, smem, stream>>>(
+        xt, st, bt, part, nparts, yt, HW, C, G, rows, count, eps);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_apply(int wdtype, const void* x, const void* s, const void* b,
+                           const float2* part, int nparts, void* y, int B, int HW, int C,
+                           int G, int rows, float count, float eps, int silu,
+                           cudaStream_t stream) {
+  if (wdtype == 0)
+    return launch_apply<T, float>(x, s, b, part, nparts, y, B, HW, C, G, rows, count, eps,
+                                  silu, stream);
+  return launch_apply<T, __nv_bfloat16>(x, s, b, part, nparts, y, B, HW, C, G, rows, count,
+                                        eps, silu, stream);
 }
 
 }  // namespace
@@ -462,6 +515,47 @@ int iret_group_norm(int path, int dtype, int wdtype, const void* x, const void* 
                            silu, s);
   return dispatch<__nv_bfloat16>(wdtype, path, x, scale, bias, y, B, HW, C, G, rows_per_block,
                                  eps, silu, s);
+}
+
+// The sharded stats entry: the twophase stats kernel over slabs of
+// rows_per_block rows, writing partials[b][block][g] = (sum, sum of squares),
+// a contiguous fp32 [B][ceil(HW / rows_per_block)][G][2] tensor.
+int iret_group_norm_stats(int dtype, const void* x, void* partials, int B, int HW, int C,
+                          int G, int rows_per_block, void* stream) {
+  if (!sharded_args_ok(dtype, x, B, HW, C, G, rows_per_block) ||
+      reinterpret_cast<uintptr_t>(partials) % 8 != 0)
+    return cudaErrorInvalidValue;
+  const dim3 grid((HW + rows_per_block - 1) / rows_per_block, B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float2* part = static_cast<float2*>(partials);
+  if (dtype == 0)
+    gn_stats_kernel<float><<<grid, kThreads, kRedBytes, s>>>(
+        static_cast<const float*>(x), part, HW, C, G, rows_per_block);
+  else
+    gn_stats_kernel<__nv_bfloat16><<<grid, kThreads, kRedBytes, s>>>(
+        static_cast<const __nv_bfloat16*>(x), part, HW, C, G, rows_per_block);
+  return cudaGetLastError();
+}
+
+// The sharded apply entry: partials is a contiguous fp32 [B][nparts][G][2]
+// tensor (the shards' partials in (rank, block) order), reduced in that order;
+// count is the global number of elements of a group. x, y, scale and bias as
+// in iret_group_norm; y's slabs are rows_per_block rows.
+int iret_group_norm_apply(int dtype, int wdtype, const void* x, const void* scale,
+                          const void* bias, const void* partials, int nparts, void* y, int B,
+                          int HW, int C, int G, int rows_per_block, float count, float eps,
+                          int silu, void* stream) {
+  if (!sharded_args_ok(dtype, x, B, HW, C, G, rows_per_block) || nparts <= 0 ||
+      !(count > 0.f) || (wdtype != 0 && wdtype != 1) ||
+      reinterpret_cast<uintptr_t>(y) % 16 != 0 || reinterpret_cast<uintptr_t>(partials) % 8 != 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float2* part = static_cast<const float2*>(partials);
+  if (dtype == 0)
+    return dispatch_apply<float>(wdtype, x, scale, bias, part, nparts, y, B, HW, C, G,
+                                 rows_per_block, count, eps, silu, s);
+  return dispatch_apply<__nv_bfloat16>(wdtype, x, scale, bias, part, nparts, y, B, HW, C, G,
+                                       rows_per_block, count, eps, silu, s);
 }
 
 }  // extern "C"

@@ -40,8 +40,17 @@ Differences from the JAX pipeline:
   UNets, likewise: ``tome_ratio``, or when it is not given ``IRET_TOME`` (and
   ``IRET_TOME_MIN``), read once, here; not a process global read at trace
   time.
-- mesh serving (``mesh=``, ``model_axis=``, ``spatial_axis=``, and with it
-  the ToMe guard under spatial sharding) is not ported yet (see ROADMAP.md).
+- mesh serving (``mesh=``, a ``parallel/mesh.Mesh``, with ``model_axis=``
+  and ``spatial_axis=``): every rank of the mesh builds the same pipeline and
+  serves the same requests through the sharded sampling factories (the batch
+  of one is replicated: ``data_axis=None``), each computing its share and
+  returning the whole image. Unlike the JAX pipeline, spatial sharding keeps
+  the attention backend it is given: the port's attention shards by query
+  rows (K and V gathered), where a Pallas call has no partitioning rule for
+  GSPMD. Under ``spatial_axis`` ToMe is turned off for this pipeline, with the
+  JAX pipeline's warning. int8 and ToMe under a mesh are not ported (ROADMAP
+  M17b) and raise; a failed request raises on every device (a rank that
+  served a fallback would leave the others waiting in a collective).
 """
 from __future__ import annotations
 
@@ -125,8 +134,12 @@ class RestorationPipeline:
         quant_calib: Optional[str] = None,
         cfg_cache_interval: int = 1,
         tome_ratio: float = 0.0,
+        mesh=None,
+        model_axis: Optional[str] = None,
+        spatial_axis: Optional[str] = None,
     ):
-        self.device = resolve_device(device)
+        self.mesh, self.model_axis, self.spatial_axis = mesh, model_axis, spatial_axis
+        self.device = resolve_device(device) if mesh is None else mesh.device
         check_backend(attention_backend)
         self.attention_backend = attention_backend
         # quant=None defers to IRET_QUANT; "int8" = dynamic w8a8, "int8_static"
@@ -141,6 +154,14 @@ class RestorationPipeline:
         # > 0: token merging, an approximation (ops/token_merge.py); a ratio
         # of 0 defers to IRET_TOME, read here once
         self.tome = token_merge.state_from_env(tome_ratio)
+        if mesh is not None and spatial_axis is not None:
+            if self.tome.active:
+                logger.warning("token merging disabled: incompatible with spatial "
+                               "sharding (sharded token dim)")
+            self.tome = token_merge.TomeState(0.0)
+        if mesh is not None and (self.quant.active or self.tome.active):
+            raise NotImplementedError(
+                "int8 serving and token merging under a mesh are not ported yet: ROADMAP M17b")
         self.seed = seed
         self.dtype = dtype
         self.max_size = max_size
@@ -263,10 +284,22 @@ class RestorationPipeline:
         key = (stack["spec"].name, kind, steps, round(strength, 4), round(gs, 4), sampler,
                self.cfg_cache_interval)
         if key not in self._fn_cache:
-            maker = sampling.make_inpaint_fn if kind == "inpaint" else sampling.make_img2img_fn
-            self._fn_cache[key] = maker(stack["modules"], num_inference_steps=steps,
-                                        strength=strength, guidance_scale=gs, sampler=sampler,
-                                        cfg_cache_interval=self.cfg_cache_interval)
+            kw = dict(num_inference_steps=steps, strength=strength, guidance_scale=gs,
+                      sampler=sampler, cfg_cache_interval=self.cfg_cache_interval)
+            if self.mesh is None:
+                maker = (sampling.make_inpaint_fn if kind == "inpaint"
+                         else sampling.make_img2img_fn)
+                self._fn_cache[key] = maker(stack["modules"], **kw)
+            else:
+                maker = (sampling.make_sharded_inpaint_fn if kind == "inpaint"
+                         else sampling.make_sharded_img2img_fn)
+                fn, shard_params = maker(stack["modules"], self.mesh, data_axis=None,
+                                         model_axis=self.model_axis,
+                                         spatial_axis=self.spatial_axis, **kw)
+                if not stack.get("sharded"):
+                    shard_params()
+                    stack["sharded"] = True
+                self._fn_cache[key] = fn
         return self._fn_cache[key]
 
     # ------------------------------------------------------------------
@@ -318,10 +351,10 @@ class RestorationPipeline:
 
     def _fallback_allowed(self, err: Exception) -> bool:
         """Whether a failed SD run may be served by the classical fallback:
-        only on a CPU pipeline, never for a kernel failure or a strict-mode
-        calibration miss."""
-        return self.device.type == "cpu" and not isinstance(err, (KernelError,
-                                                                  StrictQuantError))
+        only on a CPU pipeline without a mesh, never for a kernel failure or a
+        strict-mode calibration miss."""
+        return (self.device.type == "cpu" and self.mesh is None
+                and not isinstance(err, (KernelError, StrictQuantError)))
 
     # ------------------------------------------------------------------
     # per-task methods

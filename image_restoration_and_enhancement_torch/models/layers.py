@@ -19,6 +19,15 @@ on the card), every other conv and Linear through ``quant.int_matmul``. The s8
 weights and scales are made once and cached on the layer (not in its
 ``state_dict``), and made again if the weight changes.
 
+Multi-device serving (``parallel/``): under an active height-sharding policy
+(``parallel/spatial.py``) the 3x3 convs (``Conv2d``, ``QConv2d``) exchange halo
+rows, GroupNorm takes global statistics, self-attention gathers K and V, and the
+up- and downsamplers move the level's layout across the gate; with no policy
+they are the plain layers. ``set_tensor_parallel`` turns the UNet's attention,
+GEGLU feed-forwards and time-embedding MLP into Megatron column/row pairs over a
+model group (``parallel/sharding_rules.py``): the row-parallel products are
+summed over the group in fp32 and take their bias once, after the sum.
+
 Numerics kept from the JAX blocks:
 - GEGLU gates with the tanh-approximated GELU (flax ``nn.gelu`` default), not
   diffusers' erf GELU.
@@ -39,6 +48,7 @@ from ..ops import quant, token_merge
 from ..ops.attention import attention
 from ..ops.conv_int8 import conv3x3_same_int8
 from ..ops.groupnorm import group_norm
+from ..parallel import collectives, spatial
 
 CL = torch.channels_last
 
@@ -97,12 +107,24 @@ class QLinear(_Quantized, nn.Linear):
         return self._add_bias(y)
 
 
-class QConv2d(_Quantized, nn.Conv2d):
-    """``nn.Conv2d`` that runs w8a8 under an active quantization state."""
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that follows an active height-sharding policy
+    (``parallel/spatial.conv``: halo rows, the level's layout)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if spatial.active() is None:
+            return super().forward(x)
+        return spatial.conv(self, x)
+
+
+class QConv2d(_Quantized, Conv2d):
+    """``Conv2d`` that runs w8a8 under an active quantization state."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self._quantized():
             return super().forward(x)
+        if spatial.active() is not None:
+            raise NotImplementedError("int8 serving under a mesh is ROADMAP M17b")
         if self.groups != 1 or self.dilation != (1, 1) or self.padding_mode != "zeros":
             raise NotImplementedError("int8 convs take groups=1, no dilation, zero padding")
         xq, sx = self.quant.quantize_activation(to_nhwc(x), self.site)
@@ -148,6 +170,33 @@ def set_attn_int8(root: nn.Module, min_tokens: int = 0) -> None:
             m.attn_int8_min = int(min_tokens)
 
 
+def set_tensor_parallel(root: nn.Module, group, tp: int, replicated=()) -> None:
+    """Mark the attention, GEGLU feed-forward and time-embedding modules under
+    ``root`` as tensor parallel over ``group`` (``tp`` ranks): their weights
+    must already be this rank's slices (``parallel/sharding_rules.py``).
+    Attention keeps heads / tp local heads. The modules named in
+    ``replicated`` stay whole."""
+    replicated = set(replicated)
+    for name, m in root.named_modules():
+        if name in replicated:
+            continue
+        if isinstance(m, CrossAttention):
+            m.heads //= tp
+            m.tp_group = group
+        elif isinstance(m, GEGLUFeedForward) or (isinstance(m, TimestepEmbedding)
+                                                  and name.endswith("time_embedding")):
+            m.tp_group = group
+
+
+def row_parallel(layer: nn.Linear, x: torch.Tensor, group) -> torch.Tensor:
+    """A row-parallel Linear: this rank's slice of the input dim times its
+    slice of the weight, summed over ``group`` in fp32, then the bias once."""
+    y = collectives.all_reduce(F.linear(x, layer.weight).float(), group)
+    if layer.bias is not None:
+        y = y + layer.bias.float()
+    return y.to(x.dtype)
+
+
 def assign_sites(root: nn.Module) -> None:
     """Give every quantized layer under ``root`` its flax module path as site."""
     for name, m in root.named_modules():
@@ -166,8 +215,9 @@ class FusedGroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = group_norm(to_nhwc(x), self.weight, self.bias, self.groups, self.eps, self.act)
-        return from_nhwc(y)
+        norm = group_norm if spatial.sharded() is None else spatial.group_norm
+        return from_nhwc(norm(to_nhwc(x), self.weight, self.bias, self.groups, self.eps,
+                              self.act))
 
 
 class FusedLayerNorm(nn.Module):
@@ -206,13 +256,19 @@ def timestep_embedding(
 
 
 class TimestepEmbedding(nn.Module):
+    """``tp_group`` (``set_tensor_parallel``): linear_1 column, linear_2 row parallel."""
+
+    tp_group = None
+
     def __init__(self, in_dim: int, embed_dim: int):
         super().__init__()
         self.linear_1 = nn.Linear(in_dim, embed_dim)
         self.linear_2 = nn.Linear(embed_dim, embed_dim)
 
     def forward(self, t_emb: torch.Tensor) -> torch.Tensor:
-        return self.linear_2(F.silu(self.linear_1(t_emb)))
+        h = F.silu(self.linear_1(t_emb))
+        return self.linear_2(h) if self.tp_group is None else \
+            row_parallel(self.linear_2, h, self.tp_group)
 
 
 class ResnetBlock2D(nn.Module):
@@ -258,16 +314,20 @@ class Upsample2D(nn.Module):
         self.conv = QConv2d(channels, channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.interpolate(x, scale_factor=2.0, mode="nearest")
+        x = spatial.upsampled(F.interpolate(x, scale_factor=2.0, mode="nearest"))
         return self.conv(x.contiguous(memory_format=CL))
 
 
 class CrossAttention(nn.Module):
     """Multi-head attention over tokens [B, N, C]; self-attention when context is None.
     ``attention_backend`` selects the attention function (``ops/attention.py``);
-    ``attn_int8_min`` (``set_attn_int8``) is its ``int8_min``."""
+    ``attn_int8_min`` (``set_attn_int8``) is its ``int8_min``. Under tensor
+    parallelism (``tp_group``) the module holds ``heads`` local heads and its
+    output projection is row parallel; on a height-sharded level
+    self-attention takes every shard's K and V."""
 
     attn_int8_min: int = 0
+    tp_group = None
 
     def __init__(self, query_dim: int, heads: int, head_dim: int,
                  context_dim: Optional[int] = None, attention_backend: Optional[str] = None):
@@ -284,11 +344,17 @@ class CrossAttention(nn.Module):
         ctx = x if context is None else context
         b, nq, _ = x.shape
         nk = ctx.shape[1]
+        k, v = self.to_k(ctx), self.to_v(ctx)
+        if context is None:
+            k, v = spatial.gather_tokens(k), spatial.gather_tokens(v)
+            nk = k.shape[1]
         q = self.to_q(x).view(b, nq, self.heads, self.head_dim)
-        k = self.to_k(ctx).view(b, nk, self.heads, self.head_dim)
-        v = self.to_v(ctx).view(b, nk, self.heads, self.head_dim)
+        k = k.view(b, nk, self.heads, self.head_dim)
+        v = v.view(b, nk, self.heads, self.head_dim)
         o = attention(q, k, v, self.attention_backend, self.attn_int8_min)
         o = o.reshape(b, nq, self.heads * self.head_dim)
+        if self.tp_group is not None:
+            return row_parallel(self.to_out[0], o, self.tp_group)
         return self.to_out[0](o)
 
 
@@ -303,7 +369,11 @@ class GEGLU(nn.Module):
 
 
 class GEGLUFeedForward(nn.Module):
-    """GEGLU feed-forward; ``net.0.proj`` / ``net.2`` are the diffusers names."""
+    """GEGLU feed-forward; ``net.0.proj`` / ``net.2`` are the diffusers names.
+    Under tensor parallelism (``tp_group``) ``net.0.proj`` holds this rank's
+    hidden and gate rows and ``net.2`` is row parallel."""
+
+    tp_group = None
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
@@ -311,9 +381,10 @@ class GEGLUFeedForward(nn.Module):
         self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(), QLinear(inner, dim)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for layer in self.net:
-            x = layer(x)
-        return x
+        h = self.net[0](x)
+        if self.tp_group is not None:
+            return row_parallel(self.net[2], h, self.tp_group)
+        return self.net[2](h)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -415,7 +486,8 @@ class VAEAttentionBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
         y = to_nhwc(self.group_norm(x)).view(b, h * w, 1, c)
-        q, k, v = self.to_q(y), self.to_k(y), self.to_v(y)
+        q = self.to_q(y)
+        k, v = spatial.gather_tokens(self.to_k(y)), spatial.gather_tokens(self.to_v(y))
         o = attention(q, k, v, None, self.attn_int8_min)
         o = o.view(b, h * w, c)
         o = self.to_out[0](o).view(b, h, w, c)

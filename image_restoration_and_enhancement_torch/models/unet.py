@@ -17,7 +17,9 @@ sinusoidal embedding of the six micro-conditioning ids, added to the time
 embedding). ``cfg_dedup`` runs the CFG halves' shared prefix once (see
 ``forward``). Under autograd the down, mid and up blocks run under activation
 checkpointing, as the JAX module's ``remat`` (``_run_block``); serving, under
-``inference_mode``, runs them plainly.
+``inference_mode``, runs them plainly. Under a height-sharding policy
+(``parallel/spatial.py``) ``sample`` holds this rank's rows of the request's
+latent height, and so does the output.
 """
 from __future__ import annotations
 
@@ -28,7 +30,9 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import UNetConfig
+from ..parallel import spatial
 from .layers import (
+    Conv2d,
     Downsample2D,
     FusedGroupNorm,
     ResnetBlock2D,
@@ -151,7 +155,7 @@ class UNet2DCondition(nn.Module):
             raise ValueError(f"unknown addition_embed_type {config.addition_embed_type!r}")
         cfg = self.config = config
         ch = cfg.block_out_channels
-        self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
+        self.conv_in = Conv2d(cfg.in_channels, ch[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(ch[0], cfg.time_embed_dim)
         self.add_embedding = (
             TimestepEmbedding(cfg.projection_class_embeddings_input_dim, cfg.time_embed_dim)
@@ -181,7 +185,7 @@ class UNet2DCondition(nn.Module):
             prev = out_ch
         self.conv_norm_out = FusedGroupNorm(ch[0], cfg.norm_num_groups, cfg.norm_eps,
                                             act="silu")
-        self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, padding=1)
+        self.conv_out = Conv2d(ch[0], cfg.out_channels, 3, padding=1)
         assign_sites(self)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
@@ -221,6 +225,7 @@ class UNet2DCondition(nn.Module):
                                  id_emb.reshape(b, n_ids * cfg.addition_time_embed_dim)], -1)
             t_emb = t_emb + self.add_embedding(add_emb.to(dtype))
 
+        spatial.begin("latent")
         x = self.conv_in(from_nhwc(sample.to(dtype).contiguous()))
         if cfg_dedup:
             # the up path takes this skip at the full batch; t_emb's rows are

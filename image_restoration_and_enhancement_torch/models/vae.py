@@ -7,7 +7,10 @@ logvar clipped to [-30, 20], and GroupNorm eps 1e-6 throughout. ``encode`` and
 ``scaling_factor`` is the caller's job. The resnet convs and upsamplers are
 quantized layers (sites ``encoder/...``, ``decoder/...``); the IO convs, the
 asymmetric downsample, the quant convs and the mid-block attention stay full
-precision, as in the JAX module.
+precision, as in the JAX module. Under a height-sharding policy
+(``parallel/spatial.py``) ``encode`` takes this rank's rows of the request's
+image height and ``decode`` of its latent height, and each returns its rows of
+the output's.
 """
 from __future__ import annotations
 
@@ -18,7 +21,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import VAEConfig
+from ..parallel import spatial
 from .layers import (
+    Conv2d,
     FusedGroupNorm,
     ResnetBlock2D,
     Upsample2D,
@@ -48,6 +53,8 @@ class _VAEDownsample(nn.Module):
         self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if spatial.active() is not None:
+            return spatial.conv(self.conv, x, vae_pad=True)
         return self.conv(F.pad(x, (0, 1, 0, 1)))
 
 
@@ -107,7 +114,7 @@ class Encoder(nn.Module):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         ch = cfg.block_out_channels
-        self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
+        self.conv_in = Conv2d(cfg.in_channels, ch[0], 3, padding=1)
         self.down_blocks = nn.ModuleList(
             _DownEncoderBlock(ch[max(i - 1, 0)], c, cfg.layers_per_block,
                               cfg.norm_num_groups, add_downsample=i < len(ch) - 1)
@@ -115,7 +122,7 @@ class Encoder(nn.Module):
         )
         self.mid_block = _MidBlock(ch[-1], cfg.norm_num_groups, cfg.mid_block_add_attention)
         self.conv_norm_out = FusedGroupNorm(ch[-1], cfg.norm_num_groups, 1e-6, act="silu")
-        self.conv_out = nn.Conv2d(ch[-1], 2 * cfg.latent_channels, 3, padding=1)
+        self.conv_out = Conv2d(ch[-1], 2 * cfg.latent_channels, 3, padding=1)
 
     def forward(self, x):
         x = self.conv_in(x)
@@ -129,7 +136,7 @@ class Decoder(nn.Module):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         rev = list(reversed(cfg.block_out_channels))
-        self.conv_in = nn.Conv2d(cfg.latent_channels, rev[0], 3, padding=1)
+        self.conv_in = Conv2d(cfg.latent_channels, rev[0], 3, padding=1)
         self.mid_block = _MidBlock(rev[0], cfg.norm_num_groups, cfg.mid_block_add_attention)
         self.up_blocks = nn.ModuleList(
             _UpDecoderBlock(rev[max(i - 1, 0)], c, cfg.layers_per_block + 1,
@@ -137,7 +144,7 @@ class Decoder(nn.Module):
             for i, c in enumerate(rev)
         )
         self.conv_norm_out = FusedGroupNorm(rev[-1], cfg.norm_num_groups, 1e-6, act="silu")
-        self.conv_out = nn.Conv2d(rev[-1], cfg.out_channels, 3, padding=1)
+        self.conv_out = Conv2d(rev[-1], cfg.out_channels, 3, padding=1)
 
     def forward(self, z):
         x = self.mid_block(self.conv_in(z))
@@ -160,6 +167,7 @@ class AutoencoderKL(nn.Module):
 
     def encode(self, images: torch.Tensor) -> DiagonalGaussian:
         """images [B, H, W, 3] in [-1, 1] -> posterior with fp32 NHWC mean/logvar."""
+        spatial.begin("image")
         x = from_nhwc(images.to(self.quant_conv.weight.dtype).contiguous())
         moments = to_nhwc(self.quant_conv(self.encoder(x))).float()
         mean, logvar = moments.chunk(2, dim=-1)
@@ -167,5 +175,6 @@ class AutoencoderKL(nn.Module):
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """latents [B, h, w, 4] -> images [B, 8h, 8w, 3] in fp32."""
+        spatial.begin("latent")
         z = from_nhwc(latents.to(self.post_quant_conv.weight.dtype).contiguous())
         return to_nhwc(self.decoder(self.post_quant_conv(z))).float()

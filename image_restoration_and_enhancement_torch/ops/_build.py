@@ -75,6 +75,12 @@ _ARGTYPES = {
     # path, dtype, wdtype, x, scale, bias, y, B, HW, C, G, rows_per_block, eps,
     # silu, stream
     "iret_group_norm": [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    # dtype, x, partials, B, HW, C, G, rows_per_block, stream
+    "iret_group_norm_stats": [_I, _P, _P, _I, _I, _I, _I, _I, _P],
+    # dtype, wdtype, x, scale, bias, partials, nparts, y, B, HW, C, G,
+    # rows_per_block, count, eps, silu, stream
+    "iret_group_norm_apply": [_I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _F, _F, _I,
+                              _P],
     # path, out dtype, x, w, scale, out, split-K workspace, tile counters, B, H,
     # W, C, N, splits, stream
     "iret_conv3x3_int8": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

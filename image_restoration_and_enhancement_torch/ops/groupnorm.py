@@ -17,6 +17,17 @@ then an apply launch that folds the finalize in) for the VAE's largest
 shapes. The wrapper passes the path to the C entry, which raises
 (``KernelError``) for a path its arguments cannot take and never picks
 another; ``_build.launch_paths`` counts calls by path.
+
+Height-sharded GroupNorm (``parallel/spatial.py``) needs global statistics,
+so the twophase path's two kernels are also two entries of their own:
+``group_norm_stats`` writes each block's per-group fp32 (sum, sum of squares)
+into a tensor [B, blocks, G, 2] the caller gets back, and ``group_norm_apply``
+takes such partials (the shards' all-gathered, [B, P, G, 2] in (rank, block)
+order), reduces them in that fixed order and normalises with the global
+element count it is given. The plain split (``group_norm_stats_reference``,
+``group_norm_apply_reference``) computes the same function on the CPU: one
+partial per sample and group, then the reference's statistics from the summed
+partials. The unsharded ``group_norm`` and its plans are unchanged.
 """
 from __future__ import annotations
 
@@ -99,6 +110,42 @@ def group_norm_reference(
     return y.to(x.dtype)
 
 
+def group_norm_stats_reference(x: torch.Tensor, groups: int,
+                               rows_per_block: Optional[int] = None) -> torch.Tensor:
+    """Per-group fp32 (sum, sum of squares) of an NHWC x (per channel over the
+    rows, then over each group's channels, as ``group_norm_reference`` sums):
+    [B, 1, G, 2], or with ``rows_per_block`` one partial per slab of that many
+    of the H*W rows, [B, blocks, G, 2], as the stats kernel cuts them."""
+    b, h, w, c = x.shape
+    xf = x.float().reshape(b, h * w, c)
+    slabs = xf.split(rows_per_block or h * w, dim=1)
+    s = torch.stack([t.sum(1) for t in slabs], 1).view(b, len(slabs), groups, c // groups)
+    ss = torch.stack([t.square().sum(1) for t in slabs], 1).view(b, len(slabs), groups,
+                                                                 c // groups)
+    return torch.stack([s.sum(-1), ss.sum(-1)], dim=-1)
+
+
+def group_norm_apply_reference(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, partials: torch.Tensor,
+    count: float, groups: int, eps: float = 1e-5, act: Optional[str] = None,
+) -> torch.Tensor:
+    """GroupNorm (+SiLU) of x with the statistics of ``partials`` [B, P, G, 2]
+    (summed over P) over ``count`` elements a group, as ``group_norm_reference``
+    finishes them."""
+    c = x.shape[-1]
+    gc = c // groups
+    tot = partials.sum(dim=1)
+    g_mean = tot[..., 0] / count
+    g_var = torch.clamp(tot[..., 1] / count - g_mean.square(), min=0.0)
+    g_rstd = torch.rsqrt(g_var + eps)
+    w_c = g_rstd.repeat_interleave(gc, dim=-1) * scale.float()[None, :]
+    b_c = bias.float()[None, :] - g_mean.repeat_interleave(gc, dim=-1) * w_c
+    y = x.float() * w_c[:, None, None, :] + b_c[:, None, None, :]
+    if act == "silu":
+        y = F.silu(y)
+    return y.to(x.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -139,6 +186,74 @@ def _launch(x, scale, bias, groups, eps, act):
         bias.data_ptr(), out.data_ptr(), *args, _build.raw_stream(x.device.index))
     _build.check(err, "group_norm")
     _build.record_launch("group_norm", key, path_name)
+    return out
+
+
+def _check_nhwc(x: torch.Tensor, groups: int) -> None:
+    if x.dim() != 4 or x.shape[-1] % groups:
+        raise ValueError(f"takes an NHWC tensor whose channels split into {groups} groups")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"group_norm runs on cuda or cpu, not {x.device}")
+
+
+def _sharded_args(x: torch.Tensor, groups: int):
+    """(dtype code, rows per block, blocks a sample) of a sharded entry's call:
+    the twophase cut of the shard."""
+    b, h, w, c = x.shape
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the group_norm kernel takes float32 or bfloat16, not {x.dtype}")
+    if c * x.element_size() % 16 or not x.is_contiguous():
+        raise ValueError("the group_norm kernel takes a contiguous NHWC tensor with rows of "
+                         "a multiple of 16 bytes")
+    p = twophase_plan(b, h * w, _sms(x.device.index))
+    return _DTYPE_CODES[x.dtype], p.rows_per_block, p.blocks_per_sample
+
+
+def group_norm_stats(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """Per-group fp32 (sum, sum of squares) partials of an NHWC x, [B, P, G, 2]:
+    the stats kernel's P blocks a sample on the card (its twophase cut), one
+    partial (``group_norm_stats_reference``) on the CPU."""
+    _check_nhwc(x, groups)
+    if x.device.type == "cpu":
+        return group_norm_stats_reference(x, groups)
+    code, rows, blocks = _sharded_args(x, groups)
+    b, h, w, c = x.shape
+    out = torch.empty((b, blocks, groups, 2), dtype=torch.float32, device=x.device)
+    err = _build.entry("iret_group_norm_stats")(
+        code, x.data_ptr(), out.data_ptr(), b, h * w, c, groups, rows,
+        _build.raw_stream(x.device.index))
+    _build.check(err, "group_norm_stats")
+    _build.record_launch("group_norm_stats", (b, h, w, c, groups, str(x.dtype)), "twophase")
+    return out
+
+
+def group_norm_apply(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, partials: torch.Tensor,
+    count: float, groups: int, eps: float = 1e-5, act: Optional[str] = None,
+) -> torch.Tensor:
+    """GroupNorm (+SiLU) of an NHWC x with the statistics of ``partials``
+    [B, P, G, 2] (reduced in their order) over ``count`` elements a group: the
+    apply kernel on the card, ``group_norm_apply_reference`` on the CPU."""
+    _check_nhwc(x, groups)
+    act = None if act == "none" else act
+    if x.device.type == "cpu":
+        return group_norm_apply_reference(x, scale, bias, partials, count, groups, eps, act)
+    code, rows, _ = _sharded_args(x, groups)
+    b, h, w, c = x.shape
+    if partials.shape[0] != b or partials.shape[2:] != (groups, 2) \
+            or partials.dtype != torch.float32 or not partials.is_contiguous():
+        raise ValueError(f"partials must be contiguous fp32 [{b}, P, {groups}, 2]")
+    if scale.dtype != bias.dtype or scale.dtype not in _DTYPE_CODES:
+        scale, bias = scale.float(), bias.float()
+    scale, bias = scale.contiguous(), bias.contiguous()
+    out = torch.empty_like(x)
+    err = _build.entry("iret_group_norm_apply")(
+        code, _DTYPE_CODES[scale.dtype], x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        partials.data_ptr(), partials.shape[1], out.data_ptr(), b, h * w, c, groups, rows,
+        float(count), float(eps), 1 if act == "silu" else 0, _build.raw_stream(x.device.index))
+    _build.check(err, "group_norm_apply")
+    _build.record_launch("group_norm_apply", (b, h, w, c, groups, float(eps), act,
+                                              str(x.dtype), partials.shape[1]), "twophase")
     return out
 
 

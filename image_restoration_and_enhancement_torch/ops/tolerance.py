@@ -103,7 +103,8 @@ import torch
 # exact score; a row max closer than this to a rounding midpoint can round
 # either way.
 MIDPOINT_SLACK = 2.0**-8
-_BF16_SHARE = {"attention": 2.0**-8, "group_norm": 2.0**-10, "int8_attention": 2.0**-8,
+_BF16_SHARE = {"attention": 2.0**-8, "group_norm": 2.0**-10, "group_norm_apply": 2.0**-10,
+               "int8_attention": 2.0**-8,
                "flash_attention": 2.0**-8, "packed_attention": 2.0**-8,
                "packed_attention_grid": 2.0**-8, "attention_scores_bf16": 2.0**-8}
 PLACEMENT_MARGIN = 0.1

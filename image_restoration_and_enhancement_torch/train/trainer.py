@@ -22,7 +22,7 @@ One generic trainer for the four tasks, with the JAX trainer's behaviour:
   never). JAX writes it with Orbax; the content is the same.
 
 One device: the JAX trainer's data-parallel mesh (``use_mesh`` over several
-devices) is ROADMAP M17, and asking for it with more than one CUDA device
+devices) is ROADMAP M17b, and asking for it with more than one CUDA device
 raises. Each step's draws come from a generator seeded from (seed, step), so
 a resumed run draws what the uninterrupted one would have.
 """
@@ -109,11 +109,11 @@ def _save_strip(path: str, inp: np.ndarray, out: np.ndarray, gt: np.ndarray) -> 
 
 def check_single_device(use_mesh: bool, device: torch.device) -> None:
     """The port trains on one device; a data-parallel request over several
-    raises (ROADMAP M17)."""
+    raises (ROADMAP M17b: multi-device serving is ported, training is not)."""
     n = torch.cuda.device_count() if device.type == "cuda" else 1
     if use_mesh and n > 1:
         raise NotImplementedError(
-            f"data-parallel training over {n} devices is not ported yet (ROADMAP M17); "
+            f"data-parallel training over {n} devices is not ported yet (ROADMAP M17b); "
             "pass use_mesh=False (--no_mesh) to train on one device")
 
 

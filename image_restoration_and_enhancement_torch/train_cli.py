@@ -7,7 +7,7 @@ the JAX package's ``scripts/_train_cli.py``, with its flags).
 ``train_super_resolution``, ``train_colorization`` and ``train_inpainting``
 take the same flags. Trains on the GPU unless ``--device cpu``. ``--no_mesh``
 is accepted: the port trains on one device, and without it a machine with
-several CUDA devices raises (data-parallel training is ROADMAP M17).
+several CUDA devices raises (data-parallel training is ROADMAP M17b).
 """
 from __future__ import annotations
 

@@ -50,6 +50,14 @@ and hold bf16 K4 to a placement check against ``attention.xla_int8_core``
 (``torch._int_mm`` and the quantizers on the card) against the CPU to one
 rounding of the output dtype, and shows that the limit fails full precision.
 
+Height-sharded serving (``parallel/spatial.py``) gives K2 two entries and K1
+query-sharded shapes: ``test_group_norm_sharded_entries_match_plain_split``
+simulates sp by slicing one tensor on one card (each shard's stats launch, the
+partials concatenated in shard order, each shard's apply with the global
+count) at the UNet's and VAE's 512 px and 2048 px shard shapes, against the
+plain split and the unsharded plain version; ``test_attention_at_query_sharded_shapes``
+holds K1 on a shard's queries against every shard's keys (Nq = N / sp).
+
 A 1024 px request (super-resolution's SD run) gives K1 and K2 shapes the 512 px
 serves do not: ``test_kernels_at_1024px_shapes`` holds them against their plain
 versions (plain attention one head at a time: the fp32 scores of all heads at
@@ -1452,3 +1460,71 @@ def test_lpips_and_inception_on_card_match_cpu(cuda, tmp_path, monkeypatch):
     with torch_default_tf32(), torch.inference_mode():
         tf32 = net(x.permute(0, 3, 1, 2)).cpu().numpy()
     assert np.abs(tf32 - feats).max() > 1e-4 * np.abs(feats).max()
+
+
+# Height-sharded GroupNorm (parallel/spatial.py): (global NHWC shape, groups,
+# eps, act, sp) of the UNet and the VAE at 512 px and at 2048 px (one image,
+# latent 256).
+SHARDED_GN = [
+    ((2, 64, 64, 320), 32, 1e-5, "silu", 2), ((2, 32, 32, 640), 32, 1e-5, None, 4),
+    ((1, 512, 512, 128), 32, 1e-6, "silu", 2), ((1, 256, 256, 512), 32, 1e-6, None, 4),
+    ((2, 256, 256, 320), 32, 1e-5, "silu", 4), ((1, 2048, 2048, 128), 32, 1e-6, "silu", 4),
+    ((1, 1024, 1024, 256), 32, 1e-6, None, 4),
+]
+
+
+@pytest.mark.parametrize("shape,groups,eps,act,sp", SHARDED_GN)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_group_norm_sharded_entries_match_plain_split(cuda, shape, groups, eps, act, sp, dtype):
+    """K2's two sharded entries with sp simulated by slicing one tensor on one
+    card: each shard's stats launch (its partials, summed, within fp32 1e-5 of
+    the largest of the plain split's), the partials concatenated in shard
+    order, and each shard's apply launch with the global count: within the
+    GroupNorm limit of the plain split and of the unsharded plain version."""
+    x = (torch.randn(shape, generator=cuda, device="cuda") * 2 + 0.5).to(dtype)
+    c = shape[-1]
+    scale = torch.randn((c,), generator=cuda, device="cuda") * 0.5 + 1.0
+    bias = torch.randn((c,), generator=cuda, device="cuda") * 0.1
+    shards = [s.contiguous() for s in x.chunk(sp, dim=1)]
+    before = collections.Counter(_build.launch_paths)
+    parts = torch.cat([G.group_norm_stats(s, groups) for s in shards], dim=1)
+    plain = torch.cat([G.group_norm_stats_reference(s, groups) for s in shards], dim=1)
+    got_tot, want_tot = parts.sum(1), plain.sum(1)
+    assert (got_tot - want_tot).abs().max() <= 1e-5 * want_tot.abs().max()
+    count = float(shape[1] * shape[2] * (c // groups))
+    got = torch.cat([G.group_norm_apply(s, scale, bias, parts, count, groups, eps, act)
+                     for s in shards], dim=1)
+    launched = collections.Counter(_build.launch_paths) - before
+    assert launched == {("group_norm_stats", "twophase"): sp,
+                        ("group_norm_apply", "twophase"): sp}, launched
+    assert_within(got, G.group_norm_apply_reference(x, scale, bias, plain, count, groups, eps,
+                                                    act), "group_norm")
+    assert_within(got, G.group_norm_reference(x, scale, bias, groups, eps, act), "group_norm")
+
+
+# K1 at height-sharded self-attention: the shard's queries (Nq = N / sp)
+# against every shard's keys (Nk = N): UNet level 0 and the VAE mid-block at
+# 512 px (sp 2, 4) and at 2048 px (sp 4).
+SHARDED_ATTN = [(2, 2048, 4096, 8, 40), (2, 1024, 4096, 8, 40), (1, 2048, 4096, 1, 512),
+                (2, 16384, 65536, 8, 40), (1, 16384, 65536, 1, 512)]
+
+
+@pytest.mark.parametrize("b,nq,nk,h,d", SHARDED_ATTN)
+def test_attention_at_query_sharded_shapes(cuda, b, nq, nk, h, d):
+    """K1 on a shard's queries against the gathered K and V, bf16, within the
+    limit of its plain version (one head at a time) and placed, through
+    "sm90" (head_dim <= 160) or "sm90_split" (the VAE's 512)."""
+    q, k, v = (torch.randn((b, n, h, d), generator=cuda, device="cuda").to(torch.bfloat16)
+               for n in (nq, nk, nk))
+    before = collections.Counter(_build.launch_paths)
+    got = A.attention(q, k, v)
+    assert_launched("attention", before, "sm90" if d <= A.SM90_MAX_HEAD_DIM else "sm90_split")
+    per_row = max(1, (1 << 30) // (nk * 4 * b))  # plain fp32 scores of at most 1 GiB at once
+    for i in range(0, nq, per_row):
+        sl = slice(i, i + per_row)
+        right = _per_head(A.pallas_attention_reference, q[:, sl], k, v)
+        assert_within(got[:, sl], right, "attention")
+        if i == 0:
+            ok, right_share, wrong_share = tolerance.placement(
+                got[:, sl], right, _per_head(A.attention_reference, q[:, sl], k, v))
+            assert ok, (right_share, wrong_share)

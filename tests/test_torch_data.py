@@ -312,7 +312,6 @@ def test_generate_predictions_on_tiny_stacks(tiny_models, tmp_path, monkeypatch)
     test workers share the CPU's cores (~560 s instead of ~4 s with six
     workers)."""
     fp32 = functools.partial(RestorationPipeline, dtype=torch.float32)
-    monkeypatch.setattr(port_gen, "RestorationPipeline", fp32)
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
@@ -340,16 +339,25 @@ def _generate_predictions_on_tiny_stacks(tiny_models, tmp_path, fp32):
                 mask[16:40, 8:48] = 255
                 png.save_image(str(data / task / "test" / "mask" / name), mask)
     out = tmp_path / "pred"
-    with pytest.raises(NotImplementedError, match="M17"):
-        port_gen.main(["--spatial_shards", "2", "--device", "cpu"])
-    assert port_gen.main(["--data_root", str(data), "--models_root", tiny_models,
-                          "--out_root", str(out), "--device", "cpu"]) == 0
+    args = ["--data_root", str(data), "--models_root", tiny_models, "--device", "cpu",
+            "--dtype", "float32"]
+    assert port_gen.main(args + ["--out_root", str(out)]) == 0
+    # --spatial_shards 2: two gloo ranks, each image's height sharded over them
+    assert port_gen.main(args + ["--out_root", str(tmp_path / "sp"),
+                                 "--spatial_shards", "2"]) == 0
     for task, files in layout.items():
         assert sorted(os.listdir(out / task)) == sorted(n for n, _ in files)
         for name, hw in files:
             pred = png.load_image(str(out / task / name))
             want_hw = (hw[0] * 4, hw[1] * 4) if task == "sr_x4" else hw
             assert pred.shape == want_hw + (3,) and pred.dtype == np.uint8
+    # the two ranks wrote what one device wrote, within one uint8 level (the
+    # shards' fp32 sums run in another order and can round a pixel the other way)
+    for task, files in layout.items():
+        for name, _ in files:
+            one = png.load_image(str(out / task / name)).astype(int)
+            two = png.load_image(str(tmp_path / "sp" / task / name)).astype(int)
+            assert np.abs(one - two).max() <= 1 and (one != two).mean() < 1e-3, (task, name)
     # the saved PNG is the pipeline's output for that input
     pipe = fp32(models_root=tiny_models, device="cpu")
     inp = png.load_image(str(data / "denoise" / "test" / "input" / "a.png"))

@@ -225,7 +225,7 @@ def test_train_entry_points_need_cuda_unless_cpu_is_asked(data, tmp_path):
 
 def test_multi_device_request_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="M17"):
+    with pytest.raises(NotImplementedError, match="M17b"):
         T.check_single_device(True, torch.device("cuda"))
     T.check_single_device(False, torch.device("cuda"))
 
