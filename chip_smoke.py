@@ -2,7 +2,7 @@
 """Drive the PyTorch port on one NVIDIA H100 and hold its CUDA kernels against
 their plain PyTorch versions.
 
-    python3 chip_smoke.py [--only multidevice]
+    python3 chip_smoke.py [--only multidevice[,multitrain]]
 
 Phases (each prints its seconds; any failure exits non-zero):
   build       compile csrc/*.cu (one nvcc process per source, started together,
@@ -202,26 +202,55 @@ Phases (each prints its seconds; any failure exits non-zero):
               image through RestorationPipeline(mesh, spatial_axis="sp",
               max_size=2048) over sp 4, and (c) make_sharded_inpaint_fn on
               the SD-1.5-inpaint stack at 512 px, batch 2, over (data 2,
-              sp 2); two requests each. Each output (rank 0's; every rank
-              returns the whole image) is held against the same request
-              served unsharded on card 0 from the same weights, inputs and
-              generator seed (MD_MEAN_TOL, MD_PSNR_MIN: see their comment).
+              sp 2), then (d) (a) served int8_static with K4 attention
+              (attention_backend "int8") and ToMe 0.5 over (a)'s mesh and (e)
+              (c) served int8_static over (c)'s, each table calibrated on
+              the request unsharded on card 0 (MD_CALIB_STEPS); two requests
+              each. Each output (rank 0's; every rank returns the whole
+              image) is held against the same request served unsharded on
+              card 0 from the same weights, inputs and generator seed
+              (MD_MEAN_TOL, MD_PSNR_MIN; for (d) and (e)
+              MD_INT8_NOISE_FACTOR: see their comments); over one card one
+              request each.
               Launch counts are zeroed in every rank just before its
               requests and read just after, and summed over the ranks: K1
               and K2 launched, every K1 launch "sm90" / "sm90_split", K2 on
               its plan, and K2's sharded entries (group_norm_stats,
-              group_norm_apply) launched. Prints request
-              seconds and peak memory by rank and the errors, each beside
-              the card's name and power limit ("multidevice_json"). With
-              one card, (a) and (c) run over (1, 1) meshes of one NCCL rank
+              group_norm_apply) launched, and K3 in (d) and (e) and K4 in
+              (d). Prints request seconds, peak memory, collectives by kind
+              and launches by rank and the errors, each beside the card's
+              name and power limit ("multidevice_json"). With one card,
+              (a), (c), (d) and (e) run over (1, 1) meshes of one NCCL rank
               (the sharded factories, the interleaved CFG layout, the NCCL
               set-up and, through (c)'s sp axis of one, the height-sharded
               code with zero halos and K2's sharded entries on the card,
               each equal to the unsharded serve) and the log names the
               four-card command. `python3 chip_smoke.py --only
               multidevice` runs this phase alone (build, multidevice,
-              kernels); on a machine with four cards it is the multi-rank
-              check.
+              kernels); on a machine with four cards
+              `--only multidevice,multitrain` is the multi-rank check.
+  multitrain  multi-device training, after multidevice: (f)
+              train_task("denoise") at full SD-1.5 width, 256 px, bf16,
+              global batch 4, 4 micro-steps at gradient_accumulation_steps 2
+              (MT_LR), random weights from the config's seed, run on card 0
+              alone and then over a data mesh of every card (at most 4; one
+              card trains alone by the trainer's rule, which wants more than
+              one device), each rank taking its rows of the same batches: the
+              loss of every micro-step within MT_LOSS_RTOL of the card's, the
+              saved masters within MT_LR_FACTOR learning rates, and bitwise
+              equal across the data ranks (parallel/train.fingerprint); (g)
+              the DP x TP AdamW step (dryrun_multichip's) in fp32 at full
+              width, 256 px, batch 2, over (data 2, model 2), rank 0 first
+              taking the same step unsharded on its card: every gathered
+              gradient within MT_GRAD_REL of its largest entry, every master
+              within MT_LR_FACTOR learning rates; its state saved (gathered,
+              the one-device file); (h) that file restored over (data n,
+              model 1) and on one card, one more step (batch 4) each, the
+              masters held alike. Prints micro-step and step seconds, peak
+              memory and collectives by rank and the errors, each beside the
+              card's name and power limit ("multitrain_json"); K1 and K2 must
+              launch on every rank of (f), (g) and (h). With one card, (g)
+              and (h) over (1, 1) meshes. `--only multitrain` runs it alone.
   serve_sdxl  config.SDXL at random from a seeded CUDA generator (each
               component's parameter count asserted against SDXL_PARAMS,
               which tests/test_torch_sdxl.py holds against the JAX package),
@@ -300,6 +329,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -1561,8 +1591,9 @@ TRAIN_TWIN_REL_TOL = 1e-5
 TRAIN_TWIN_GRAD_TOL = 2e-4
 
 
-def _write_train_data(root, gen):
-    """Clean 256 px images; denoise and inpaint pairs degraded on the card
+def _write_train_data(root, gen, n_train=TRAIN_PAIRS, n_val=TRAIN_VAL,
+                      tasks=("denoise", "inpaint")):
+    """Clean 256 px images; ``tasks``' pairs degraded on the card
     (data/synthetic.py); all written as PNG by the port's codec."""
     import torch
 
@@ -1570,7 +1601,7 @@ def _write_train_data(root, gen):
     from image_restoration_and_enhancement_torch.data.synthetic import degrade_batch, draw_batch
     from image_restoration_and_enhancement_torch.tasks.registry import get_task
 
-    n = TRAIN_PAIRS + TRAIN_VAL
+    n = n_train + n_val
     clean_u8 = _clean_images(n, TRAIN_SIZE, SEED + 7)
     x = torch.from_numpy(clean_u8).cuda().float() / 255.0
 
@@ -1578,17 +1609,17 @@ def _write_train_data(root, gen):
         os.makedirs(directory, exist_ok=True)
         png.write_png(os.path.join(directory, name), img_u8)
 
-    for task in ("denoise", "inpaint"):
+    for task in tasks:
         batch = degrade_batch(task, x, draw_batch(task, gen, n, TRAIN_SIZE, device="cuda"))
         for kind, t in batch.items():
             u8 = ((t[..., 0] * 255.0) if kind == "mask" else (t + 1.0) * 127.5)
             u8 = u8.round().clamp(0, 255).to(torch.uint8).cpu().numpy()
             for i in range(n):
-                split = "train" if i < TRAIN_PAIRS else "val"
+                split = "train" if i < n_train else "val"
                 write(os.path.join(root, "pairs", get_task(task).pair_dir, split, kind),
                       f"p{i}.png", u8[i])
     for i in range(n):
-        write(os.path.join(root, "clean", "train" if i < TRAIN_PAIRS else "val"), f"c{i}.png",
+        write(os.path.join(root, "clean", "train" if i < n_train else "val"), f"c{i}.png",
               clean_u8[i])
 
 
@@ -2334,6 +2365,18 @@ MD_INPAINT_BATCH = 2   # (c): 2 images over (data 2, sp 2)
 # pixels (tests/test_torch_spatial.py holds the same paths in fp32 to 2e-4).
 MD_MEAN_TOL = 0.02
 MD_PSNR_MIN = 25.0
+# (d) and (e), int8_static: on random weights an s8 value at a rounding
+# boundary flips for an fp32 difference of one ulp (here: another order of a
+# sum over the ranks), and the flip redraws the quantization noise of every
+# later layer (tests/test_torch_parallel_modes.py measures it on the CPU). So
+# the sharded int8 output is held to the unsharded one by the noise itself:
+# mean |delta| at most MD_INT8_NOISE_FACTOR times the mean distance of the
+# unsharded int8 output from the unsharded bf16 serve of the same request
+# ((a) for (d), (c) for (e)); two draws of the noise lie about sqrt(2) times
+# it apart. The tight int8 checks are the scale audit and the unit cases of
+# that test file and this script's kernel rows.
+MD_INT8_NOISE_FACTOR = 2.0
+MD_CALIB_STEPS = 4    # DDIM steps of the unsharded calibration of (d) and (e)
 
 
 def _md_stacks(tmp):
@@ -2361,6 +2404,14 @@ def _md_stacks(tmp):
     return tmp, os.path.join(tmp, "inpaint")
 
 
+def _kernel_counts(shapes):
+    """Launches by kernel from launches by (kernel, shape key)."""
+    out = collections.Counter()
+    for (k, _), c in shapes.items():
+        out[k] += c
+    return dict(out)
+
+
 def _md_compare(name, got, want, peak: float):
     import numpy as np
 
@@ -2377,13 +2428,65 @@ def _md_compare(name, got, want, peak: float):
     return row
 
 
+def _md_calibrate(case):
+    """The int8_static table of a serving case: its request served unsharded
+    on card 0 under dynamic int8 (the case's attention backend and ToMe) for
+    MD_CALIB_STEPS DDIM steps, each site's activation absmax maxed over the
+    run (what make_calib_img2img_fn records, for img2img and inpaint)."""
+    import numpy as np
+    import torch
+
+    from image_restoration_and_enhancement_torch.core import sampling
+    from image_restoration_and_enhancement_torch.ops import quant
+    from image_restoration_and_enhancement_torch.parallel import serve
+
+    dev = torch.device("cuda", 0)
+    mods = serve.load_stack(dict(case, quant=None), dev)
+    state = quant.QuantState("int8")
+    mods.set_quant(state)
+    inpaint = case["kind"] == "inpaint"
+    maker = sampling.make_inpaint_fn if inpaint else sampling.make_img2img_fn
+    fn = maker(mods, **dict(case["sampling"], num_inference_steps=MD_CALIB_STEPS),
+               cfg_layout="interleaved")
+    inputs = case["inputs"]
+    ctx, unc = serve._contexts(mods, inputs, dev)
+    args = [torch.from_numpy(np.asarray(inputs["image"])).to(dev)]
+    if inpaint:
+        args.append(torch.from_numpy(np.asarray(inputs["mask"])).to(dev))
+    with state.collect() as stats:
+        fn(*args, ctx, unc, generator=torch.Generator(device=dev).manual_seed(int(inputs["seed"])))
+    table = {k: float(v) for k, v in stats.items()}
+    del mods, fn
+    torch.cuda.empty_cache()
+    return table
+
+
+def _md_compare_int8(name, got, want, bf16):
+    import numpy as np
+
+    got, want, bf16 = (np.asarray(a, np.float64) for a in (got, want, bf16))
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"multidevice {name}: output {got.shape}, not {want.shape}, "
+                             "or not finite")
+    err = np.abs(got - want)
+    noise = float(np.abs(want - bf16).mean())
+    row = {"max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
+           "psnr_db": _psnr(got, want, 2.0), "int8_noise_mean": noise,
+           "mean_tol": MD_INT8_NOISE_FACTOR * noise,
+           "psnr_unsharded_int8_vs_bf16_db": _psnr(want, bf16, 2.0)}
+    if not row["mean_abs_err"] <= row["mean_tol"]:
+        raise AssertionError(f"multidevice {name}: sharded int8 disagrees with unsharded: {row}")
+    return row
+
+
 def phase_multidevice(tmp, smi: str):
     """Multi-device serving (see the docstring): torch.cuda.device_count()
     ranks (at most 4) over NCCL, one card each, serve (a) SD-1.5 img2img over
     (data 2, model 2), (b) a 2048 px denoise through RestorationPipeline over
-    sp 4 and (c) SD-1.5-inpaint over (data 2, sp 2), each held against the
-    same request unsharded on card 0; with one card, (a) and (c) over (1, 1)
-    meshes.
+    sp 4, (c) SD-1.5-inpaint over (data 2, sp 2), (d) (a) under int8_static,
+    K4 attention and ToMe 0.5 and (e) (c) under int8_static, each held
+    against the same request unsharded on card 0; with one card, (a), (c),
+    (d) and (e) over (1, 1) meshes.
     Returns the ranks' launches (summed over the ranks) as the path's."""
     import numpy as np
     import torch
@@ -2399,7 +2502,9 @@ def phase_multidevice(tmp, smi: str):
         ids = rng.integers(1, vocab - 1, (MD_BATCH, 77)).astype(np.int64)
         uncond_ids = np.full((MD_BATCH, 77), vocab - 1, np.int64)
         img = lambda b, s: rng.uniform(-1, 1, (b, s, s, 3)).astype(np.float32)  # noqa: E731
-        base = dict(dtype="bfloat16", requests=2)
+        # over one card the (1, 1) meshes check the function, not the speed:
+        # one request a case
+        base = dict(dtype="bfloat16", requests=2 if n == 4 else 1)
         dd = dict(num_inference_steps=20, strength=1.0, guidance_scale=7.5, sampler="ddim")
         cases = {"a_img2img": dict(
             base, config="sd15", weights=sd15, kind="img2img", sampling=dd,
@@ -2424,6 +2529,18 @@ def phase_multidevice(tmp, smi: str):
             inputs=dict(image=img(MD_INPAINT_BATCH, MD_SIZE), mask=mask,
                         ids=ids[:MD_INPAINT_BATCH], uncond_ids=uncond_ids[:MD_INPAINT_BATCH],
                         seed=SEED + 1))
+        from image_restoration_and_enhancement_torch.ops import token_merge
+
+        # (d), (e): (a) and (c) served int8_static, calibrated unsharded on card 0
+        int8_of = {"d_img2img_int8": ("a_img2img", dict(
+                       backend="int8", tome=(0.5, token_merge.DEFAULT_MIN_TOKENS))),
+                   "e_inpaint_int8": ("c_inpaint", {})}
+        for name, (src, extra) in int8_of.items():
+            t0 = time.perf_counter()
+            case = dict(cases[src], **extra)
+            cases[name] = dict(case, quant=("int8_static", _md_calibrate(case)))
+            log(f"multidevice {name}: calibrated {len(cases[name]['quant'][1])} sites unsharded "
+                f"on card 0 in {time.perf_counter() - t0:.2f} s")
         refs = {}
         for name, case in cases.items():
             refs[name] = serve.unsharded(case, "cuda:0")
@@ -2441,13 +2558,19 @@ def phase_multidevice(tmp, smi: str):
                 shapes.update(r["launch_shapes"])
                 codes.update(r["launch_paths"])
             peak = 2.0 if cases[name]["kind"] != "denoise" else 255.0
+            if name in int8_of:
+                errors = _md_compare_int8(name, per_rank[0]["out"], refs[name]["out"],
+                                          refs[int8_of[name][0]]["out"])
+            else:
+                errors = _md_compare(name, per_rank[0]["out"], refs[name]["out"], peak)
             summary[name] = {
                 "mesh": list(cases[name]["mesh"][0]), "axes": list(cases[name]["mesh"][1]),
                 "request_seconds_by_rank": [r["seconds"] for r in per_rank],
                 "unsharded_request_seconds": refs[name]["seconds"],
                 "peak_memory_bytes_by_rank": [r["peak_bytes"] for r in per_rank],
                 "collectives_by_rank": [r["collectives"] for r in per_rank],
-                **_md_compare(name, per_rank[0]["out"], refs[name]["out"], peak)}
+                "launches_by_rank": [_kernel_counts(r["launch_shapes"]) for r in per_rank],
+                **errors}
             log(f"multidevice {name}: " + json.dumps(summary[name]) + f" ({smi})")
         shapes, codes = dict(shapes), dict(codes)
         _check_attention_paths(shapes, codes)
@@ -2455,16 +2578,234 @@ def phase_multidevice(tmp, smi: str):
         launches = collections.Counter()
         for (k, _), c in shapes.items():
             launches[k] += c
-        for k in ("attention", "group_norm", "group_norm_stats", "group_norm_apply"):
+        for k in ("attention", "group_norm", "group_norm_stats", "group_norm_apply",
+                  "conv3x3_int8", "int8_attention"):
             if launches.get(k, 0) <= 0:
                 raise AssertionError(f"kernel {k} did not launch on the multidevice path")
+        for name in int8_of:
+            got = collections.Counter()
+            for r in summary[name]["launches_by_rank"]:
+                got.update(r)
+            want = ("conv3x3_int8", "int8_attention") if name.startswith("d") else (
+                "conv3x3_int8",)
+            if any(got[k] <= 0 for k in want):
+                raise AssertionError(f"multidevice {name}: {want} did not all launch: {got}")
         if n < 4:
-            log(f"multidevice: {n} card(s): (a) and (c) over (1, 1) NCCL meshes only; the "
-                "multi-rank check is `python3 chip_smoke.py --only multidevice` on a "
-                "machine with four cards")
+            log(f"multidevice: {n} card(s): (a), (c), (d) and (e) over (1, 1) NCCL meshes "
+                "only; the multi-rank check is `python3 chip_smoke.py --only "
+                "multidevice,multitrain` on a machine with four cards")
         log("multidevice_json " + json.dumps({"ranks": n, "cases": summary,
                                               "launches": dict(launches), "device": smi}))
     return {"launches": dict(launches), "shapes": shapes, "codes": codes, "cases": summary}
+
+
+MT_SIZE = 256          # multitrain: 256 px
+MT_BATCH = 4           # (f): global batch 4, 4 micro-steps, k = 2
+MT_STEPS = 4
+MT_LR = 1e-4           # (f)'s peak learning rate (its first optimizer step has lr 0)
+MT_TP_BATCH = 2        # (g): batch 2 over (data 2, model 2), fp32, two steps
+MT_TP_STEPS = 2        # (the first pays cuDNN's and NCCL's first-call costs)
+MT_RESTORE_BATCH = 4   # (h): one more step over (data n, model 1) and on one card
+MT_TP_LR = 1e-5        # (g), (h): AdamW(1e-5), as dryrun_multichip's optax.adamw
+# (f), bf16 compute, data mesh against one card: each rank runs its rows at
+# batch 1 where the card runs batch 4, so cuBLAS and cuDNN sum in other
+# orders and the bf16 activations round elsewhere; the loss of each
+# micro-step within MT_LOSS_RTOL of the card's. The masters: AdamW divides
+# each gradient entry by its RMS, so an entry moves by about the learning rate
+# a step whatever its size, and one whose gradient is near zero can move the
+# other way on a rounding difference (+lr on one side, -lr on the other):
+# every master within MT_LR_FACTOR x the learning rate of each step taken of
+# the card's. The same holds for (g) and (h) in fp32 with TF32 off in every
+# rank, where the gradients must also agree: each sharded gradient tensor
+# within MT_GRAD_REL of its largest entry (the ranks' partial sums in another
+# order; with cuDNN's TF32 left on in the ranks a four-card run read
+# 1.76e-3).
+MT_LOSS_RTOL = 2e-2
+MT_LR_FACTOR = 2.05   # two learning rates, and fp32 rounding of the sums
+MT_GRAD_REL = 1e-3
+
+
+def _mt_draws(gen_seed, batch, steps, latent):
+    """Global batches and draws for run_steps: random [-1, 1] images (numpy)
+    and the loss's draws, from a seeded numpy generator."""
+    import numpy as np
+
+    rng = np.random.default_rng(gen_seed)
+    out = []
+    for _ in range(steps):
+        img = lambda: rng.uniform(-1, 1, (batch, MT_SIZE, MT_SIZE, 3)).astype(np.float32)  # noqa: E731
+        lat = lambda: rng.standard_normal((batch, latent, latent, 4)).astype(np.float32)  # noqa: E731
+        out.append({"batch": {"input": img(), "gt": img()},
+                    "draws": {"t": rng.integers(0, 1000, (batch,)), "noise": lat(),
+                              "enc1": lat(), "enc2": lat()}})
+    return out
+
+
+def phase_multitrain(tmp, smi: str):
+    """Multi-device training (see the docstring): (f) train_task over a data
+    mesh of every card against one card, (g) the DP x TP AdamW step over
+    (data 2, model 2) against the unsharded step, (h) its saved state restored
+    over (data n, model 1) and on one card, one more step each. With one
+    card, (1,) and (1, 1) meshes. Returns the ranks' launches, summed."""
+    import numpy as np
+    import torch
+
+    from image_restoration_and_enhancement_torch.core import checkpoint as ckpt
+    from image_restoration_and_enhancement_torch.parallel import launch
+    from image_restoration_and_enhancement_torch.parallel import train as ptrain
+    from image_restoration_and_enhancement_torch.tasks.registry import get_task
+    from image_restoration_and_enhancement_torch.train import loop, trainer
+
+    with _Phase("multitrain"):
+        n = min(torch.cuda.device_count(), 4)
+        root = os.path.join(tmp, "multitrain")
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+        _write_train_data(root, gen, MT_BATCH * MT_STEPS, 1, tasks=("denoise",))
+        spec = get_task("denoise")
+        spec = dataclasses.replace(spec, val_sampler=dataclasses.replace(
+            spec.val_sampler or spec.sampler, num_inference_steps=2))
+        cfg = loop.TrainConfig(num_epochs=1, batch_size=MT_BATCH, gradient_accumulation_steps=2,
+                               image_size=MT_SIZE, learning_rate=MT_LR, save_steps=-1,
+                               state_save_epochs=-1)
+        from image_restoration_and_enhancement_torch import config as C
+
+        kw = dict(task_name="denoise", data_root=os.path.join(root, "pairs"), cfg=cfg,
+                  max_val_samples=1, dtype=torch.bfloat16, task_spec=spec,
+                  model_config=C.SD15)
+        summary = {}
+        shapes, codes, launches = collections.Counter(), collections.Counter(), {}
+
+        def add(per_rank):
+            for r in per_rank:
+                shapes.update(r["launch_shapes"])
+                codes.update(r["launch_paths"])
+
+        # (f) the trainer: one card, then a data mesh of n ranks
+        seen = ptrain._Observed()
+        one_dir = os.path.join(root, "one")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer.train_task(**kw, output_dir=one_dir, use_mesh=False, device="cuda",
+                           on_step=seen)
+        one = {"losses": seen.losses, "seconds": seen.seconds,
+               "peak_bytes": torch.cuda.max_memory_allocated(), "total": time.perf_counter() - t0}
+        one_masters = seen.state.params  # fp32, on card 0; the rest of the state goes
+        del seen
+        shutil.rmtree(one_dir)  # ~8 GB of pipelines
+        torch.cuda.empty_cache()
+        mesh_dir = os.path.join(root, "mesh")
+        t0 = time.perf_counter()
+        ranks = launch.launch(ptrain.run_train_task, n, "nccl",
+                              (dict(kw, output_dir=mesh_dir, device="cuda"),))
+        total = time.perf_counter() - t0
+        add(ranks)
+        launches["f"] = [_kernel_counts(r["launch_shapes"]) for r in ranks]
+        # the mesh run's masters as its rank 0 wrote them (final/, fp32)
+        b = ckpt.load_state_dicts(os.path.join(mesh_dir, "final"))["unet"]
+        if set(b) != set(one_masters):
+            raise AssertionError("(f): final/ holds other UNet tensors than the run trained")
+        master_err = max(float((one_masters[k] - b[k].to(one_masters[k].device)).abs().max())
+                         for k in b)
+        del b, one_masters
+        shutil.rmtree(mesh_dir)
+        torch.cuda.empty_cache()
+        lr_sum = MT_LR * (MT_STEPS // cfg.gradient_accumulation_steps)
+        row = {"ranks": n, "losses_one_card": one["losses"], "losses_mesh": ranks[0]["losses"],
+               "micro_step_seconds_one_card": one["seconds"],
+               "micro_step_seconds_by_rank": [r["seconds"] for r in ranks],
+               "run_seconds_one_card": one["total"], "run_seconds_mesh": total,
+               "peak_memory_bytes_one_card": one["peak_bytes"],
+               "peak_memory_bytes_by_rank": [r["peak_bytes"] for r in ranks],
+               "collectives_by_rank": [r["collectives"] for r in ranks],
+               "master_max_abs_err": master_err, "master_tol": MT_LR_FACTOR * lr_sum,
+               "fingerprints": [r["fingerprint"] for r in ranks]}
+        summary["f_train_task"] = row
+        log("multitrain (f) train_task: " + json.dumps(row) + f" ({smi})")
+        if len(ranks[0]["losses"]) != MT_STEPS or len(one["losses"]) != MT_STEPS:
+            raise AssertionError(f"(f): {len(ranks[0]['losses'])} and {len(one['losses'])} "
+                                 f"micro-steps, not {MT_STEPS}")
+        for x, y in zip(ranks[0]["losses"], one["losses"]):
+            if not (math.isfinite(x) and abs(x - y) <= MT_LOSS_RTOL * abs(y)):
+                raise AssertionError(f"(f): mesh losses {ranks[0]['losses']} against one card's "
+                                     f"{one['losses']}")
+        if not master_err <= row["master_tol"]:
+            raise AssertionError(f"(f): masters {master_err:.3e} from one card's")
+        if len(set(row["fingerprints"])) != 1:
+            raise AssertionError(f"(f): the data ranks' masters differ: {row['fingerprints']}")
+        if n > 1 and any(r["collectives"].get("grad_bucket", 0) <= 0 for r in ranks):
+            raise AssertionError("(f): no bucketed gradient all-reduce")
+
+        # (g) the DP x TP step, fp32, against the unsharded step on card 0; its
+        # state saved; (h) restored over (data n, model 1), one step each
+        weights = _md_stacks(tmp)[0]
+        latent = MT_SIZE // 8
+        state_dir = os.path.join(root, "tp_state")
+        with torch.no_grad():  # the context: CLIP on card 0 from the same weights
+            from image_restoration_and_enhancement_torch.parallel import serve
+
+            mods = serve.load_stack(dict(config="sd15", dtype="float32", weights=weights), "cuda:0")
+            from image_restoration_and_enhancement_torch.core import sampling
+
+            vocab = C.SD15.text_encoder.vocab_size
+            ids = np.random.default_rng(SEED + 12).integers(1, vocab - 1, (1, 77))
+            ctx = sampling.encode_text(mods, torch.as_tensor(ids)).cpu().numpy()
+            del mods
+            torch.cuda.empty_cache()
+        base = dict(config="sd15", dtype="float32", weights=weights, task="denoise",
+                    train=dict(gradient_accumulation_steps=1, lambda_img=0.0),
+                    optimizer="adamw", lr=MT_TP_LR, context=ctx, reference=True)
+        tp = (2, 2) if n == 4 else (1, 1)
+        cases = {"g_dp_tp": dict(base, mesh=(tp, ("data", "model")), save=state_dir,
+                                 steps=_mt_draws(SEED + 13, MT_TP_BATCH, MT_TP_STEPS, latent)),
+                 "h_restore": dict(base, mesh=((n, 1), ("data", "model")), restore=state_dir,
+                                   steps=_mt_draws(SEED + 14, MT_RESTORE_BATCH, 1, latent))}
+        t0 = time.perf_counter()
+        ranks = launch.launch(ptrain.run_cases, n, "nccl", (list(cases.values()),))
+        log(f"multitrain (g), (h): {n} NCCL ranks in {time.perf_counter() - t0:.2f} s "
+            "(start-up and the unsharded references on card 0 included)")
+        for i, name in enumerate(cases):
+            per_rank = [r[i] for r in ranks]
+            add(per_rank)
+            launches[name[0]] = [_kernel_counts(r["launch_shapes"]) for r in per_rank]
+            err = per_rank[0]["errors"]
+            row = {"mesh": list(cases[name]["mesh"][0]), "errors": err,
+                   "step_seconds_by_rank": [r["seconds"] for r in per_rank],
+                   "unsharded_step_seconds": err["reference_seconds"],
+                   "peak_memory_bytes_by_rank": [r["peak_bytes"] for r in per_rank],
+                   "collectives_by_rank": [r["collectives"] for r in per_rank],
+                   "loss": per_rank[0]["metrics"][0]["loss"],
+                   "param_tol": MT_LR_FACTOR * MT_TP_LR * len(cases[name]["steps"]),
+                   "grad_rel_tol": MT_GRAD_REL}
+            summary[name] = row
+            log(f"multitrain ({name}): " + json.dumps(row) + f" ({smi})")
+            if not (err["params"]["max_abs_err"] <= row["param_tol"]
+                    and (name != "g_dp_tp" or err["grads"]["max_rel_err"] <= MT_GRAD_REL)
+                    and math.isfinite(row["loss"])):
+                raise AssertionError(f"multitrain {name}: sharded against unsharded {err}")
+        saved = torch.load(os.path.join(state_dir, trainer.STATE_FILE), map_location="cpu",
+                           weights_only=True)
+        full = ckpt.load_state_dicts(weights)["unet"]
+        if {k: tuple(v.shape) for k, v in saved["params"].items()} != {
+                k: tuple(v.shape) for k, v in full.items()}:
+            raise AssertionError("(h): the saved train state is not the full UNet's")
+        del saved, full
+        total = collections.Counter()
+        for (k, _), c in shapes.items():
+            total[k] += c
+        for name, per_rank in launches.items():
+            for k in ("attention", "group_norm"):
+                if any(r.get(k, 0) <= 0 for r in per_rank):
+                    raise AssertionError(f"multitrain ({name}): {k} did not launch on every rank")
+        bf16_k1 = {p: c for (k, p), c in codes.items() if k == "attention"}
+        log(f"multitrain attention launches by path {bf16_k1}")
+        if n < 4:
+            log(f"multitrain: {n} card(s): (f) over a (1,) mesh, (g) and (h) over (1, 1); the "
+                "multi-rank check is `python3 chip_smoke.py --only multidevice,multitrain` on "
+                "a machine with four cards")
+        log("multitrain_json " + json.dumps({"ranks": n, "cases": summary,
+                                             "launches": dict(total), "device": smi}))
+    return {"launches": dict(total), "shapes": dict(shapes), "codes": dict(codes),
+            "cases": summary}
 
 
 def phase_serve_sdxl():
@@ -3229,9 +3570,14 @@ def main() -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description="Drive the port on the card (see the docstring).")
-    parser.add_argument("--only", choices=["multidevice"], default=None,
-                        help="run this phase alone (with the build and the kernels phase)")
+    parser.add_argument("--only", default=None,
+                        help="run these phases alone, a comma list of multidevice and "
+                             "multitrain (with the build and the kernels phase)")
     only = parser.parse_args().only
+    if only is not None:
+        only = only.split(",")
+        if not only or not set(only) <= {"multidevice", "multitrain"}:
+            parser.error(f"--only takes multidevice and multitrain, not {only}")
     t_start = time.perf_counter()
     import torch
 
@@ -3253,10 +3599,11 @@ def main() -> int:
         f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
 
     phase_build()
-    if only == "multidevice":
+    if only is not None:
+        phases = {"multidevice": phase_multidevice, "multitrain": phase_multitrain}
         tmp = tempfile.mkdtemp(prefix="iret_smoke_")
         try:
-            results = {"multidevice": phase_multidevice(tmp, smi)}
+            results = {name: phases[name](tmp, smi) for name in only}
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         return _finish(results, smi, t_start)
@@ -3274,6 +3621,7 @@ def main() -> int:
         results["tools"] = phase_tools(tmp, smi)
         results["demo"] = phase_demo(tmp, smi)
         results["multidevice"] = phase_multidevice(tmp, smi)
+        results["multitrain"] = phase_multitrain(tmp, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     results["serve_sdxl"] = phase_serve_sdxl()

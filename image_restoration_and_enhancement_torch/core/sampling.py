@@ -463,8 +463,11 @@ def make_sharded_img2img_fn(modules: SDModules, mesh: Mesh, num_inference_steps:
     row-parallel products' all-reduces). ``spatial_axis`` shards the image
     height over it under the level-gated policy of ``parallel/spatial.py``
     (halo rows, global GroupNorm statistics, gathered K/V); the image height
-    must divide by its size. int8 and ToMe under a mesh are not ported (ROADMAP
-    M17b) and raise.
+    must divide by its size. Under int8 (``SDModules.set_quant``) every
+    dynamic scale is the unsharded function's, maxed over the axes its
+    tensor is sharded on (``ops/quant.py``); ToMe (``set_tome``) runs under
+    the data and model axes (its merges are per image, and its input is
+    replicated over the model axis) and not under a spatial one.
 
     Returns (fn, shard_params_fn): call ``shard_params_fn()`` once (it makes
     ``modules`` this rank's part, in place, and returns them), then
@@ -495,13 +498,11 @@ def make_sharded_inpaint_fn(modules: SDModules, mesh: Mesh, num_inference_steps:
                              n_spatial_args=2, n_noise=3)
 
 
-def _check_mesh_modes(modules: SDModules) -> None:
-    if modules.quant is not None and modules.quant.active:
-        raise NotImplementedError(f"int8 serving ({modules.quant.mode}) under a mesh is not "
-                                  "ported yet: ROADMAP M17b")
-    if any(getattr(m, "tome", None) is not None and m.tome.active
-           for m in modules.unet.modules()):
-        raise NotImplementedError("token merging under a mesh is not ported yet: ROADMAP M17b")
+def _check_mesh_modes(modules: SDModules, spatial_axis: Optional[str]) -> None:
+    if spatial_axis is not None and any(getattr(m, "tome", None) is not None and m.tome.active
+                                        for m in modules.unet.modules()):
+        raise ValueError("token merging does not run under spatial sharding: its matching "
+                         "takes the whole token grid, which the height axis shards")
 
 
 def _shard_serving_fn(modules: SDModules, mesh: Mesh, inner: Callable,
@@ -511,7 +512,7 @@ def _shard_serving_fn(modules: SDModules, mesh: Mesh, inner: Callable,
     prompt_ctx, uncond_ctx, noise=...)``: the first ``n_spatial_args`` tensors
     are [B, H, ...] and shard over (data_axis, spatial_axis), the contexts over
     data_axis; ``n_noise`` latent-shaped noise tensors."""
-    _check_mesh_modes(modules)
+    _check_mesh_modes(modules, spatial_axis)
     sp_size = mesh.size(spatial_axis)
     data_group = mesh.group(data_axis) if data_axis is not None else None
 
@@ -540,11 +541,13 @@ def _shard_serving_fn(modules: SDModules, mesh: Mesh, inner: Callable,
         spatial_args = tuple(shard_batch(a, mesh, data_axis) for a in spatial_args)
         noise = tuple(shard_batch(n, mesh, data_axis) for n in noise)
         ctxs = local_ctx(prompt_ctx, batch), local_ctx(uncond_ctx, batch)
-        if spatial_axis is None:
-            out = inner(*spatial_args, *ctxs, noise=noise)
-        else:
-            with spatial.spatial_sharding(mesh, spatial_axis):
+        sp_group = mesh.group(spatial_axis) if spatial_axis is not None else None
+        with collectives.sharded_over(data_group, sp_group):
+            if spatial_axis is None:
                 out = inner(*spatial_args, *ctxs, noise=noise)
+            else:
+                with spatial.spatial_sharding(mesh, spatial_axis):
+                    out = inner(*spatial_args, *ctxs, noise=noise)
         return collectives.all_gather(out, data_group, 0)
 
     return fn, shard_params_fn

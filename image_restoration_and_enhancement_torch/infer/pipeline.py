@@ -48,9 +48,10 @@ Differences from the JAX pipeline:
   the attention backend it is given: the port's attention shards by query
   rows (K and V gathered), where a Pallas call has no partitioning rule for
   GSPMD. Under ``spatial_axis`` ToMe is turned off for this pipeline, with the
-  JAX pipeline's warning. int8 and ToMe under a mesh are not ported (ROADMAP
-  M17b) and raise; a failed request raises on every device (a rank that
-  served a fallback would leave the others waiting in a collective).
+  JAX pipeline's warning. int8 (``quant``) is served under every mesh, with
+  the unsharded function's scales, and ToMe under ``model_axis``; a failed
+  request raises on every device (a rank that served a fallback would leave
+  the others waiting in a collective).
 """
 from __future__ import annotations
 
@@ -159,9 +160,6 @@ class RestorationPipeline:
                 logger.warning("token merging disabled: incompatible with spatial "
                                "sharding (sharded token dim)")
             self.tome = token_merge.TomeState(0.0)
-        if mesh is not None and (self.quant.active or self.tome.active):
-            raise NotImplementedError(
-                "int8 serving and token merging under a mesh are not ported yet: ROADMAP M17b")
         self.seed = seed
         self.dtype = dtype
         self.max_size = max_size

@@ -17,7 +17,10 @@ Under mode ``"int8"``/``"int8_static"`` (``ops/quant.py``) they compute w8a8
 with exact int32 sums: a 3x3 stride-1 conv through ``conv3x3_same_int8`` (K3
 on the card), every other conv and Linear through ``quant.int_matmul``. The s8
 weights and scales are made once and cached on the layer (not in its
-``state_dict``), and made again if the weight changes.
+``state_dict``), and made again if the weight changes. Under a mesh the scales
+are global (``ops/quant.py``): a row-parallel ``QLinear`` (``row_group``) sums
+its s32 partial products over the model group exactly and dequantizes after
+the sum, and a ``QConv2d`` on a height-sharded level exchanges s8 halo rows.
 
 Multi-device serving (``parallel/``): under an active height-sharding policy
 (``parallel/spatial.py``) the 3x3 convs (``Conv2d``, ``QConv2d``) exchange halo
@@ -26,7 +29,10 @@ up- and downsamplers move the level's layout across the gate; with no policy
 they are the plain layers. ``set_tensor_parallel`` turns the UNet's attention,
 GEGLU feed-forwards and time-embedding MLP into Megatron column/row pairs over a
 model group (``parallel/sharding_rules.py``): the row-parallel products are
-summed over the group in fp32 and take their bias once, after the sum.
+summed over the group in fp32 and take their bias once, after the sum. Under
+autograd the column-parallel inputs go through ``collectives.copy_to_group`` and
+the row-parallel sums through ``reduce_from_group``, so the backward pass sums
+the input gradients over the group.
 
 Numerics kept from the JAX blocks:
 - GEGLU gates with the tanh-approximated GELU (flax ``nn.gelu`` default), not
@@ -68,6 +74,7 @@ class _Quantized:
 
     site: Optional[str] = None
     quant: Optional[quant.QuantState] = None
+    row_group = None  # the model group of a row-parallel layer
     _wq: Optional[tuple] = None
 
     def set_quant(self, state: Optional[quant.QuantState]) -> None:
@@ -78,9 +85,11 @@ class _Quantized:
     def quantized_weight(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(s8 weight, fp32 scale [O]): OHWI for a conv, [O, I] for a Linear."""
         w = self.weight
-        key = (w.data_ptr(), w._version, w.device)
+        # the shape too: a rank's first slice of a sharded weight starts
+        # where the whole weight did
+        key = (w.data_ptr(), w._version, w.device, w.shape)
         if self._wq is None or self._wq[0] != key:
-            wq, s = quant.quantize_weight_out_channel(w)
+            wq, s = quant.quantize_weight_out_channel(w, self.row_group)
             if wq.dim() == 4:
                 wq = wq.permute(0, 2, 3, 1).contiguous()
             self._wq = (key, wq, s)
@@ -118,30 +127,39 @@ class Conv2d(nn.Conv2d):
 
 
 class QConv2d(_Quantized, Conv2d):
-    """``Conv2d`` that runs w8a8 under an active quantization state."""
+    """``Conv2d`` that runs w8a8 under an active quantization state. Under a
+    height-sharding policy the input is quantized with the global scale and
+    its s8 rows take the halo geometry of ``spatial.conv``
+    (``spatial.int8_conv``): the 3x3 stride-1 site reaches K3 with one halo
+    row above and below as its padded input."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self._quantized():
             return super().forward(x)
-        if spatial.active() is not None:
-            raise NotImplementedError("int8 serving under a mesh is ROADMAP M17b")
         if self.groups != 1 or self.dilation != (1, 1) or self.padding_mode != "zeros":
             raise NotImplementedError("int8 convs take groups=1, no dilation, zero padding")
         xq, sx = self.quant.quantize_activation(to_nhwc(x), self.site)
         wq, sw = self.quantized_weight()
         (kh, kw), (sh, sw_), (ph, pw) = self.kernel_size, self.stride, self.padding
-        if (kh, kw, sh, sw_, ph, pw) == (3, 3, 1, 1, 1, 1):
-            y = conv3x3_same_int8(F.pad(xq, (0, 0, 1, 1, 1, 1)), wq.permute(1, 2, 3, 0),
-                                  sw * sx, out_dtype=x.dtype)
-        else:
-            b, h, w, c = xq.shape
-            xp = F.pad(xq, (0, 0, pw, pw, ph, ph))
-            ho, wo = (h + 2 * ph - kh) // sh + 1, (w + 2 * pw - kw) // sw_ + 1
+
+        def run(rows: torch.Tensor, top: int, bottom: int) -> torch.Tensor:
+            """The conv of s8 NHWC ``rows`` padded by ``top`` and ``bottom``
+            zero rows (and ``pw`` columns on each side)."""
+            xp = F.pad(rows, (0, 0, pw, pw, top, bottom))
+            if (kh, kw, sh, sw_, pw) == (3, 3, 1, 1, 1):
+                return conv3x3_same_int8(xp, wq.permute(1, 2, 3, 0), sw * sx, out_dtype=x.dtype)
+            b, hp, wp, _ = xp.shape
+            ho, wo = (hp - kh) // sh + 1, (wp - kw) // sw_ + 1
             taps = [xp[:, dy:dy + sh * (ho - 1) + 1:sh, dx:dx + sw_ * (wo - 1) + 1:sw_, :]
                     for dy in range(kh) for dx in range(kw)]
             cols = torch.cat(taps, dim=-1).view(b * ho * wo, -1)
             acc = quant.int_matmul(cols, wq.reshape(wq.shape[0], -1).t())
-            y = quant.dequantize(acc, sx, sw, x.dtype).view(b, ho, wo, -1)
+            return quant.dequantize(acc, sx, sw, x.dtype).view(b, ho, wo, -1)
+
+        if spatial.active() is None or kh == 1:
+            y = run(xq, ph, ph)
+        else:
+            y = spatial.int8_conv(run, xq, sh, ph)
         return from_nhwc(self._add_bias(y))
 
 
@@ -182,16 +200,27 @@ def set_tensor_parallel(root: nn.Module, group, tp: int, replicated=()) -> None:
             continue
         if isinstance(m, CrossAttention):
             m.heads //= tp
-            m.tp_group = group
-        elif isinstance(m, GEGLUFeedForward) or (isinstance(m, TimestepEmbedding)
-                                                  and name.endswith("time_embedding")):
+            m.tp_group = m.to_out[0].row_group = group
+        elif isinstance(m, GEGLUFeedForward):
+            m.tp_group = m.net[2].row_group = group
+        elif isinstance(m, TimestepEmbedding) and name.endswith("time_embedding"):
             m.tp_group = group
 
 
 def row_parallel(layer: nn.Linear, x: torch.Tensor, group) -> torch.Tensor:
     """A row-parallel Linear: this rank's slice of the input dim times its
-    slice of the weight, summed over ``group`` in fp32, then the bias once."""
-    y = collectives.all_reduce(F.linear(x, layer.weight).float(), group)
+    slice of the weight, summed over ``group`` in fp32
+    (``collectives.reduce_from_group``), then the bias once. A quantized
+    layer sums its exact s32 partial products over ``group`` and dequantizes
+    the sum with the global scales: bitwise the unsharded ``QLinear``."""
+    if isinstance(layer, _Quantized) and layer._quantized():
+        with collectives.sharded_over(group):  # the input's features are sharded
+            xq, sx = layer.quant.quantize_activation(x, layer.site)
+        wq, sw = layer.quantized_weight()
+        acc = quant.int_matmul(xq.reshape(-1, xq.shape[-1]), wq.t())
+        acc = collectives.all_reduce(acc, group)
+        return layer._add_bias(quant.dequantize(acc, sx, sw, x.dtype).view(*x.shape[:-1], -1))
+    y = collectives.reduce_from_group(F.linear(x, layer.weight).float(), group)
     if layer.bias is not None:
         y = y + layer.bias.float()
     return y.to(x.dtype)
@@ -266,6 +295,8 @@ class TimestepEmbedding(nn.Module):
         self.linear_2 = nn.Linear(embed_dim, embed_dim)
 
     def forward(self, t_emb: torch.Tensor) -> torch.Tensor:
+        if self.tp_group is not None:
+            t_emb = collectives.copy_to_group(t_emb, self.tp_group)
         h = F.silu(self.linear_1(t_emb))
         return self.linear_2(h) if self.tp_group is None else \
             row_parallel(self.linear_2, h, self.tp_group)
@@ -322,9 +353,11 @@ class CrossAttention(nn.Module):
     """Multi-head attention over tokens [B, N, C]; self-attention when context is None.
     ``attention_backend`` selects the attention function (``ops/attention.py``);
     ``attn_int8_min`` (``set_attn_int8``) is its ``int8_min``. Under tensor
-    parallelism (``tp_group``) the module holds ``heads`` local heads and its
-    output projection is row parallel; on a height-sharded level
-    self-attention takes every shard's K and V."""
+    parallelism (``tp_group``) the module holds ``heads`` local heads, its
+    inputs reach the column-parallel Q/K/V through ``copy_to_group``, an int8
+    attention's scales are maxed over the group, and its output projection is
+    row parallel; on a height-sharded level self-attention takes every
+    shard's K and V."""
 
     attn_int8_min: int = 0
     tp_group = None
@@ -341,6 +374,10 @@ class CrossAttention(nn.Module):
         self.to_out = nn.ModuleList([QLinear(inner, query_dim)])
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.tp_group is not None:
+            x = collectives.copy_to_group(x, self.tp_group)
+            if context is not None:
+                context = collectives.copy_to_group(context, self.tp_group)
         ctx = x if context is None else context
         b, nq, _ = x.shape
         nk = ctx.shape[1]
@@ -351,7 +388,8 @@ class CrossAttention(nn.Module):
         q = self.to_q(x).view(b, nq, self.heads, self.head_dim)
         k = k.view(b, nk, self.heads, self.head_dim)
         v = v.view(b, nk, self.heads, self.head_dim)
-        o = attention(q, k, v, self.attention_backend, self.attn_int8_min)
+        with collectives.sharded_over(self.tp_group):
+            o = attention(q, k, v, self.attention_backend, self.attn_int8_min)
         o = o.reshape(b, nq, self.heads * self.head_dim)
         if self.tp_group is not None:
             return row_parallel(self.to_out[0], o, self.tp_group)
@@ -381,6 +419,8 @@ class GEGLUFeedForward(nn.Module):
         self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(), QLinear(inner, dim)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_group is not None:
+            x = collectives.copy_to_group(x, self.tp_group)
         h = self.net[0](x)
         if self.tp_group is not None:
             return row_parallel(self.net[2], h, self.tp_group)

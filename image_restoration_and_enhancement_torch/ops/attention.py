@@ -68,6 +68,7 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel import collectives
 from . import _build
 from .quant import EPS, div127, round_clip_s8
 
@@ -389,12 +390,17 @@ def smooth_quantize_qk(q: torch.Tensor, k: torch.Tensor
 
     K minus its per-(batch, head, channel) token mean (softmax-invariant: it
     shifts each score row by a constant), then dynamic per-tensor symmetric s8
-    of each over all batches and heads."""
+    of each over all batches and heads. Under a mesh both absmaxes are global
+    (``collectives.global_max``: over the batch and height groups the
+    serving factories name, and the model group of local heads, which
+    ``CrossAttention`` adds); K's token mean is over the tokens given, which
+    a height-sharded level has gathered."""
     kf = k.float()
     kf = kf - kf.mean(dim=1, keepdim=True)
     qf = q.float()
-    sq = torch.clamp(div127(qf.abs().amax()), min=EPS)
-    sk = torch.clamp(div127(kf.abs().amax()), min=EPS)
+    qa, ka = collectives.global_max(qf.abs().amax(), kf.abs().amax())
+    sq = torch.clamp(div127(qa), min=EPS)
+    sk = torch.clamp(div127(ka), min=EPS)
     return round_clip_s8(qf / sq), round_clip_s8(kf / sk), sq * sk
 
 

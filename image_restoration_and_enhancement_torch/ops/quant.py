@@ -20,6 +20,12 @@ device (``div127``), so the card quantizes exactly as the CPU and JAX do.
 The mode, the static table, its misses and the calibration sink live in a
 ``QuantState`` that the caller creates and hands to the model's quantized
 layers (``models/layers.py``); nothing here is process-global.
+
+Under a mesh every scale is the one-device scale of the global tensor: a
+dynamic activation absmax is maxed over the groups the activation is sharded
+on (``parallel/collectives.global_max``: batch and height, and the model group
+around a row-parallel input), and a row-parallel weight's per-channel absmax
+over the model group that holds the other parts of its input dim.
 """
 from __future__ import annotations
 
@@ -29,6 +35,8 @@ import os
 from typing import Dict, Iterator, Optional, Set, Tuple, Union
 
 import torch
+
+from ..parallel import collectives
 
 MODES = (None, "int8", "int8_static")
 EPS = 1e-8
@@ -100,12 +108,14 @@ class QuantState:
     def quantize_activation(self, x: torch.Tensor,
                             site: Optional[str]) -> Tuple[torch.Tensor, Scale]:
         """Per-tensor s8 of ``x``: (x_q, scale). The scale is a Python float
-        for a static site and a 0-dim fp32 tensor for a dynamic one."""
+        for a static site and a 0-dim fp32 tensor for a dynamic one, whose
+        absmax is global over the groups ``x`` is sharded on
+        (``collectives.sharded_over``)."""
         xf = x.float()
         s = self.static_scale(site)
         if s is not None:
             return round_clip_s8(xf * (1.0 / s)), s
-        a = xf.abs().amax()
+        a, = collectives.global_max(xf.abs().amax())
         if self.sink is not None and site is not None:
             prev = self.sink.get(site)
             self.sink[site] = a if prev is None else torch.maximum(prev, a)
@@ -126,11 +136,15 @@ def round_clip_s8(xf: torch.Tensor) -> torch.Tensor:
     return torch.round(xf).clamp_(-127, 127).to(torch.int8)
 
 
-def quantize_weight_out_channel(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_weight_out_channel(w: torch.Tensor, group=None
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-output-channel s8; the output channel is axis 0.
-    Returns (w_q, fp32 scale [O])."""
+    Returns (w_q, fp32 scale [O]). ``group``: the ranks holding the other
+    slices of the input dim (a row-parallel weight), over which each
+    channel's absmax is maxed."""
     wf = w.detach().float()
-    s = torch.clamp(div127(wf.abs().amax(dim=tuple(range(1, w.dim())))), min=EPS)
+    amax = collectives.all_reduce_max(wf.abs().amax(dim=tuple(range(1, w.dim()))), group)
+    s = torch.clamp(div127(amax), min=EPS)
     return round_clip_s8(wf / s.view((-1,) + (1,) * (w.dim() - 1))), s
 
 

@@ -1,2 +1,3 @@
-"""Multi-device serving on torch.distributed: meshes, collectives, tensor
-parallelism and height (spatial) sharding. See each module."""
+"""Multi-device serving and training on torch.distributed: meshes, collectives,
+tensor parallelism, height (spatial) sharding, and what a serving or training
+rank runs. See each module."""

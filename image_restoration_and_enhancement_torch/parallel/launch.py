@@ -21,15 +21,12 @@ import os
 import shutil
 import socket
 import tempfile
-from datetime import timedelta
 from typing import Any, Callable, List, Sequence
 
 import torch
 import torch.distributed as dist
 
-from .mesh import rank_device
-
-TIMEOUT = timedelta(minutes=10)
+from .mesh import TIMEOUT, rank_device
 
 
 def free_port() -> int:

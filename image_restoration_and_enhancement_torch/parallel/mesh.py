@@ -21,10 +21,15 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+from datetime import timedelta
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+# A collective that waits longer raises: a lost rank ends the run, not hangs
+# it. The trainer's other ranks wait this long at most for rank 0's validation.
+TIMEOUT = timedelta(minutes=30)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,7 +89,8 @@ def init_from_env(backend: str) -> torch.device:
     if not dist.is_initialized():
         kw = {"device_id": device} if device.type == "cuda" else {}
         dist.init_process_group(backend, rank=int(os.environ["RANK"]),
-                                world_size=int(os.environ["WORLD_SIZE"]), **kw)
+                                world_size=int(os.environ["WORLD_SIZE"]), timeout=TIMEOUT,
+                                **kw)
     return device
 
 

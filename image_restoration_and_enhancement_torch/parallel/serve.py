@@ -16,8 +16,16 @@ A case is a dict:
               of ``inputs["geometry"]``: "stride1" (``Conv2d``), "down"
               (``Downsample2D``) or "vae_down" (the VAE's downsample), with
               weights from ``inputs["seed"]``, on the height-sharded NHWC
-              ``inputs["x"]``; ``out`` is its largest difference from the
-              unsharded conv on every rank)
+              ``inputs["x"]``, quantized under ``inputs["quant"]`` (a mode)
+              where given; ``out`` is its largest difference from the
+              unsharded conv on every rank), "qlinear" (a row-parallel
+              ``QLinear`` of ``inputs["out_features"]`` under
+              ``inputs["quant"]`` on ``inputs["x"]`` [B, N, K], rows over
+              the data axis and features over the model axis; ``out``:
+              {"sharded", "unsharded"}) or "int8_attention" (the plain int8
+              attention on ``inputs`` "q", "k", "v" [B, N, H, D], rows over
+              the data axis, heads over the model axis and queries over the
+              spatial axis; ``out``: {"sharded", "unsharded"})
   axes        {"data_axis", "model_axis", "spatial_axis"} for the factories
               (data_axis defaults to None), or the pipeline's
   sampling    {"num_inference_steps", "strength", "guidance_scale",
@@ -28,19 +36,24 @@ A case is a dict:
               "x", "t", "ctx"; for "denoise" a uint8 "image"
   requests    how many times to serve it (each timed; default 1)
   backend     the attention backend (default None)
+  quant       int8 serving: (mode, {site: absmax}) for ``QuantState``
+              (default: full precision)
+  audit       True: check every dynamic activation scale of the requests
+              against the absmax of the whole mesh's input (``_Audited``)
+  tome        token merging: (ratio, min_tokens) for ``TomeState``
   pipeline    extra RestorationPipeline arguments ("denoise")
 
 Each rank returns, per case: "out" (rank 0 only; numpy), "seconds" per
 request, "peak_bytes" (CUDA), "collectives" made by the requests and
 "loop_collectives" made between the first UNet call's start and the last
-one's end, and the kernel launches of the requests ("launch_shapes",
-"launch_paths").
+one's end, the kernel launches of the requests ("launch_shapes",
+"launch_paths") and, for an audited case, "scale_audit".
 """
 from __future__ import annotations
 
 import collections
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -48,7 +61,7 @@ import torch
 from .. import config as C
 from ..core import checkpoint as ckpt
 from ..core import sampling
-from ..ops import _build
+from ..ops import _build, quant, token_merge
 from . import collectives
 from .mesh import Mesh, make_mesh
 
@@ -56,7 +69,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def load_stack(case: Dict[str, Any], device) -> sampling.SDModules:
-    """The case's SD stack, on ``device``, with its full weights."""
+    """The case's SD stack, on ``device``, with its full weights (and its
+    quantization and ToMe states)."""
     modules = sampling.SDModules.create(C.PRESETS[case["config"]], _DTYPES[case["dtype"]],
                                         device, attention_backend=case.get("backend"))
     weights = case["weights"]
@@ -64,7 +78,43 @@ def load_stack(case: Dict[str, Any], device) -> sampling.SDModules:
     for comp, module in modules.components().items():
         module.load_state_dict({k: torch.as_tensor(v) for k, v in states[comp].items()},
                                strict=True)
+    if case.get("quant"):
+        mode, table = case["quant"]
+        modules.set_quant((_Audited if case.get("audit") else quant.QuantState)(mode, table))
+    if case.get("tome"):
+        modules.set_tome(token_merge.TomeState(*case["tome"]))
     return modules
+
+
+class _Audited(quant.QuantState):
+    """A QuantState that checks each dynamic activation scale it makes
+    against the scale of the activation's absmax over every axis of the mesh
+    (``groups``: data, model and height, whether the activation is sharded
+    on it or not): a scale that misses an axis on which its tensor is
+    sharded is smaller. Counts {"checked", "mismatched", "local_below"} (the
+    last: calls whose rank-local absmax was below the global one, where a
+    rank-local scale would have been another function)."""
+
+    groups: tuple = ()
+
+    def __post_init__(self):
+        super().__post_init__()
+        self.audit = {"checked": 0, "mismatched": 0, "local_below": 0}
+
+    def quantize_activation(self, x, site):
+        xq, s = super().quantize_activation(x, site)
+        if isinstance(s, torch.Tensor):
+            import torch.distributed as dist
+
+            local = x.float().abs().amax()
+            full = local.clone()
+            for g in self.groups:
+                dist.all_reduce(full, op=dist.ReduceOp.MAX, group=g)
+            want = torch.clamp(quant.div127(full), min=quant.EPS)
+            self.audit["checked"] += 1
+            self.audit["mismatched"] += int(not bool(torch.equal(want, s)))
+            self.audit["local_below"] += int(bool(local < full))
+        return xq, s
 
 
 def _tensor(a, device):
@@ -94,15 +144,18 @@ def _halo_fn(case, mesh: Mesh):
     x = torch.as_tensor(np.asarray(inputs["x"])).to(mesh.device)
     c, h = x.shape[-1], x.shape[1]
     torch.manual_seed(int(inputs["seed"]))
-    module = {"stride1": lambda: layers.Conv2d(c, c, 3, padding=1),
+    module = {"stride1": lambda: layers.QConv2d(c, c, 3, padding=1),
               "down": lambda: layers.Downsample2D(c),
               "vae_down": lambda: vae._VAEDownsample(c)}[inputs["geometry"]]().to(mesh.device)
+    if inputs.get("quant"):
+        layers.set_quant(module, quant.QuantState(inputs["quant"]))
     x = layers.from_nhwc(x.contiguous())
+    axis = case["axes"]["spatial_axis"]
 
     def request():
         with torch.inference_mode():
             full = module(x)
-            with spatial.spatial_sharding(mesh, case["axes"]["spatial_axis"]):
+            with spatial.spatial_sharding(mesh, axis), collectives.sharded_over(mesh.group(axis)):
                 spatial.request(h, h)
                 spatial.begin("image")
                 y = module(spatial.scatter_rows(x, dim=2))
@@ -111,11 +164,72 @@ def _halo_fn(case, mesh: Mesh):
     return request
 
 
+def _axis_slice(t: torch.Tensor, mesh: Mesh, axis: Optional[str], dim: int) -> torch.Tensor:
+    n = mesh.size(axis)
+    size = t.shape[dim] // n
+    return t.narrow(dim, mesh.coordinate(axis) * size, size).contiguous()
+
+
+def _gather(t: torch.Tensor, mesh: Mesh, axis: Optional[str], dim: int) -> torch.Tensor:
+    return t if axis is None else collectives.all_gather(t, mesh.group(axis), dim)
+
+
+def _qlinear_fn(case, mesh: Mesh):
+    from ..models import layers
+
+    inputs, axes = case["inputs"], case["axes"]
+    data, model = axes.get("data_axis"), axes["model_axis"]
+    x = torch.as_tensor(np.asarray(inputs["x"])).to(mesh.device)
+    torch.manual_seed(int(inputs["seed"]))
+    full = layers.QLinear(x.shape[-1], int(inputs["out_features"])).to(mesh.device)
+    part = layers.QLinear(x.shape[-1] // mesh.size(model), full.out_features).to(mesh.device)
+    with torch.no_grad():
+        part.weight.copy_(_axis_slice(full.weight, mesh, model, 1))
+        part.bias.copy_(full.bias)
+    part.row_group = mesh.group(model)
+    for m in (full, part):
+        m.site = "row"
+        m.set_quant(quant.QuantState(inputs["quant"]))
+
+    def request():
+        with torch.inference_mode():
+            want = full(x)
+            local = _axis_slice(_axis_slice(x, mesh, data, 0), mesh, model, 2)
+            group = mesh.group(data) if data else None
+            with collectives.sharded_over(group):
+                y = layers.row_parallel(part, local, mesh.group(model))
+            got = _gather(y, mesh, data, 0)
+        return {"sharded": got.cpu().numpy(), "unsharded": want.cpu().numpy()}
+    return request
+
+
+def _int8_attention_fn(case, mesh: Mesh):
+    from ..ops.attention import int8_attention_reference
+
+    inputs, axes = case["inputs"], case["axes"]
+    data, model, sp = (axes.get(k) for k in ("data_axis", "model_axis", "spatial_axis"))
+    q, k, v = (torch.as_tensor(np.asarray(inputs[n])).to(mesh.device) for n in "qkv")
+
+    def local(t, queries):
+        t = _axis_slice(_axis_slice(t, mesh, data, 0), mesh, model, 2)
+        return _axis_slice(t, mesh, sp, 1) if queries else t
+
+    def request():
+        with torch.inference_mode():
+            want = int8_attention_reference(q, k, v)
+            groups = [mesh.group(a) for a in (data, model, sp) if a is not None]
+            with collectives.sharded_over(*groups):
+                o = int8_attention_reference(local(q, True), local(k, False), local(v, False))
+            got = _gather(_gather(_gather(o, mesh, sp, 1), mesh, model, 2), mesh, data, 0)
+        return {"sharded": got.cpu().numpy(), "unsharded": want.cpu().numpy()}
+    return request
+
+
 def _request_fn(case, modules, mesh: Mesh):
     """A zero-argument function serving the case once, returning numpy."""
     inputs, kind = case["inputs"], case["kind"]
-    if kind == "halo":
-        return _halo_fn(case, mesh)
+    if kind in _UNIT_KINDS:
+        return _UNIT_KINDS[kind](case, mesh)
     dev = mesh.device
     if kind == "unet":
         from .sharding_rules import shard_module
@@ -151,6 +265,9 @@ def _request_fn(case, modules, mesh: Mesh):
     return request
 
 
+_UNIT_KINDS = {"halo": _halo_fn, "qlinear": _qlinear_fn, "int8_attention": _int8_attention_fn}
+
+
 def _pipeline(case, device, **mesh_kw):
     from ..infer.pipeline import RestorationPipeline
 
@@ -183,8 +300,11 @@ def run_cases(cases: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
     results = []
     for case in cases:
         mesh = make_mesh(*case["mesh"])
-        modules = (None if case["kind"] in ("denoise", "halo")
+        modules = (None if case["kind"] in ("denoise", *_UNIT_KINDS)
                    else load_stack(case, mesh.device))
+        if isinstance(getattr(modules, "quant", None), _Audited):
+            modules.quant.groups = tuple(mesh.group(a) for a in mesh.axis_names
+                                         if mesh.size(a) > 1)
         request = _request_fn(case, modules, mesh)
         marks: List[int] = []
         hooks = []
@@ -210,6 +330,7 @@ def run_cases(cases: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
             "loop_collectives": marks[-1] - marks[0] if marks else None,
             "launch_shapes": dict(_build.launch_shapes),
             "launch_paths": dict(_build.launch_paths),
+            "scale_audit": getattr(getattr(modules, "quant", None), "audit", None),
         })
         del request, modules
     return results

@@ -28,15 +28,25 @@ Two things the JAX rules leave to XLA are explicit here:
   function. ``replicated_sites`` names such sites, and logs each.
 Serving shards only the UNet, as the JAX serving factories do; the CLIP rules
 are here and tested against the JAX package's, but not served.
+
+Training over a (data, model) mesh keeps the UNet's fp32 masters and the
+optimizer's per-parameter state (AdamW's ``mu``/``nu``, MultiSteps' ``acc``,
+Adafactor's unfactored ``v``) as this rank's slices of the same partition;
+``TrainSharding`` names them, takes the global-norm and finiteness decisions
+over the model group, and slices a full train state (``shard_train_state``)
+or gathers one back to full (``gather_train_state``): the saved state is the
+one-device file, whatever mesh wrote or reads it.
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
-from typing import Dict, Iterable, Mapping, Optional, Set
+from typing import Any, Dict, Iterable, Mapping, Optional, Set
 
 import torch
 import torch.nn as nn
 
+from . import collectives
 from .mesh import Mesh
 
 logger = logging.getLogger(__name__)
@@ -146,3 +156,101 @@ def shard_module(module: nn.Module, mesh: Mesh, model_axis: str = "model") -> nn
             p.data = local[name]
     layers.set_tensor_parallel(module, mesh.group(model_axis), tp, keep)
     return module
+
+
+def sharded_params(module: nn.Module, tp: int) -> Dict[str, int]:
+    """{parameter name: partition dim} of the parameters of a full ``module``
+    that ``shard_module`` slices at model-axis size ``tp``."""
+    if tp == 1:
+        return {}
+    keep = replicated_sites(module, tp)
+    out = {}
+    for name, p in module.named_parameters():
+        dim = partition_dim(name, p.dim())
+        if dim is not None and not _in_site(name, keep):
+            out[name] = dim
+    return out
+
+
+def unshard_tensor(name: str, parts, dim: int) -> torch.Tensor:
+    """The full parameter ``name`` from its ``tp`` slices in rank order (the
+    inverse of ``shard_tensor``, GEGLU's half split included)."""
+    if _matches(name, (GEGLU_PROJ + ".weight", GEGLU_PROJ + ".bias")):
+        halves = [p.chunk(2, dim=0) for p in parts]
+        return torch.cat([h[0] for h in halves] + [h[1] for h in halves], 0)
+    return torch.cat(list(parts), dim=dim)
+
+
+@dataclasses.dataclass
+class TrainSharding:
+    """A train state over a mesh's model axis: the axis's ``group``, its size
+    ``tp``, this rank's ``index`` on it and ``dims``, {parameter name:
+    partition dim} of the sliced parameters (``sharded_params``)."""
+
+    group: Any
+    tp: int
+    index: int
+    dims: Dict[str, int]
+
+    @classmethod
+    def of(cls, module: nn.Module, mesh: Mesh, model_axis: str = "model") -> "TrainSharding":
+        """The sharding ``shard_module(module, mesh, model_axis)`` gives a
+        full ``module`` (call before sharding it)."""
+        tp = mesh.size(model_axis)
+        return cls(mesh.group(model_axis) if tp > 1 else None, tp,
+                   mesh.coordinate(model_axis), sharded_params(module, tp))
+
+    def global_norm(self, grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """optax.global_norm of the full gradients: the sliced ones' squares
+        summed over the group, the replicated ones' counted once."""
+        def sq(names):
+            parts = [grads[n].float().square().sum() for n in names]
+            return torch.stack(parts).sum() if parts else torch.zeros(
+                (), device=next(iter(grads.values())).device)
+        sliced = collectives.all_reduce(sq([n for n in grads if n in self.dims]), self.group)
+        return (sliced + sq([n for n in grads if n not in self.dims])).sqrt()
+
+    def all_finite(self, local: torch.Tensor) -> bool:
+        """Whether every rank of the group found its tensors finite
+        (``local``: this rank's bool)."""
+        bad = collectives.all_reduce_max((~local).float().reshape(1), self.group)
+        return not bool(bad[0])
+
+    def shard(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        dim = self.dims.get(name)
+        return t if dim is None else shard_tensor(name, t, self.tp, self.index)
+
+    def gather(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        dim = self.dims.get(name)
+        if dim is None:
+            return t
+        parts = collectives.all_gather(t.unsqueeze(0), self.group, 0)
+        return unshard_tensor(name, parts.unbind(0), dim)
+
+
+def _map_state(tree, fn):
+    """``tree`` (the optimizer's state: dicts of ints and {name: tensor}) with
+    ``fn(name, tensor)`` applied to each per-parameter tensor."""
+    if isinstance(tree, dict):
+        return {k: fn(k, v) if isinstance(v, torch.Tensor) else _map_state(v, fn)
+                for k, v in tree.items()}
+    return tree
+
+
+def shard_train_state(params: Mapping[str, torch.Tensor], opt_state,
+                      sharding: TrainSharding):
+    """(params, opt_state) of a full train state sliced for this rank."""
+    def cut(name, t):
+        if name in sharding.dims and t.shape != params[name].shape:
+            raise ValueError(f"{name}: a factored optimizer state {tuple(t.shape)} cannot be "
+                             "sliced over the model axis")
+        return sharding.shard(name, t).contiguous()
+    return {n: cut(n, t) for n, t in params.items()}, _map_state(opt_state, cut)
+
+
+def gather_train_state(params: Mapping[str, torch.Tensor], opt_state,
+                       sharding: TrainSharding):
+    """(params, opt_state) of this rank's slices gathered to the full train
+    state (every rank of the model group calls it, in the same order)."""
+    return ({n: sharding.gather(n, t) for n, t in params.items()},
+            _map_state(opt_state, sharding.gather))

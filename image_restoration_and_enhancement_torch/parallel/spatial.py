@@ -18,8 +18,8 @@ partitions the convs from sharding constraints; here the code does it:
   paths). Tensors here are NCHW-shaped and channels-last: the height is dim 2
   (dim 1 of the NHWC tensors that enter and leave the models).
 - 3x3 convs exchange halo rows with the neighbouring shards
-  (``collectives.halo_exchange``), the global top and bottom shards padding
-  with zeros: a stride-1 pad-1 conv takes one row from above and one from
+  (``collectives.halo_exchange``; an int8 conv its s8 rows, ``int8_conv``),
+  the global top and bottom shards padding with zeros: a stride-1 pad-1 conv takes one row from above and one from
   below; the stride-2 pad-1 ``Downsample2D`` one from above only; the VAE's
   downsample (``F.pad(x, (0, 1, 0, 1))`` then stride 2, pad 0) one from below
   only. A stride-2 conv needs every shard to start at an even global row; a
@@ -187,6 +187,34 @@ def conv(conv: nn.Conv2d, x: torch.Tensor, vae_pad: bool = False) -> torch.Tenso
     else:
         y = _conv(conv, _halo(x, pol, 1, 0), 2, conv.padding[1])
     return y if pol.gate(pol.height) else _all_rows(y, pol)
+
+
+def int8_conv(run, xq: torch.Tensor, stride: int, pad: int) -> torch.Tensor:
+    """A quantized 3x3 conv (stride 1 or 2, padding ``pad``) on the current
+    level's s8 NHWC ``xq`` under the active policy, with ``spatial.conv``'s
+    geometry on the s8 rows (one byte an element): ``run(rows, top, bottom)``
+    is the local conv of ``rows`` padded by ``top`` and ``bottom`` zero rows.
+    A stride-1 conv of a sharded level takes one halo row from above and one
+    from below (zero rows at the global edges), a stride-2 conv one from
+    above; a stride-2 conv updates the policy's height."""
+    pol = _policy.get()
+    if stride == 1:
+        if not pol.sharded:
+            return run(xq, pad, pad)
+        up, down = collectives.halo_exchange(xq, pol.group, 1, 1, 1)
+        zero = lambda: xq.new_zeros((xq.shape[0], 1) + xq.shape[2:])  # noqa: E731
+        return run(torch.cat([up if up is not None else zero(), xq,
+                              down if down is not None else zero()], dim=1), 0, 0)
+    h_in = pol.height
+    pol.height = h_in // 2
+    if not pol.gate(h_in) or xq.shape[1] % 2:
+        # replicated, or a shard starting at an odd global row: the whole level
+        rows = collectives.all_gather(xq, pol.group, 1) if pol.gate(h_in) else xq
+        return run(rows, pad, pad)
+    up, _ = collectives.halo_exchange(xq, pol.group, 1, 1, 0)
+    top = up if up is not None else xq.new_zeros((xq.shape[0], 1) + xq.shape[2:])
+    y = run(torch.cat([top, xq], dim=1), 0, 0)
+    return y if pol.gate(pol.height) else collectives.all_gather(y, pol.group, 1)
 
 
 def upsampled(x: torch.Tensor) -> torch.Tensor:

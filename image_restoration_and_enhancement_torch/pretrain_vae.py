@@ -6,7 +6,9 @@ package's ``scripts/pretrain_vae.py``, with its flags; the objective is in
     python -m image_restoration_and_enhancement_torch.pretrain_vae \\
         --data_root data/clean --output_dir outputs/models/vae_pretrained [--device cpu]
 
-Trains on the GPU unless ``--device cpu``.
+Trains on the GPU unless ``--device cpu``; over every card where the batch
+divides by their number, as the task trainers do (``train_cli.py``), and on
+one device with ``--no_mesh``.
 """
 from __future__ import annotations
 
@@ -27,7 +29,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--max_train_samples", type=int, default=None)
     p.add_argument("--max_val_samples", type=int, default=None)
     p.add_argument("--seed", type=int, default=42)
-    p.add_argument("--no_mesh", action="store_true", help="train on one device (the only mode ported)")
+    p.add_argument("--no_mesh", action="store_true",
+                   help="train on one device; without it, a batch that divides by the "
+                        "number of cards trains over all of them (data parallel)")
     p.add_argument("--base_model", default="sd15", choices=["sd15", "tiny_sd"])
     p.add_argument("--init_from", default=None,
                    help="pipeline dir (e.g. an earlier run's best/) to continue from")

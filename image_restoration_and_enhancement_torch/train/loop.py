@@ -19,6 +19,17 @@ Here they are arguments (``draw_step``): the trainer draws them from a
 ``torch.Generator`` seeded from (seed, step), and the parity tests feed JAX's
 draws.
 
+Under a mesh (``make_train_step(..., mesh=)``, JAX's ``in_shardings`` of the
+batch over ``data``) every rank is handed the global batch and the global
+draws, the same on every rank, and takes its rows: a sharded run draws what
+one device draws. The loss is the mean over the rank's rows; the gradients
+are averaged over the data axis in flat buckets
+(``parallel/collectives.all_reduce_mean``), so each data rank holds the
+gradient of the global mean, and the metrics are averaged likewise. Under a
+model axis the module is already ``shard_module``'d: the gradients of its
+sliced parameters stay this rank's, and the optimizer takes its decisions
+over the model group (``Optimizer.shard``).
+
 Precision: flax keeps fp32 parameters and computes in the module's dtype. The
 port keeps fp32 master parameters (``TrainState.params``) beside the compute
 module: before each forward the masters are copied into it (nothing to copy
@@ -29,7 +40,7 @@ autocast: the port's layers pick their kernels by dtype.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -37,7 +48,9 @@ from ..core import schedulers as sched
 from ..core.sampling import (SDModules, encode_image, latent_shape, mask_to_latents,
                              sdxl_time_ids)
 from ..tasks.registry import TaskSpec, soft_conditioning_blend
-from .optim import Optimizer, Params, State, global_norm, warmup_cosine_decay
+from ..parallel import collectives
+from ..parallel.mesh import Mesh, shard_batch
+from .optim import Optimizer, Params, State, warmup_cosine_decay
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,19 +207,40 @@ def make_loss_fn(modules: SDModules, task: TaskSpec, cfg: TrainConfig) -> Callab
     return loss_fn
 
 
-def make_train_step(modules: SDModules, task: TaskSpec, cfg: TrainConfig) -> Callable:
-    """Build step(state, batch, context, draws) -> metrics on one device. It
-    copies the masters into the UNet, takes the loss and its gradients, hands
-    the fp32 gradients to the optimizer (which steps the masters in place) and
+def make_train_step(modules: SDModules, task: TaskSpec, cfg: TrainConfig,
+                    mesh: Optional[Mesh] = None, data_axis: str = "data") -> Callable:
+    """Build step(state, batch, context, draws) -> metrics. It copies the
+    masters into the UNet, takes the loss and its gradients, hands the fp32
+    gradients to the optimizer (which steps the masters in place) and
     advances ``state.step``. metrics: the loss's and "grad_norm" (the global
-    norm of this call's gradients), detached 0-d tensors."""
+    norm of this call's gradients), detached 0-d tensors. With ``mesh``,
+    ``batch`` and ``draws`` are the global ones and the step runs on this
+    rank's rows of ``data_axis`` (see the module docstring)."""
     loss_fn = make_loss_fn(modules, task, cfg)
-    return make_module_step(modules.unet, loss_fn)
+    step = make_module_step(modules.unet, loss_fn, mesh, data_axis)
+    if mesh is None:
+        return step
+
+    def sharded_step(state: TrainState, batch, context, draws) -> Dict[str, torch.Tensor]:
+        return step(state, shard_rows(batch, mesh, data_axis), context,
+                    shard_rows(draws, mesh, data_axis))
+
+    return sharded_step
 
 
-def make_module_step(module: torch.nn.Module, loss_fn: Callable) -> Callable:
+def shard_rows(tree: Dict[str, Any], mesh: Mesh, axis: str = "data") -> Dict[str, Any]:
+    """This rank's rows along ``axis`` of every [B, ...] array of a dict, as
+    tensors on the rank's device."""
+    return {k: shard_batch(torch.as_tensor(v), mesh, axis) for k, v in tree.items()}
+
+
+def make_module_step(module: torch.nn.Module, loss_fn: Callable,
+                     mesh: Optional[Mesh] = None, data_axis: str = "data") -> Callable:
     """The step of ``make_train_step`` for any module and loss_fn(*args) ->
-    (loss, metrics) (the VAE pretrain's too)."""
+    (loss, metrics) (the VAE pretrain's too). With ``mesh``, ``args`` are
+    this rank's rows and the gradients and metrics are averaged over
+    ``data_axis``."""
+    group = mesh.group(data_axis) if mesh is not None and mesh.size(data_axis) > 1 else None
 
     def step(state: TrainState, *args) -> Dict[str, torch.Tensor]:
         load_masters(module, state.params)
@@ -216,7 +250,13 @@ def make_module_step(module: torch.nn.Module, loss_fn: Callable) -> Callable:
         grads = {n: p.grad.float() for n, p in module.named_parameters()}
         module.zero_grad(set_to_none=True)
         metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = global_norm(grads)
+        if group is not None:
+            collectives.all_reduce_mean(list(grads.values()), group)
+            names = sorted(metrics)
+            total = collectives.all_reduce(torch.stack([metrics[k].float() for k in names]),
+                                           group)
+            metrics = dict(zip(names, (total / mesh.size(data_axis)).unbind()))
+        metrics["grad_norm"] = state.tx.global_norm(grads)
         state.tx.update(grads, state.opt_state, state.params)
         state.step += 1
         return metrics

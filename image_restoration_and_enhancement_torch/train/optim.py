@@ -33,6 +33,16 @@ of operations:
 State is a dict of Python ints and tensor dicts keyed like the parameters, so
 ``torch.save`` writes it as it stands. ``update`` changes the parameters and
 the state in place.
+
+Under a mesh the gradients reach ``update`` already averaged over the data
+axis (``train/loop.py``), so every data rank takes the same decisions on the
+same values. Under a model axis (``shard``: a ``parallel/sharding_rules.
+TrainSharding``) the parameters are this rank's slices, and the two decisions
+taken on all of them, ``apply_if_finite``'s (and MultiSteps') finiteness and
+the clip's global norm, are taken over the model group, so they too are the
+one-device decisions on every rank. Adafactor refuses a model axis: its
+factored dims and block RMS are taken on a tensor's global shape and values,
+which a slice does not have.
 """
 from __future__ import annotations
 
@@ -102,6 +112,25 @@ class Optimizer:
         self.kind, self.schedule = kind, schedule
         self.b1, self.b2, self.weight_decay = b1, b2, weight_decay
         self.max_grad_norm, self.every_k, self.nan_guard = max_grad_norm, every_k, nan_guard
+        self.sharding = None
+
+    def shard(self, sharding) -> None:
+        """Step slices over a model axis (``TrainSharding``; None: whole
+        tensors)."""
+        if sharding is not None and sharding.tp > 1 and self.kind == "adafactor":
+            raise NotImplementedError(
+                "Adafactor does not run over a model axis: its factored second moments "
+                "and block RMS are taken on each parameter's global shape and values, and "
+                f"a model axis of {sharding.tp} hands each rank a slice (use adamw)")
+        self.sharding = sharding
+
+    def global_norm(self, grads: Params) -> torch.Tensor:
+        """optax.global_norm of the (full) gradients."""
+        return global_norm(grads) if self.sharding is None else self.sharding.global_norm(grads)
+
+    def _all_finite(self, tensors: Params) -> bool:
+        local = torch.stack([torch.isfinite(t).all() for t in tensors.values()]).all()
+        return bool(local) if self.sharding is None else self.sharding.all_finite(local)
 
     # -- state -------------------------------------------------------------
 
@@ -134,7 +163,7 @@ class Optimizer:
         stepped by the inner transform."""
         if self.nan_guard == "apply_if_finite":
             guard = state["guard"]
-            finite = bool(torch.stack([torch.isfinite(g).all() for g in grads.values()]).all())
+            finite = self._all_finite(grads)
             guard["notfinite_count"] = 0 if finite else guard["notfinite_count"] + 1
             guard["last_finite"] = finite
             guard["total_notfinite"] += 0 if finite else 1
@@ -152,8 +181,7 @@ class Optimizer:
         multi["mini_step"] = (n + 1) % self.every_k
         if not emit:
             # under apply_if_finite the accumulator holds only finite gradients
-            if self.nan_guard != "apply_if_finite" and not bool(
-                    torch.stack([torch.isfinite(a).all() for a in acc.values()]).all()):
+            if self.nan_guard != "apply_if_finite" and not self._all_finite(acc):
                 # optax adds 0 * the inner update of this micro-step
                 scratch = {n_: p.clone() for n_, p in params.items()}
                 self._inner(acc, copy.deepcopy(state["inner"]), scratch)
@@ -172,7 +200,7 @@ class Optimizer:
         if self.nan_guard == "zero_grads":
             grads = {n: torch.where(torch.isnan(g), torch.zeros_like(g), g)
                      for n, g in grads.items()}
-        norm = global_norm(grads)
+        norm = self.global_norm(grads)
         if not bool(norm < self.max_grad_norm):
             grads = {n: g / norm * self.max_grad_norm for n, g in grads.items()}
         step = self._adamw if self.kind == "adamw" else self._adafactor

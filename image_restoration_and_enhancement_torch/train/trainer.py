@@ -21,10 +21,20 @@ One generic trainer for the four tasks, with the JAX trainer's behaviour:
   every ``state_save_epochs`` epochs and at the last (0: the last only; -1:
   never). JAX writes it with Orbax; the content is the same.
 
-One device: the JAX trainer's data-parallel mesh (``use_mesh`` over several
-devices) is ROADMAP M17b, and asking for it with more than one CUDA device
-raises. Each step's draws come from a generator seeded from (seed, step), so
-a resumed run draws what the uninterrupted one would have.
+Several devices, by the JAX trainer's rule (``data_parallel_ranks``): with
+``use_mesh``, a world of N > 1 devices and a batch that divides by N, the run
+trains over a ``data`` mesh of N ranks (``train/loop.py``'s sharded step);
+otherwise on one device, and the log says why. The world is ``torchrun``'s
+when the process runs under it; a process started alone with N CUDA cards
+(or asked for ``num_devices`` gloo ranks on the CPU) starts N ranks itself
+(``parallel/launch.py``, one card each; more ranks than cards raises). Every
+rank reads the same batches and takes its rows. Rank 0 alone validates
+(through the unsharded sampler, while the others wait at a barrier) and writes
+the log, the CSV, strips, checkpoints, ``best/``, ``final/`` and the train
+state, which is the one-device file. A rank that raises ends the run.
+Each step's draws come from a generator seeded from (seed, step), so a
+resumed run, or a sharded one, draws what the uninterrupted one-device run
+would have.
 """
 from __future__ import annotations
 
@@ -34,10 +44,11 @@ import json
 import logging
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import checkpoint as ckpt
 from ..core import sampling
@@ -59,8 +70,8 @@ FROZEN_COMPONENTS = ("vae", "text_encoder", "text_encoder_2")
 
 def _is_main() -> bool:
     """The JAX trainer writes logs, CSV, strips and pipelines from process 0
-    only. The port trains in one process, which is always the main one."""
-    return True
+    only; the port from rank 0 of a multi-rank run."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _setup_logging(output_dir: str, task: str) -> None:
@@ -107,14 +118,47 @@ def _save_strip(path: str, inp: np.ndarray, out: np.ndarray, gt: np.ndarray) -> 
     save_image(path, ((strip + 1) * 127.5).clip(0, 255).astype(np.uint8))
 
 
-def check_single_device(use_mesh: bool, device: torch.device) -> None:
-    """The port trains on one device; a data-parallel request over several
-    raises (ROADMAP M17b: multi-device serving is ported, training is not)."""
-    n = torch.cuda.device_count() if device.type == "cuda" else 1
-    if use_mesh and n > 1:
-        raise NotImplementedError(
-            f"data-parallel training over {n} devices is not ported yet (ROADMAP M17b); "
-            "pass use_mesh=False (--no_mesh) to train on one device")
+def data_parallel_ranks(use_mesh: bool, batch_size: int, device: torch.device,
+                        num_devices: Optional[int] = None) -> int:
+    """The data-parallel ranks a run trains over, by the JAX trainer's rule
+    (``use_mesh``, more than one device and ``batch_size`` divisible by their
+    number; else 1, logged). The devices: the world's ranks under
+    torch.distributed, else ``num_devices``, else the CUDA cards this process
+    sees (1 on the CPU)."""
+    if dist.is_initialized():
+        n = dist.get_world_size()
+    elif num_devices is not None:
+        n = int(num_devices)
+    else:
+        n = torch.cuda.device_count() if device.type == "cuda" else 1
+    if n <= 1:
+        return 1
+    if not use_mesh:
+        logger.info("training on one device of %d: the mesh is off (--no_mesh)", n)
+        return 1
+    if batch_size % n:
+        logger.info("training on one device of %d: batch %d does not divide by %d devices",
+                    n, batch_size, n)
+        return 1
+    logger.info("data-parallel mesh over %d devices", n)
+    return n
+
+
+def _world(device: torch.device) -> None:
+    """Join ``torchrun``'s world (NCCL on the card, gloo on the CPU) where the
+    process runs under one of more than one rank."""
+    if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        from ..parallel.mesh import init_from_env
+
+        init_from_env("nccl" if device.type == "cuda" else "gloo")
+
+
+def spawn_ranks(fn, n: int, device: torch.device, kwargs: dict):
+    """Run ``fn(kwargs)`` (a ``parallel/train.py`` function) on ``n`` new
+    ranks, NCCL on the card or gloo on the CPU; rank 0's result."""
+    from ..parallel import launch
+
+    return launch.launch(fn, n, "nccl" if device.type == "cuda" else "gloo", (kwargs,))[0]
 
 
 @dataclasses.dataclass
@@ -226,12 +270,22 @@ def run_validation(
 STATE_FILE = "state.pt"
 
 
-def save_train_state(directory: str, state: TrainState) -> None:
+def save_train_state(directory: str, state: TrainState, sharding=None) -> None:
     """fp32 masters, optimizer state and step to ``directory/state.pt``,
-    through a temporary name (a crash leaves the previous file whole)."""
+    through a temporary name (a crash leaves the previous file whole). Under
+    a model axis (``sharding``, a ``parallel/sharding_rules.TrainSharding``;
+    every rank of the mesh calls it) the slices are gathered first; rank 0
+    writes the full, one-device state."""
+    params, opt_state = state.params, state.opt_state
+    if sharding is not None:
+        from ..parallel.sharding_rules import gather_train_state
+
+        params, opt_state = gather_train_state(params, opt_state, sharding)
+    if not _is_main():
+        return
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, STATE_FILE)
-    torch.save({"step": state.step, "params": state.params, "opt_state": state.opt_state},
+    torch.save({"step": state.step, "params": params, "opt_state": opt_state},
                path + ".tmp")
     os.replace(path + ".tmp", path)
 
@@ -243,9 +297,11 @@ def latest_step(directory: str) -> Optional[int]:
     return int(torch.load(path, map_location="cpu", weights_only=True)["step"])
 
 
-def restore_train_state(directory: str, state: TrainState) -> bool:
+def restore_train_state(directory: str, state: TrainState, sharding=None) -> bool:
     """Load ``directory/state.pt`` into ``state`` (masters copied in place, so
-    fp32 masters stay the module's own parameters). False when there is none."""
+    fp32 masters stay the module's own parameters). The file is the full
+    state, whatever mesh wrote it; under a model axis (``sharding``) this
+    rank takes its slices. False when there is none."""
     path = os.path.join(directory, STATE_FILE)
     if not os.path.exists(path):
         return False
@@ -253,10 +309,15 @@ def restore_train_state(directory: str, state: TrainState) -> bool:
     saved = torch.load(path, map_location=dev, weights_only=True)
     if set(saved["params"]) != set(state.params):
         raise ValueError(f"{path} holds other parameters than the model being trained")
+    params, opt_state = saved["params"], saved["opt_state"]
+    if sharding is not None:
+        from ..parallel.sharding_rules import shard_train_state
+
+        params, opt_state = shard_train_state(params, opt_state, sharding)
     with torch.no_grad():
         for n, p in state.params.items():
-            p.copy_(saved["params"][n])
-    state.opt_state = saved["opt_state"]
+            p.copy_(params[n])
+    state.opt_state = opt_state
     state.step = int(saved["step"])
     return True
 
@@ -292,9 +353,13 @@ def train_task(
     model_config=None,
     task_spec: Optional[TaskSpec] = None,
     device: DeviceLike = None,
+    num_devices: Optional[int] = None,
+    on_step: Optional[Callable[[int, Dict[str, torch.Tensor], TrainState], None]] = None,
 ) -> Dict[str, float]:
     """Fine-tune one task end to end on ``device`` (``cuda`` unless ``"cpu"``
-    is asked for). Returns the last validation metrics.
+    is asked for), over a data mesh where ``data_parallel_ranks`` says so
+    (``num_devices``: see there). Returns the last validation metrics (rank
+    0's).
 
     ``init_from``: a pipeline directory (the port's or the JAX package's
     layout) or a diffusers directory; without it every component starts
@@ -302,14 +367,30 @@ def train_task(
     towers seed the frozen components (e.g. ``pretrain_vae``'s ``best/``).
     ``model_config`` replaces the task's stack (TINY configs in tests);
     ``task_spec`` replaces the whole task. ``dtype`` is the compute dtype; the
-    UNet's masters and the optimizer are fp32 whatever it is."""
+    UNet's masters and the optimizer are fp32 whatever it is. ``on_step(step,
+    metrics, state)`` is called after every micro-step, on every rank."""
     spec = task_spec if task_spec is not None else get_task(task_name)
     if model_config is not None:
         spec = dataclasses.replace(spec, model_config=model_config)
     output_dir = output_dir or os.path.join("outputs", "models", spec.model_dir)
     dev = resolve_device(device)
-    check_single_device(use_mesh, dev)
+    _world(dev)
     _setup_logging(output_dir, spec.name)
+    n_ranks = data_parallel_ranks(use_mesh, cfg.batch_size, dev, num_devices)
+    mesh = None
+    if n_ranks > 1 and not dist.is_initialized():
+        from ..parallel import train as parallel_train
+
+        return spawn_ranks(parallel_train.run_train_task, n_ranks, dev, dict(
+            task_name=task_name, data_root=data_root, output_dir=output_dir, cfg=cfg,
+            init_from=init_from, vae_init=vae_init, max_train_samples=max_train_samples,
+            max_val_samples=max_val_samples, dtype=dtype, resume=resume,
+            task_spec=spec, device=dev.type))["metrics"]
+    if n_ranks > 1:
+        from ..parallel.mesh import make_mesh
+
+        mesh = make_mesh((n_ranks,), ("data",))
+        dev = mesh.device
     logger.info("=== training %s -> %s ===", spec.name, output_dir)
     t_start = time.time()
 
@@ -339,7 +420,7 @@ def train_task(
     num_opt_steps = max(1, steps_per_epoch * cfg.num_epochs // cfg.gradient_accumulation_steps)
 
     state = create_train_state(cfg, modules.unet, num_opt_steps)
-    step_fn = make_train_step(modules, spec, cfg)
+    step_fn = make_train_step(modules, spec, cfg, mesh=mesh)
 
     tokenizer = load_tokenizer(init_from, vocab_size=spec.model_config.text_encoder.vocab_size)
     encode = sampling.encode_text_sdxl if modules.is_sdxl else sampling.encode_text
@@ -382,6 +463,8 @@ def train_task(
             metrics = step_fn(state, batch, context, draws)
             losses.append(float(metrics["loss"]))
             global_step += 1
+            if on_step is not None:
+                on_step(global_step, metrics, state)
             if cfg.save_steps > 0 and global_step % cfg.save_steps == 0 and _is_main():
                 cdir = os.path.join(output_dir, f"checkpoint-{global_step}")
                 ckpt.save_pipeline(cdir, unet_only, spec.model_config, states=masters)
@@ -389,20 +472,20 @@ def train_task(
         train_loss = float(np.mean(losses)) if losses else float("nan")
 
         load_masters(modules.unet, state.params)  # validate the latest weights
-        vres = run_validation(modules, spec, val_loader, context, uncond, epoch + 1, output_dir,
-                              seed=cfg.seed, sampler_fn_cache=sampler_cache,
-                              log_input_baseline=(epoch == start_epoch))
-        val_metrics = vres.metrics
-        logger.info("epoch %d/%d loss %.4f val %s (%.1fs)", epoch + 1, cfg.num_epochs,
-                    train_loss, {k: round(v, 4) for k, v in val_metrics.items()},
-                    time.time() - epoch_t0)
         if _is_main():
+            # rank 0 validates through the unsharded sampler (its UNet is
+            # whole: the mesh is data-only) and alone decides what to write
+            vres = run_validation(modules, spec, val_loader, context, uncond, epoch + 1,
+                                  output_dir, seed=cfg.seed, sampler_fn_cache=sampler_cache,
+                                  log_input_baseline=(epoch == start_epoch))
+            val_metrics = vres.metrics
+            logger.info("epoch %d/%d loss %.4f val %s (%.1fs)", epoch + 1, cfg.num_epochs,
+                        train_loss, {k: round(v, 4) for k, v in val_metrics.items()},
+                        time.time() - epoch_t0)
             _append_csv(csv_path, columns,
                         {"epoch": epoch + 1, "train_loss": train_loss, **val_metrics})
-
-        if vres.psnr > best_psnr:
-            best_psnr = vres.psnr
-            if _is_main():
+            if vres.psnr > best_psnr:
+                best_psnr = vres.psnr
                 # frozen components are written on this run's first best-save;
                 # seeded ones overwrite what an earlier run left in best/
                 skip = tuple(c for c in FROZEN_COMPONENTS
@@ -413,12 +496,14 @@ def train_task(
                                    skip_existing=skip, states=masters)
                 frozen_synced = True
                 logger.info("new best (psnr %.3f) -> %s/best", best_psnr, output_dir)
+        if mesh is not None:
+            dist.barrier()
 
         if cfg.save_steps == 0 and _is_main():
             ckpt.save_pipeline(os.path.join(output_dir, f"checkpoint-epoch-{epoch + 1}"),
                                unet_only, spec.model_config, states=masters)
         is_last = epoch + 1 == cfg.num_epochs
-        if cfg.state_save_epochs >= 0 and (
+        if cfg.state_save_epochs >= 0 and _is_main() and (
                 is_last or (cfg.state_save_epochs > 0
                             and (epoch + 1 - start_epoch) % cfg.state_save_epochs == 0)):
             save_train_state(state_dir, state)
@@ -426,5 +511,7 @@ def train_task(
     if _is_main():
         ckpt.save_pipeline(os.path.join(output_dir, "final"), modules.components(),
                            spec.model_config, states=masters)
+    if mesh is not None:
+        dist.barrier()  # the run's files are whole before any rank returns
     logger.info("training done in %.1fs; best val psnr %.3f", time.time() - t_start, best_psnr)
     return val_metrics

@@ -14,6 +14,11 @@ clipping, warmup + cosine learning rate (``train/optim.py``); fp32 masters
 beside a compute-dtype module, as the task trainer's UNet. On the card the
 encoder's and decoder's mid-block attention is K1 at d = 512 ("sm90_split")
 and their largest GroupNorms K2 "twophase", forward under autograd.
+
+Several devices follow the task trainer's rule and roles
+(``trainer.data_parallel_ranks``): a ``data`` mesh of N ranks, each taking
+its rows of the global batch and of the step's posterior draw, the gradients
+averaged over the axis; rank 0 validates and writes.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import config as C
 from ..core import checkpoint as ckpt
@@ -36,7 +42,7 @@ from ..device import DeviceLike, resolve_device
 from ..metrics import functional as F
 from ..models.layers import CL, init_random_
 from ..models.vae import AutoencoderKL
-from .loop import TrainState, load_masters, make_module_step, step_generator
+from .loop import TrainState, load_masters, make_module_step, shard_rows, step_generator
 from .optim import Optimizer, warmup_cosine_decay
 
 logger = logging.getLogger(__name__)
@@ -110,10 +116,20 @@ def make_vae_loss_fn(vae: AutoencoderKL, sf: float, cfg: VAEPretrainConfig):
     return loss_fn
 
 
-def make_vae_train_step(vae: AutoencoderKL, sf: float, cfg: VAEPretrainConfig, num_steps: int):
+def make_vae_train_step(vae: AutoencoderKL, sf: float, cfg: VAEPretrainConfig, num_steps: int,
+                        mesh=None):
     """(optimizer, step(state, batch, noise) -> metrics); the state is a
-    ``TrainState`` over the VAE (``TrainState.create(vae, optimizer)``)."""
-    return make_vae_optimizer(cfg, num_steps), make_module_step(vae, make_vae_loss_fn(vae, sf, cfg))
+    ``TrainState`` over the VAE (``TrainState.create(vae, optimizer)``).
+    With ``mesh``, ``batch`` and ``noise`` are the global ones and the step
+    runs on this rank's rows of ``data``."""
+    step = make_module_step(vae, make_vae_loss_fn(vae, sf, cfg), mesh)
+    if mesh is not None:
+        inner = step
+
+        def step(state, batch, noise):
+            rows = shard_rows({**batch, "noise": noise}, mesh)
+            return inner(state, {k: v for k, v in rows.items() if k != "noise"}, rows["noise"])
+    return make_vae_optimizer(cfg, num_steps), step
 
 
 def draw_posterior_noise(vae: AutoencoderKL, image_shape, generator: torch.Generator
@@ -135,18 +151,36 @@ def pretrain_vae(
     dtype: torch.dtype = torch.bfloat16,
     init_from: Optional[str] = None,
     device: DeviceLike = None,
+    num_devices: Optional[int] = None,
 ) -> Dict[str, float]:
     """Pretrain the AutoencoderKL on data_root/{train,val} on ``device``
-    (``cuda`` unless ``"cpu"``). Returns the last validation metrics; writes
-    best/ and final/ pipelines with a ``vae`` component and metrics_vae.csv
-    (epoch, psnr, latent_std, train_loss)."""
-    from .trainer import _setup_logging, check_single_device
+    (``cuda`` unless ``"cpu"``), over a data mesh where the task trainer's
+    rule says so (``num_devices``: see ``trainer.data_parallel_ranks``).
+    Returns the last validation metrics (rank 0's); writes best/ and final/
+    pipelines with a ``vae`` component and metrics_vae.csv (epoch, psnr,
+    latent_std, train_loss)."""
+    from .trainer import _is_main, _setup_logging, _world, data_parallel_ranks, spawn_ranks
 
     model_config = model_config or C.SD15
     dev = resolve_device(device)
-    check_single_device(use_mesh, dev)
-    os.makedirs(output_dir, exist_ok=True)
+    _world(dev)
+    if _is_main():
+        os.makedirs(output_dir, exist_ok=True)
     _setup_logging(output_dir, "vae")
+    n_ranks = data_parallel_ranks(use_mesh, cfg.batch_size, dev, num_devices)
+    mesh = None
+    if n_ranks > 1 and not dist.is_initialized():
+        from ..parallel import train as parallel_train
+
+        return spawn_ranks(parallel_train.run_pretrain_vae, n_ranks, dev, dict(
+            data_root=data_root, output_dir=output_dir, cfg=cfg, model_config=model_config,
+            max_train_samples=max_train_samples, max_val_samples=max_val_samples,
+            dtype=dtype, init_from=init_from, device=dev.type))["metrics"]
+    if n_ranks > 1:
+        from ..parallel.mesh import make_mesh
+
+        mesh = make_mesh((n_ranks,), ("data",))
+        dev = mesh.device
 
     sf = model_config.vae.scaling_factor
     with torch.device("meta"):
@@ -172,7 +206,7 @@ def pretrain_vae(
     logger.info("train images: %d, val images: %d", len(train_ds), len(val_ds))
 
     num_steps = max(1, len(train_loader) * cfg.num_epochs)
-    tx, step_fn = make_vae_train_step(vae, sf, cfg, num_steps)
+    tx, step_fn = make_vae_train_step(vae, sf, cfg, num_steps, mesh)
     state = TrainState.create(vae, tx)
     masters = {"vae": state.params}
 
@@ -192,8 +226,12 @@ def pretrain_vae(
             global_step += 1
         train_loss = float(np.mean(losses)) if losses else float("nan")
 
-        # validation: the posterior mean's round trip PSNR and the latent scale
         load_masters(vae, state.params)
+        if not _is_main():  # rank 0 validates and writes
+            if mesh is not None:
+                dist.barrier()
+            continue
+        # validation: the posterior mean's round trip PSNR and the latent scale
         psnrs: List[float] = []
         stds: List[float] = []
         with torch.no_grad():
@@ -222,9 +260,14 @@ def pretrain_vae(
                                extra_meta={"val_psnr": best_psnr, "epoch": epoch + 1,
                                            "latent_std": latent_std}, states=masters)
             logger.info("new best (psnr %.3f) -> %s/best", best_psnr, output_dir)
+        if mesh is not None:
+            dist.barrier()
 
-    ckpt.save_pipeline(os.path.join(output_dir, "final"), {"vae": vae}, model_config,
-                       states=masters)
+    if _is_main():
+        ckpt.save_pipeline(os.path.join(output_dir, "final"), {"vae": vae}, model_config,
+                           states=masters)
+    if mesh is not None:
+        dist.barrier()
     logger.info("VAE pretrain done in %.1fs; best val psnr %.3f", time.time() - t_start,
                 best_psnr)
     return val_metrics

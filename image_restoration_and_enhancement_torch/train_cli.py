@@ -5,9 +5,12 @@ the JAX package's ``scripts/_train_cli.py``, with its flags).
         --data_root data/pairs --output_dir outputs/models/denoising [--device cpu]
 
 ``train_super_resolution``, ``train_colorization`` and ``train_inpainting``
-take the same flags. Trains on the GPU unless ``--device cpu``. ``--no_mesh``
-is accepted: the port trains on one device, and without it a machine with
-several CUDA devices raises (data-parallel training is ROADMAP M17b).
+take the same flags. Trains on the GPU unless ``--device cpu``. With N > 1
+CUDA cards and a ``--batch_size`` that divides by N the run trains over a
+data mesh of N ranks, one card each (the JAX trainer's rule; the log says
+when it trains on one device instead): started alone, the process starts the
+N ranks itself; under ``torchrun --nproc_per_node N`` it is one of them.
+``--no_mesh`` trains on one device whatever the machine has.
 """
 from __future__ import annotations
 
@@ -39,7 +42,8 @@ def build_parser(task: str, default_output: str) -> argparse.ArgumentParser:
     p.add_argument("--max_val_samples", type=int, default=None)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--no_mesh", action="store_true",
-                   help="train on one device (the only mode ported)")
+                   help="train on one device; without it, a batch that divides by the "
+                        "number of cards trains over all of them (data parallel)")
     p.add_argument("--optimizer", default="adamw", choices=["adamw", "adafactor"])
     p.add_argument("--nan_guard", default="apply_if_finite",
                    choices=["apply_if_finite", "zero_grads"])

@@ -1528,3 +1528,94 @@ def test_attention_at_query_sharded_shapes(cuda, b, nq, nk, h, d):
             ok, right_share, wrong_share = tolerance.placement(
                 got[:, sl], right, _per_head(A.attention_reference, q[:, sl], k, v))
             assert ok, (right_share, wrong_share)
+
+
+# --- the shapes a rank of a mesh hands the kernels (int8 serving, training) ---------------
+
+
+@pytest.mark.parametrize("b,h,w,c,n", [(2, 64, 64, 320, 320), (2, 32, 32, 640, 640)])
+def test_conv3x3_int8_on_a_height_shard(cuda, b, h, w, c, n):
+    """K3 on each half of SD-1.5's 64x64x320 and 32x32x640 levels cut in two
+    over sp = 2: the shard's s8 rows with one halo row above and one below as
+    its padded input. Bitwise its plain version, and bitwise the rows of the
+    whole level's conv."""
+    x, wq, scale = _conv_inputs(b, h, w, c, n, "cuda", cuda)
+    full = K3.conv3x3_same_int8(x, wq, scale, torch.bfloat16)
+    half = h // 2
+    for r in range(2):
+        shard = x[:, r * half:r * half + half + 2].contiguous()
+        before = collections.Counter(_build.launch_paths)
+        got = K3.conv3x3_same_int8(shard, wq, scale, torch.bfloat16)
+        assert_launched("conv3x3_int8", before, K3.conv_path(b, half, w, c, n))
+        assert torch.equal(got, K3.conv3x3_same_int8_reference(shard, wq, scale,
+                                                               torch.bfloat16))
+        assert torch.equal(got, full[:, r * half:(r + 1) * half])
+
+
+@pytest.mark.parametrize("b,nq,nk,h,d", [(2, 4096, 4096, 8, 40), (2, 1024, 1024, 8, 80),
+                                         (2, 256, 77, 8, 160)])
+def test_int8_attention_at_local_heads_and_queries(cuda, b, nq, nk, h, d):
+    """K4 as a rank of a mesh calls it: SD-1.5's 8 heads over model 2 (4 local
+    heads) and its queries over sp 2 (half the rows, every key), with the
+    global scale sq*sk given from outside (the all-reduced one). Within its
+    limit of ``int8_attention_core_reference`` on the same local inputs, and of
+    the unsharded call's rows and heads."""
+    q, k, v = (torch.randn((b, n, h, d), generator=cuda, device="cuda").to(torch.bfloat16)
+               for n in (nq, nk, nk))
+    q8, k8, s = A.smooth_quantize_qk(A._prescale(q), k)
+    whole = A.int8_attention_core_reference(q8, k8, v, s)
+    for heads, rows in ((slice(0, h // 2), slice(None)), (slice(None), slice(nq // 2, nq)),
+                        (slice(h // 2, h), slice(0, nq // 2))):
+        ql, kl, vl = (t[:, r, heads].contiguous() for t, r in ((q8, rows), (k8, slice(None)),
+                                                               (v, slice(None))))
+        path = A.int8_kernel_path(ql, kl, vl)
+        assert path == "sm90"
+        before = collections.Counter(_build.launch_paths)
+        got = A.int8_attention_core(ql, kl, vl, s)
+        assert_launched("int8_attention", before, path)
+        ref = A.int8_attention_core_reference(ql, kl, vl, s)
+        assert_within(got, ref, "int8_attention")
+        assert_within(got, whole[:, rows, heads], "int8_attention")
+
+
+@pytest.mark.parametrize("b,n,nk,h,d", [(2, 4096, 4096, 4, 40), (2, 1024, 77, 4, 80),
+                                        (2, 256, 256, 2, 160)])
+def test_attention_gradients_at_local_heads(cuda, b, n, nk, h, d):
+    """Training under tensor parallelism: K1's forward and ``_AttentionFn``'s
+    backward at SD-1.5's local head counts (8 heads over model 2 and 4). The
+    gradients recompute through ``attention_reference``, as the JAX package's
+    custom_vjp recomputes through ``xla_attention``: bitwise its gradients."""
+    q, k, v = (torch.randn((b, m, h, d), generator=cuda, device="cuda").to(torch.bfloat16)
+               .requires_grad_() for m in (n, nk, nk))
+    before = collections.Counter(_build.launch_paths)
+    out = A.attention(q, k, v)
+    assert_launched("attention", before, A.kernel_path(q, k, v))
+    assert_within(out.detach(), A.pallas_attention_reference(q.detach(), k.detach(),
+                                                             v.detach()), "attention")
+    g = torch.randn(out.shape, generator=cuda, device="cuda").to(out.dtype)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    want = torch.autograd.grad(A.attention_reference(q, k, v), (q, k, v), g)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("shape,groups,eps,act", [((2, 32, 32, 320), 32, 1e-5, "silu"),
+                                                  ((2, 16, 16, 640), 32, 1e-6, None)])
+def test_group_norm_gradients_under_autograd(cuda, shape, groups, eps, act):
+    """Training: K2's forward and ``_GroupNormFn``'s backward (through the
+    plain version) at UNet norm shapes: the output within K2's limit, the
+    gradients bitwise the plain version's."""
+    x = torch.randn(shape, generator=cuda, device="cuda").to(torch.bfloat16).requires_grad_()
+    scale = (1 + 0.1 * torch.randn(shape[-1], generator=cuda, device="cuda")).requires_grad_()
+    bias = (0.1 * torch.randn(shape[-1], generator=cuda, device="cuda")).requires_grad_()
+    before = collections.Counter(_build.launch_paths)
+    out = G.group_norm(x, scale, bias, groups, eps, act)
+    launched = collections.Counter(_build.launch_paths) - before
+    assert sum(launched.values()) >= 1 and all(k[0].startswith("group_norm") for k in launched)
+    ref = G.group_norm_reference(x, scale, bias, groups, eps, act)
+    assert_within(out.detach(), ref.detach(), "group_norm")
+    g = torch.randn(out.shape, generator=cuda, device="cuda").to(out.dtype)
+    got = torch.autograd.grad(out, (x, scale, bias), g)
+    want = torch.autograd.grad(ref, (x, scale, bias), g)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)

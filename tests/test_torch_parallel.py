@@ -270,13 +270,14 @@ def test_replicated_sites():
 
 
 def test_mesh_modes_not_ported_raise():
-    """int8 and ToMe under a mesh raise naming M17b; NCCL ranks need cards;
-    launch takes an explicit backend; a batch must divide by the data axis."""
+    """int8 and ToMe under a model mesh construct (ToMe is turned off under a
+    spatial one); NCCL ranks need cards; launch takes an explicit backend; a
+    batch must divide by the data axis."""
     fake = types.SimpleNamespace(device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="M17b"):
-        RestorationPipeline(mesh=fake, model_axis="model", quant="int8")
-    with pytest.raises(NotImplementedError, match="M17b"):
-        RestorationPipeline(mesh=fake, model_axis="model", tome_ratio=0.5)
+    pipe = RestorationPipeline(mesh=fake, model_axis="model", quant="int8")
+    assert pipe.quant.mode == "int8"
+    assert RestorationPipeline(mesh=fake, model_axis="model", tome_ratio=0.5).tome.active
+    assert not RestorationPipeline(mesh=fake, spatial_axis="sp", tome_ratio=0.5).tome.active
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cards"):
             launch.launch(serve.run_cases, 2, "nccl", ([],))

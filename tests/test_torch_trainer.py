@@ -223,11 +223,25 @@ def test_train_entry_points_need_cuda_unless_cpu_is_asked(data, tmp_path):
     assert not os.listdir(tmp_path)
 
 
-def test_multi_device_request_raises(monkeypatch):
+def test_multi_device_request_raises(monkeypatch, caplog):
+    """The trainer's mesh rule (the JAX trainer's): four cards and batch 4
+    train over 4 data ranks; batch 3, or the mesh turned off, on one device,
+    each logged; more ranks than cards raises (one rank a card)."""
+    from image_restoration_and_enhancement_torch.parallel import launch
+
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="M17b"):
-        T.check_single_device(True, torch.device("cuda"))
-    T.check_single_device(False, torch.device("cuda"))
+    cuda = torch.device("cuda")
+    with caplog.at_level("INFO", logger=T.logger.name):
+        assert T.data_parallel_ranks(True, 4, cuda) == 4
+        assert T.data_parallel_ranks(True, 3, cuda) == 1
+        assert "batch 3 does not divide by 4 devices" in caplog.text
+        assert T.data_parallel_ranks(False, 4, cuda) == 1
+        assert "the mesh is off" in caplog.text
+    assert T.data_parallel_ranks(True, 4, torch.device("cpu")) == 1
+    assert T.data_parallel_ranks(True, 4, torch.device("cpu"), num_devices=2) == 2
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(RuntimeError, match="8 NCCL ranks need 8 cards"):
+        launch.launch(print, 8, "nccl")
 
 
 def test_pretrain_vae_seeds_train_task(data, tmp_path):
