@@ -2,7 +2,7 @@
 """Drive the PyTorch port on one NVIDIA H100 and hold its CUDA kernels against
 their plain PyTorch versions.
 
-    python3 chip_smoke.py [--only multidevice[,multitrain]]
+    python3 chip_smoke.py [--only PHASES]   (a comma list of demo, multidevice, multitrain)
 
 Phases (each prints its seconds; any failure exits non-zero):
   build       compile csrc/*.cu (one nvcc process per source, started together,
@@ -192,7 +192,15 @@ Phases (each prints its seconds; any failure exits non-zero):
               K2 launch counts per run must equal _demo_launches's (worked
               out from the stack's modules and the runs' call counts); every
               K1 launch on "simt" (fp32), every K2 launch on its plan
-              ("demo_json").
+              ("demo_json"); the VAE epoch's scaled-latent std and PSNR on a
+              line of their own ("demo VAE epoch"). First, the from-scratch
+              init on the card: init_random_ on a CUDA generator over the
+              demo stack's UNet, VAE and text encoder (fp32), each kind's
+              pooled std against flax's law (kernels * sqrt(fan_in) 1, token
+              embedding * sqrt(hidden) 1, position embedding 0.01) within
+              INIT_STD_SIGMAS standard errors, every kernel within
+              lecun_normal's cap 2 / 0.87962566, scales 1 and biases 0
+              (tests/test_torch_init.py's checks; "demo init").
   multidevice multi-device serving, after demo: torch.cuda.device_count()
               ranks (at most 4), one card each, over NCCL (parallel/launch.py
               spawns them; each runs parallel/serve.run_cases), serve (a)
@@ -329,6 +337,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import csv
 import dataclasses
 import json
 import math
@@ -2129,6 +2138,7 @@ DEMO_SIZE = 64        # demo phase: the demo's published 64 px family
 DEMO_TRAIN, DEMO_VAL = 16, 8
 DEMO_BATCH = 8
 DEMO_STRENGTH, DEMO_ENSEMBLE, DEMO_STEPS = 0.1, 2, 20   # the sweep: one point, two seeds
+INIT_STD_SIGMAS = 5.0  # standard errors of a pooled std against flax's law (the CPU test's)
 PROCEDURAL_IMAGES, PROCEDURAL_SIZE = 2, 256  # make_procedural_clean's defaults
 
 
@@ -2218,6 +2228,52 @@ def _procedural_source(root) -> str:
     return f"PIL present: JPEG written; with PIL hidden, refused: {refused}"
 
 
+def _init_laws(config) -> dict:
+    """init_random_ on a CUDA generator over ``config``'s UNet, VAE and text
+    encoder, fp32 on the card, held to flax's laws (see the docstring's demo
+    entry); returns each kind's count and pooled std and the largest kernel
+    |w| * sqrt(fan_in)."""
+    import torch
+
+    from image_restoration_and_enhancement_torch.core import sampling
+    from image_restoration_and_enhancement_torch.models.layers import (TRUNCATED_NORMAL_STD,
+                                                                       init_random_)
+
+    stack = sampling.SDModules.create(config, torch.float32, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    moments, cap = {}, 0.0  # kind -> [count, sum, sum of squares] of the scaled entries
+    for comp in ("unet", "vae", "text_encoder"):
+        for name, p in init_random_(getattr(stack, comp), gen).named_parameters():
+            w = p.detach().double()
+            if p.dim() == 1:
+                if not bool((w == (0.0 if name.endswith("bias") else 1.0)).all()):
+                    raise AssertionError(f"init: {comp}.{name} is not its constant")
+                continue
+            if name.endswith("token_embedding.weight"):
+                kind, w = "token_embedding", w * math.sqrt(p.shape[1])
+            elif name.endswith("position_embedding.weight"):
+                kind, w = "position_embedding", w / 0.01
+            else:
+                kind, w = "kernel", w * math.sqrt(p[0].numel())
+                cap = max(cap, float(w.abs().max()))
+            m = moments.setdefault(kind, [0, 0.0, 0.0])
+            m[0] += w.numel()
+            m[1] += float(w.sum())
+            m[2] += float((w * w).sum())
+    out = {"kernel_cap": cap}
+    for kind, (n, s1, s2) in moments.items():
+        std = math.sqrt(s2 / n - (s1 / n) ** 2)
+        out[kind] = {"n": n, "std": std}
+        if abs(std - 1.0) > INIT_STD_SIGMAS / math.sqrt(2 * n):
+            raise AssertionError(f"init: {kind} std {std} (scaled) against flax's 1, n {n}")
+    if sorted(moments) != ["kernel", "position_embedding", "token_embedding"] \
+            or cap > 2.0 / TRUNCATED_NORMAL_STD + 1e-6:
+        raise AssertionError(f"init: {out}")
+    del stack
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_demo(tmp, smi: str):
     """The restoration-learning demo chained as a user runs it, after tools
     (see the docstring): the clean-image source, demo_restoration_learning at
@@ -2238,6 +2294,8 @@ def phase_demo(tmp, smi: str):
 
     with _Phase("demo"):
         torch.cuda.empty_cache()
+        init = _init_laws(demo.demo_model_config())
+        log(f"demo init on the card (flax's laws): {init}")
         root = os.path.join(tmp, "demo")
         source = _procedural_source(root)
         log(f"clean-image source: {PROCEDURAL_IMAGES} procedural {PROCEDURAL_SIZE} px PNGs "
@@ -2270,6 +2328,9 @@ def phase_demo(tmp, smi: str):
                                   lambda *a, **kw: run("train_task", lambda: real_train(*a, **kw))):
             if demo.main(args) != 0:
                 raise AssertionError("demo_restoration_learning failed")
+        with open(os.path.join(out, "vae_pretrained", "metrics_vae.csv")) as f:
+            vae_epoch = list(csv.DictReader(f))[-1]
+        log(f"demo VAE epoch: latent_std {vae_epoch['latent_std']} psnr {vae_epoch['psnr']}")
         with open(os.path.join(art, "summary.json")) as f:
             summary = json.load(f)
         cpu_base = round(demo.input_baseline(os.path.join(out, "pairs", "denoise", "val"),
@@ -2343,7 +2404,8 @@ def phase_demo(tmp, smi: str):
             raise AssertionError(f"the demo launched {launches}")
         _check_fp32_paths(shapes, codes)
         row = {"card": smi, "seconds": seconds, "summary": summary, "probe": probe,
-               "launches_by_run": got, "clean_source": source}
+               "launches_by_run": got, "clean_source": source, "init": init,
+               "vae_epoch": vae_epoch}
         log("demo_json " + json.dumps(row))
         shutil.rmtree(root, ignore_errors=True)
     return {"launches": launches, "shapes": shapes, "codes": codes, **row}
@@ -3571,13 +3633,13 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description="Drive the port on the card (see the docstring).")
     parser.add_argument("--only", default=None,
-                        help="run these phases alone, a comma list of multidevice and "
-                             "multitrain (with the build and the kernels phase)")
+                        help="run these phases alone, a comma list of demo, multidevice "
+                             "and multitrain (with the build and the kernels phase)")
     only = parser.parse_args().only
     if only is not None:
         only = only.split(",")
-        if not only or not set(only) <= {"multidevice", "multitrain"}:
-            parser.error(f"--only takes multidevice and multitrain, not {only}")
+        if not only or not set(only) <= {"demo", "multidevice", "multitrain"}:
+            parser.error(f"--only takes demo, multidevice and multitrain, not {only}")
     t_start = time.perf_counter()
     import torch
 
@@ -3600,7 +3662,8 @@ def main() -> int:
 
     phase_build()
     if only is not None:
-        phases = {"multidevice": phase_multidevice, "multitrain": phase_multitrain}
+        phases = {"demo": phase_demo, "multidevice": phase_multidevice,
+                  "multitrain": phase_multitrain}
         tmp = tempfile.mkdtemp(prefix="iret_smoke_")
         try:
             results = {name: phases[name](tmp, smi) for name in only}

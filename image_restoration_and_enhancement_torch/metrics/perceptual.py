@@ -92,6 +92,9 @@ class AlexNetFeatures(nn.Module):
 class NetLinLayer(nn.Module):
     """lpips's 1x1 head (dropout, then a bias-free 1x1 conv to one channel)."""
 
+    # the JAX model's self.param(f"lin{i}", ones, ...)
+    flax_init = {"model.1.weight": ("constant", 1.0)}
+
     def __init__(self, channels: int):
         super().__init__()
         self.model = nn.Sequential(nn.Dropout(), nn.Conv2d(channels, 1, 1, bias=False))

@@ -74,6 +74,9 @@ class CLIPTextModel(nn.Module):
     or with ``return_dict`` {"last_hidden_state", "penultimate_hidden_state",
     "pooled"} (all fp32)."""
 
+    # the JAX model's self.param("position_embedding", normal(0.01), ...)
+    flax_init = {"position_embedding.weight": ("normal", 0.01)}
+
     def __init__(self, config: CLIPTextConfig = CLIPTextConfig(),
                  with_projection: bool = False):
         super().__init__()

@@ -534,22 +534,52 @@ class VAEAttentionBlock(nn.Module):
         return x + from_nhwc(o)
 
 
+# The std of N(0, 1) truncated to [-2, 2]: flax's lecun_normal divides its
+# scale by it, so a truncated draw keeps the variance 1/fan_in.
+TRUNCATED_NORMAL_STD = 0.87962566103423978
+
+
 @torch.no_grad()
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Fill every parameter from ``generator``: norm scales 1, biases 0,
-    embeddings N(0, 0.02), other weights N(0, 1/fan_in) (flax's lecun_normal
-    without truncation). The weights are random, only for runs that need a
-    stack of the right shape."""
-    embeddings = {id(m.weight) for m in module.modules() if isinstance(m, nn.Embedding)}
+    """Fill every parameter from ``generator`` with the distribution that the
+    JAX package's flax ``init`` draws its counterpart from:
+
+    - a Conv or Linear weight (a flax Conv/Dense kernel): ``lecun_normal``,
+      N(0, s^2) truncated to [-2s, 2s] with s = 1 / (sqrt(fan_in) *
+      ``TRUNCATED_NORMAL_STD``) and fan_in = in * kh * kw;
+    - an ``nn.Embedding`` weight: N(0, 1/features), flax ``nn.Embed``'s
+      default;
+    - norm scales 1 and biases 0;
+    - a parameter that its module names in a ``flax_init`` class attribute
+      ({name: ("normal", std) or ("constant", value)}): that initializer, the
+      one the JAX module names in its ``self.param(...)``.
+
+    Only the distributions are JAX's; the draws are not. Values are drawn in
+    fp32 on the parameter's device (``generator`` must be on it) and then
+    cast."""
+    rules = {id(m.weight): ("normal", m.embedding_dim ** -0.5)
+             for m in module.modules() if isinstance(m, nn.Embedding)}
+    for m in module.modules():  # named initializers over the defaults
+        for name, rule in getattr(m, "flax_init", {}).items():
+            rules[id(m.get_parameter(name))] = rule
+
+    def draw(p: torch.Tensor) -> torch.Tensor:
+        return torch.empty(p.shape, dtype=torch.float32, device=p.device)
+
     for name, p in module.named_parameters():
-        if name.endswith("bias"):
+        kind, value = rules.get(id(p), (None, None))
+        if kind == "constant":
+            p.fill_(value)
+        elif kind == "normal":
+            p.copy_(draw(p).normal_(0.0, value, generator=generator))
+        elif kind is not None:
+            raise ValueError(f"{name}: unknown initializer {kind!r}")
+        elif name.endswith("bias"):
             p.zero_()
         elif p.dim() == 1:
             p.fill_(1.0)
-        elif id(p) in embeddings:
-            p.copy_(torch.randn(p.shape, generator=generator, device=p.device) * 0.02)
         else:
-            fan_in = p[0].numel()
-            p.copy_(torch.randn(p.shape, generator=generator, device=p.device)
-                    * (1.0 / math.sqrt(fan_in)))
+            scale = 1.0 / (math.sqrt(p[0].numel()) * TRUNCATED_NORMAL_STD)
+            w = nn.init.trunc_normal_(draw(p), 0.0, 1.0, -2.0, 2.0, generator=generator)
+            p.copy_(w * scale)
     return module

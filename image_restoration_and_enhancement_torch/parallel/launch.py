@@ -6,7 +6,9 @@
 cards raises) or "gloo" (CPU ranks, each on one torch thread); there is no
 default and no switch on what the machine has. The ranks are started with
 ``torch.multiprocessing`` spawn; each sets MASTER_ADDR, a free MASTER_PORT,
-RANK, WORLD_SIZE and LOCAL_RANK, joins the process group, calls
+RANK, WORLD_SIZE and LOCAL_RANK, joins the process group (``timeout`` bounds
+its collectives; the rendezvous waits up to ``mesh.TIMEOUT`` for every rank to
+start), calls
 ``fn(*args)`` (``args`` handed over in a file of a temporary directory) and
 hands its return value back to the parent (a file there too, read after every
 rank has ended). A rank that raises
@@ -21,6 +23,7 @@ import os
 import shutil
 import socket
 import tempfile
+from datetime import timedelta
 from typing import Any, Callable, List, Sequence
 
 import torch
@@ -36,7 +39,7 @@ def free_port() -> int:
 
 
 def _rank_main(rank: int, fn: Callable, world: int, backend: str, port: int,
-               out_dir: str) -> None:
+               out_dir: str, timeout: timedelta) -> None:
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
                       WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
     device = rank_device(backend, rank)
@@ -46,8 +49,9 @@ def _rank_main(rank: int, fn: Callable, world: int, backend: str, port: int,
         kw["device_id"] = device
     else:
         torch.set_num_threads(1)
-    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                            world_size=world, timeout=TIMEOUT, **kw)
+    store = dist.TCPStore("127.0.0.1", port, world, rank == 0, timeout=TIMEOUT)
+    dist.init_process_group(backend, store=store, rank=rank, world_size=world,
+                            timeout=timeout, **kw)
     try:
         result = fn(*torch.load(os.path.join(out_dir, "args.pt"), weights_only=False))
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
@@ -55,9 +59,11 @@ def _rank_main(rank: int, fn: Callable, world: int, backend: str, port: int,
         dist.destroy_process_group()
 
 
-def launch(fn: Callable, nprocs: int, backend: str, args: Sequence[Any] = ()) -> List[Any]:
+def launch(fn: Callable, nprocs: int, backend: str, args: Sequence[Any] = (),
+           timeout: timedelta = TIMEOUT) -> List[Any]:
     """Run ``fn(*args)`` on ``nprocs`` ranks over ``backend``; the ranks'
-    return values, in rank order."""
+    return values, in rank order. ``timeout`` bounds each collective of the
+    default group."""
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"unknown backend {backend!r}: use 'nccl' or 'gloo'")
     if backend == "nccl":
@@ -74,7 +80,7 @@ def launch(fn: Callable, nprocs: int, backend: str, args: Sequence[Any] = ()) ->
         # waits on until its rank has imported its modules, one rank at a time
         torch.save(tuple(args), os.path.join(out_dir, "args.pt"))
         torch.multiprocessing.spawn(
-            _rank_main, args=(fn, nprocs, backend, free_port(), out_dir),
+            _rank_main, args=(fn, nprocs, backend, free_port(), out_dir, timeout),
             nprocs=nprocs, join=True)
         return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
                 for r in range(nprocs)]

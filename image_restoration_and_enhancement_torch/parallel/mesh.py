@@ -28,8 +28,13 @@ import torch
 import torch.distributed as dist
 
 # A collective that waits longer raises: a lost rank ends the run, not hangs
-# it. The trainer's other ranks wait this long at most for rank 0's validation.
+# it.
 TIMEOUT = timedelta(minutes=30)
+# How long the other ranks of a trainer wait for rank 0's lone work of an
+# epoch (validation, checkpoints, the train state), which JAX's single
+# controller does not bound; a rank that dies still ends the wait, since its
+# socket closes.
+LONE_WORK_TIMEOUT = timedelta(days=7)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +97,14 @@ def init_from_env(backend: str) -> torch.device:
                                 world_size=int(os.environ["WORLD_SIZE"]), timeout=TIMEOUT,
                                 **kw)
     return device
+
+
+def lone_work_group():
+    """A gloo group of every rank, bounded by ``LONE_WORK_TIMEOUT``: the others
+    wait in ``dist.barrier(group=...)`` on it while rank 0 works alone, and
+    the default group's collectives keep ``TIMEOUT``. Every rank must call it,
+    in the same order."""
+    return dist.new_group(backend="gloo", timeout=LONE_WORK_TIMEOUT)
 
 
 def make_mesh(shape: Optional[Sequence[int]] = None,

@@ -29,9 +29,11 @@ when the process runs under it; a process started alone with N CUDA cards
 (or asked for ``num_devices`` gloo ranks on the CPU) starts N ranks itself
 (``parallel/launch.py``, one card each; more ranks than cards raises). Every
 rank reads the same batches and takes its rows. Rank 0 alone validates
-(through the unsharded sampler, while the others wait at a barrier) and writes
-the log, the CSV, strips, checkpoints, ``best/``, ``final/`` and the train
-state, which is the one-device file. A rank that raises ends the run.
+(through the unsharded sampler) and writes the log, the CSV, strips,
+checkpoints, ``best/``, ``final/`` and the train state, which is the
+one-device file; the others wait for that at the end of each epoch on
+``parallel/mesh.lone_work_group`` (gloo, bounded by ``LONE_WORK_TIMEOUT``,
+not by the collectives' ``TIMEOUT``). A rank that raises ends the run.
 Each step's draws come from a generator seeded from (seed, step), so a
 resumed run, or a sharded one, draws what the uninterrupted one-device run
 would have.
@@ -377,7 +379,7 @@ def train_task(
     _world(dev)
     _setup_logging(output_dir, spec.name)
     n_ranks = data_parallel_ranks(use_mesh, cfg.batch_size, dev, num_devices)
-    mesh = None
+    mesh = waiter = None
     if n_ranks > 1 and not dist.is_initialized():
         from ..parallel import train as parallel_train
 
@@ -387,9 +389,10 @@ def train_task(
             max_val_samples=max_val_samples, dtype=dtype, resume=resume,
             task_spec=spec, device=dev.type))["metrics"]
     if n_ranks > 1:
-        from ..parallel.mesh import make_mesh
+        from ..parallel.mesh import lone_work_group, make_mesh
 
         mesh = make_mesh((n_ranks,), ("data",))
+        waiter = lone_work_group()
         dev = mesh.device
     logger.info("=== training %s -> %s ===", spec.name, output_dir)
     t_start = time.time()
@@ -475,10 +478,12 @@ def train_task(
         if _is_main():
             # rank 0 validates through the unsharded sampler (its UNet is
             # whole: the mesh is data-only) and alone decides what to write
+            val_t0 = time.time()
             vres = run_validation(modules, spec, val_loader, context, uncond, epoch + 1,
                                   output_dir, seed=cfg.seed, sampler_fn_cache=sampler_cache,
                                   log_input_baseline=(epoch == start_epoch))
             val_metrics = vres.metrics
+            logger.info("validation took %.1fs", time.time() - val_t0)
             logger.info("epoch %d/%d loss %.4f val %s (%.1fs)", epoch + 1, cfg.num_epochs,
                         train_loss, {k: round(v, 4) for k, v in val_metrics.items()},
                         time.time() - epoch_t0)
@@ -496,8 +501,6 @@ def train_task(
                                    skip_existing=skip, states=masters)
                 frozen_synced = True
                 logger.info("new best (psnr %.3f) -> %s/best", best_psnr, output_dir)
-        if mesh is not None:
-            dist.barrier()
 
         if cfg.save_steps == 0 and _is_main():
             ckpt.save_pipeline(os.path.join(output_dir, f"checkpoint-epoch-{epoch + 1}"),
@@ -507,11 +510,13 @@ def train_task(
                 is_last or (cfg.state_save_epochs > 0
                             and (epoch + 1 - start_epoch) % cfg.state_save_epochs == 0)):
             save_train_state(state_dir, state)
+        if waiter is not None:
+            dist.barrier(group=waiter)  # rank 0's lone work of the epoch is done
 
     if _is_main():
         ckpt.save_pipeline(os.path.join(output_dir, "final"), modules.components(),
                            spec.model_config, states=masters)
-    if mesh is not None:
-        dist.barrier()  # the run's files are whole before any rank returns
+    if waiter is not None:
+        dist.barrier(group=waiter)  # the run's files are whole before any rank returns
     logger.info("training done in %.1fs; best val psnr %.3f", time.time() - t_start, best_psnr)
     return val_metrics

@@ -18,7 +18,8 @@ and their largest GroupNorms K2 "twophase", forward under autograd.
 Several devices follow the task trainer's rule and roles
 (``trainer.data_parallel_ranks``): a ``data`` mesh of N ranks, each taking
 its rows of the global batch and of the step's posterior draw, the gradients
-averaged over the axis; rank 0 validates and writes.
+averaged over the axis; rank 0 validates and writes while the others wait on
+``parallel/mesh.lone_work_group``.
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ from ..device import DeviceLike, resolve_device
 from ..metrics import functional as F
 from ..models.layers import CL, init_random_
 from ..models.vae import AutoencoderKL
+from ..parallel import collectives
 from .loop import TrainState, load_masters, make_module_step, shard_rows, step_generator
 from .optim import Optimizer, warmup_cosine_decay
 
@@ -95,9 +97,14 @@ def make_vae_optimizer(cfg: VAEPretrainConfig, num_steps: int) -> Optimizer:
                      max_grad_norm=cfg.max_grad_norm)
 
 
-def make_vae_loss_fn(vae: AutoencoderKL, sf: float, cfg: VAEPretrainConfig):
+def make_vae_loss_fn(vae: AutoencoderKL, sf: float, cfg: VAEPretrainConfig, group=None):
     """loss(batch, noise) -> (loss, {"loss", "recon_mse", "scaled_msq"});
-    ``noise``: the posterior's standard-normal draw, latent-shaped."""
+    ``noise``: the posterior's standard-normal draw, latent-shaped. With
+    ``group`` (a data axis of equal shards), the batch is this rank's rows
+    and the scale penalty is of the whole batch's second moment, as JAX's
+    loss over the global batch has it: the moment's value is the group's
+    mean and its gradient flows through this rank's rows, so the step's
+    gradient mean over the group is the global loss's gradient."""
 
     def loss_fn(batch, noise):
         dev = vae.quant_conv.weight.device
@@ -108,6 +115,10 @@ def make_vae_loss_fn(vae: AutoencoderKL, sf: float, cfg: VAEPretrainConfig):
         recon_mse = torch.mean((recon - x) ** 2)
         second = (post.mean ** 2 + torch.exp(post.logvar)) * sf * sf
         msq = torch.mean(second)
+        if group is not None:
+            whole = collectives.all_reduce(msq.detach().clone(), group) \
+                / collectives.group_size(group)
+            msq = msq + (whole - msq.detach())
         scale_pen = torch.log(msq) ** 2
         kl = 0.5 * torch.mean(second - 1.0 - post.logvar - 2.0 * float(np.log(sf)))
         loss = recon_mse + cfg.scale_weight * scale_pen + cfg.kl_weight * kl
@@ -122,7 +133,8 @@ def make_vae_train_step(vae: AutoencoderKL, sf: float, cfg: VAEPretrainConfig, n
     ``TrainState`` over the VAE (``TrainState.create(vae, optimizer)``).
     With ``mesh``, ``batch`` and ``noise`` are the global ones and the step
     runs on this rank's rows of ``data``."""
-    step = make_module_step(vae, make_vae_loss_fn(vae, sf, cfg), mesh)
+    group = mesh.group("data") if mesh is not None and mesh.size("data") > 1 else None
+    step = make_module_step(vae, make_vae_loss_fn(vae, sf, cfg, group), mesh)
     if mesh is not None:
         inner = step
 
@@ -168,7 +180,7 @@ def pretrain_vae(
         os.makedirs(output_dir, exist_ok=True)
     _setup_logging(output_dir, "vae")
     n_ranks = data_parallel_ranks(use_mesh, cfg.batch_size, dev, num_devices)
-    mesh = None
+    mesh = waiter = None
     if n_ranks > 1 and not dist.is_initialized():
         from ..parallel import train as parallel_train
 
@@ -177,9 +189,10 @@ def pretrain_vae(
             max_train_samples=max_train_samples, max_val_samples=max_val_samples,
             dtype=dtype, init_from=init_from, device=dev.type))["metrics"]
     if n_ranks > 1:
-        from ..parallel.mesh import make_mesh
+        from ..parallel.mesh import lone_work_group, make_mesh
 
         mesh = make_mesh((n_ranks,), ("data",))
+        waiter = lone_work_group()
         dev = mesh.device
 
     sf = model_config.vae.scaling_factor
@@ -228,8 +241,8 @@ def pretrain_vae(
 
         load_masters(vae, state.params)
         if not _is_main():  # rank 0 validates and writes
-            if mesh is not None:
-                dist.barrier()
+            if waiter is not None:
+                dist.barrier(group=waiter)
             continue
         # validation: the posterior mean's round trip PSNR and the latent scale
         psnrs: List[float] = []
@@ -260,14 +273,14 @@ def pretrain_vae(
                                extra_meta={"val_psnr": best_psnr, "epoch": epoch + 1,
                                            "latent_std": latent_std}, states=masters)
             logger.info("new best (psnr %.3f) -> %s/best", best_psnr, output_dir)
-        if mesh is not None:
-            dist.barrier()
+        if waiter is not None:
+            dist.barrier(group=waiter)
 
     if _is_main():
         ckpt.save_pipeline(os.path.join(output_dir, "final"), {"vae": vae}, model_config,
                            states=masters)
-    if mesh is not None:
-        dist.barrier()
+    if waiter is not None:
+        dist.barrier(group=waiter)
     logger.info("VAE pretrain done in %.1fs; best val psnr %.3f", time.time() - t_start,
                 best_psnr)
     return val_metrics

@@ -32,6 +32,11 @@ Cases, after ``tests/test_tensor_parallel.py``,
   the CSV's losses to 1e-4 relative, the saved UNet (VAE) within 1e-5, and
   rank 0 alone writing (one CSV row an epoch, one start line in the log).
 - Adafactor under a model axis raises, naming the reason.
+- rank 0's validation outlasting the default group's collective timeout
+  (shortened to ``COLLECTIVE_TIMEOUT`` through ``launch``; a 400-step val
+  sampler, 5-13 s on an 8-core CPU, checked from the log to take at least 1.5x
+  the bound): the other rank waits on ``mesh.lone_work_group`` and the
+  two-rank ``train_task`` ends with its files whole (ROADMAP F8).
 
 Tolerances beyond the JAX tests': 1e-5 absolute on parameters moved by
 AdamW at learning rate 1e-3 from gradients that agree to fp32 rounding
@@ -45,6 +50,8 @@ test allows three learning rates for such an entry).
 import csv
 import dataclasses
 import os
+import re
+from datetime import timedelta
 
 import jax
 import jax.numpy as jnp
@@ -58,6 +65,7 @@ from image_restoration_and_enhancement_torch.core import sampling as ts
 from image_restoration_and_enhancement_torch.parallel import launch
 from image_restoration_and_enhancement_torch.parallel import sharding_rules as tsr
 from image_restoration_and_enhancement_torch.parallel import train as ptrain
+from image_restoration_and_enhancement_torch.tasks.registry import SamplerDefaults
 from image_restoration_and_enhancement_torch.tasks.registry import get_task as t_get_task
 from image_restoration_and_enhancement_torch.train import loop as tloop
 from image_restoration_and_enhancement_torch.train import optim as toptim
@@ -81,6 +89,7 @@ CSV_RTOL = 1e-4
 VAE_LR_FRACTION = 0.5  # of the VAE's learning rate, on its parameters (see below)
 LR = 1e-3
 WORLD = 8
+COLLECTIVE_TIMEOUT = 2.0  # seconds: the default group's bound in the lone-work test
 TRAIN = dict(gradient_accumulation_steps=1, lambda_img=0.0)
 
 
@@ -322,3 +331,23 @@ def test_pretrain_vae_on_two_ranks(data, tmp_path):  # noqa: F811
     for k in v1:
         np.testing.assert_allclose(v2[k].float().numpy(), v1[k].float().numpy(),
                                    atol=VAE_LR_FRACTION * cfg.learning_rate, rtol=0, err_msg=k)
+
+
+def test_validation_outlasts_the_collective_timeout(data, tmp_path):  # noqa: F811
+    spec = dataclasses.replace(t_get_task("denoise"), model_config=TC.TINY_SD,
+                               val_sampler=SamplerDefaults(1.0, 400, 5.0, "plms"))
+    cfg = tloop.TrainConfig(batch_size=2, gradient_accumulation_steps=1, image_size=SIZE,
+                            save_steps=-1, learning_rate=LR, num_epochs=1,
+                            state_save_epochs=-1)
+    out = tmp_path / "run"
+    ranks = launch.launch(ptrain.run_train_task, 2, "gloo", (dict(
+        task_name="denoise", data_root=data["pairs"], output_dir=str(out), cfg=cfg,
+        dtype=torch.float32, task_spec=spec, device="cpu"),),
+        timeout=timedelta(seconds=COLLECTIVE_TIMEOUT))
+    log = open(out / "training_denoise.log").read()
+    assert "data-parallel mesh over 2 devices" in log
+    seconds = float(re.search(r"validation took ([0-9.]+)s", log).group(1))
+    assert seconds >= 1.5 * COLLECTIVE_TIMEOUT, seconds   # the wait did outlast the bound
+    assert np.isfinite(ranks[0]["metrics"]["psnr"]) and ranks[1]["metrics"] == {}
+    assert len(_rows(out / "metrics_denoise.csv")) == 1
+    assert tck.pipeline_exists(str(out / "final"))
