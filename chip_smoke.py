@@ -4,7 +4,8 @@ their plain PyTorch versions.
 
     python3 chip_smoke.py [--only PHASES]   (a comma list of demo, multidevice, multitrain)
 
-Phases (each prints its seconds; any failure exits non-zero):
+Phases (each prints its seconds, and all of them together go on the
+"phase_seconds" line just before the total; any failure exits non-zero):
   build       compile csrc/*.cu (one nvcc process per source, started together,
               then one link; ops/_build.py) and load the library.
   parity      small inputs, CUDA kernels against the plain versions on the CPU,
@@ -219,7 +220,7 @@ Phases (each prints its seconds; any failure exits non-zero):
               card 0 from the same weights, inputs and generator seed
               (MD_MEAN_TOL, MD_PSNR_MIN; for (d) and (e)
               MD_INT8_NOISE_FACTOR: see their comments); over one card one
-              request each.
+              request each, of MD_ONE_CARD_STEPS DDIM steps.
               Launch counts are zeroed in every rank just before its
               requests and read just after, and summed over the ranks: K1
               and K2 launched, every K1 launch "sm90" / "sm90_split", K2 on
@@ -379,6 +380,9 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+PHASE_SECONDS = {}  # each phase's seconds, in the order run (the "phase_seconds" line)
+
+
 class _Phase:
     def __init__(self, name: str):
         self.name = name
@@ -390,7 +394,8 @@ class _Phase:
 
     def __exit__(self, *exc):
         if exc[0] is None:
-            log(f"== {self.name}: {time.perf_counter() - self.t0:.2f} s")
+            PHASE_SECONDS[self.name] = round(time.perf_counter() - self.t0, 2)
+            log(f"== {self.name}: {PHASE_SECONDS[self.name]:.2f} s")
         return False
 
 
@@ -2439,6 +2444,8 @@ MD_PSNR_MIN = 25.0
 # that test file and this script's kernel rows.
 MD_INT8_NOISE_FACTOR = 2.0
 MD_CALIB_STEPS = 4    # DDIM steps of the unsharded calibration of (d) and (e)
+MD_STEPS = 20         # DDIM steps of a request over four cards
+MD_ONE_CARD_STEPS = 5  # over one card: the (1, 1) meshes check the function, not the speed
 
 
 def _md_stacks(tmp):
@@ -2565,9 +2572,10 @@ def phase_multidevice(tmp, smi: str):
         uncond_ids = np.full((MD_BATCH, 77), vocab - 1, np.int64)
         img = lambda b, s: rng.uniform(-1, 1, (b, s, s, 3)).astype(np.float32)  # noqa: E731
         # over one card the (1, 1) meshes check the function, not the speed:
-        # one request a case
+        # one request a case, of MD_ONE_CARD_STEPS steps
         base = dict(dtype="bfloat16", requests=2 if n == 4 else 1)
-        dd = dict(num_inference_steps=20, strength=1.0, guidance_scale=7.5, sampler="ddim")
+        dd = dict(num_inference_steps=MD_STEPS if n == 4 else MD_ONE_CARD_STEPS, strength=1.0,
+                  guidance_scale=7.5, sampler="ddim")
         cases = {"a_img2img": dict(
             base, config="sd15", weights=sd15, kind="img2img", sampling=dd,
             mesh=((2, 2), ("data", "model")) if n == 4 else ((1, 1), ("data", "model")),
@@ -3064,6 +3072,25 @@ def _kernel_group(name: str, mma_label: str) -> str:
     return "other"
 
 
+def _device_events(prof) -> dict:
+    """{name: (microseconds, count)} of a finished profile's device events:
+    the device rows of ``prof.key_averages()`` (each device event's own span,
+    summed by name), read straight from the profiler's event list. The
+    ``key_averages()`` route first builds the host op tree, 9-29 s a profiled
+    request on the card's host; this takes a fraction of a second."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        hidden = getattr(e, "is_hidden_event", lambda: False)()  # as key_averages() reads it
+        if (e.device_type() != DeviceType.CUDA or e.is_async() or hidden
+                or e.start_thread_id() != e.end_thread_id()):
+            continue
+        us, n = out.get(e.name(), (0.0, 0))
+        out[e.name()] = (us + (e.end_ns() - e.start_ns()) / 1e3, n + 1)
+    return out
+
+
 def _profile_request(request, unprofiled_s: float, mma_label: str = "K1 attention"):
     """One more request (``request()``) under torch.profiler: device time by
     kernel group, returned and logged. Its launches are not counted: the counts
@@ -3072,7 +3099,6 @@ def _profile_request(request, unprofiled_s: float, mma_label: str = "K1 attentio
     request's steady-state time without the profiler. ``mma_label`` names the
     kernel that the UNet's bf16 attention sites run (see ``_kernel_group``)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3082,13 +3108,12 @@ def _profile_request(request, unprofiled_s: float, mma_label: str = "K1 attentio
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
     groups = {}
-    for e in prof.key_averages():  # device entries only: host ops would count twice
-        us = e.self_device_time_total
-        if e.device_type != DeviceType.CUDA or us <= 0:
+    for name, (us, n) in _device_events(prof).items():
+        if us <= 0:
             continue
-        group = _kernel_group(e.key, mma_label)
+        group = _kernel_group(name, mma_label)
         total, count = groups.get(group, (0.0, 0))
-        groups[group] = (total + us, count + e.count)
+        groups[group] = (total + us, count + n)
     device_us = sum(t for t, _ in groups.values())
     if device_us == 0:
         log("profile: the profiler saw no device time (device split not measured)")
@@ -3710,6 +3735,7 @@ def _finish(results, smi: str, t_start: float) -> int:
         if k["launches"] != counted:
             raise AssertionError(f"{k['name']}: {k['launches']} launches by shape, {counted} "
                                  "by count")
+    log("phase_seconds " + json.dumps(PHASE_SECONDS))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(line))
