@@ -320,6 +320,33 @@ int8 checks, CUDA against CPU:
   against the CPU's int8 one, and planted faults (a zeroed K3 tap; K4
   dropping 8 keys), and fails if a limit would pass a planted fault.
 
+CUDA graphs: every single-device serve replays a CUDA graph of its sampling
+function (core/graphs.py; the factories' default on the card, as the JAX
+factories jit), captured at the first request of each input size: the counts
+above are the graph's launches, which the function adds to the counters at
+every replay. Each serve phase then holds one request of each of its forms
+(serve: CFG and gs 1.0; serve_int8; serve_flash; serve_packed; serve_tasks:
+sr_x4 at 512, colorize, inpaint; serve_modes: tome, cfg_cache, dedup;
+serve_sdxl) served again from the pipeline's own graph (the phase's call
+captured it) and by the eager function (graph=False) of the same stack and
+settings (_graph_ab). On three requests (the
+call's, the image mirrored with other noise, a third noise) the images must be
+bitwise equal and the host counters must give the same launches by kernel and
+path and the same int8_static misses; the kernel nodes of the replayed graph,
+read from the CUDA driver (graphs.graph_nodes), must be by kernel the device
+launches that the eager request's host counters give. One profile of a
+graphed request is read, not held (profiles on the card missed a few of the
+VAE's short twophase K2 events, most in SDXL's 1024 px replay: 12-15 of 150).
+It logs ("graph_json") the first graphed call's seconds (warm-up and
+capture), the three graphed and eager seconds (interleaved), the launches a
+request issues (graphed: the profile's host launch calls; eager: the graph's
+nodes), the device busy share (graphed: over the profiled request's own
+seconds; eager: an estimate, the graphed profile's device time over the eager
+seconds) and the peak memory (allocated, and reserved with the graphs' pool).
+serve_int8 also serves a table with one site left out: the miss must be
+reported at the graphed function's first call and at every replay. The int8
+layer parity's hooks see an eager run.
+
 Plain attention whose fp32 scores of all heads would exceed 2 GiB
 (1x16384x16384x8x40) runs one head at a time; each head's output is its own.
 
@@ -866,8 +893,233 @@ def _check_k2_k3_paths(shapes, codes, onchip_hw: int = 4096) -> None:
 def _pipeline(tmp, **kw):
     from image_restoration_and_enhancement_torch.infer.pipeline import RestorationPipeline
 
-    return RestorationPipeline(
-        config={"denoise": {"fine_tuned_dir": tmp, "default_backend": "diffusion"}}, **kw)
+    return _recording(RestorationPipeline(
+        config={"denoise": {"fine_tuned_dir": tmp, "default_backend": "diffusion"}}, **kw))
+
+
+SDCall = collections.namedtuple("SDCall", "stack kind settings args fn seconds captured")
+
+
+def _recording(pipe):
+    """``pipe`` with its SD calls kept in ``pipe.sd_calls`` (``SDCall``: the
+    stack, the kind, (steps, strength, gs, sampler), the sampling function's
+    arguments, the pipeline's function itself, the call's seconds, and whether
+    the call captured a graph), so that ``_graph_ab`` can serve the same call
+    again from the pipeline's own graph and eagerly."""
+    import torch
+
+    pipe.sd_calls = []
+    orig = pipe._sampler_fn
+
+    def sampler_fn(stack, kind, *settings):
+        fn = orig(stack, kind, *settings)
+
+        def call(*args, **kwargs):
+            known = {id(g) for g in getattr(fn, "graphs", {}).values()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            last = getattr(fn, "last", None)
+            pipe.sd_calls.append(SDCall(stack, kind, settings, args, fn,
+                                        time.perf_counter() - t0,
+                                        last is not None and id(last) not in known))
+            return out
+        return call
+
+    pipe._sampler_fn = sampler_fn
+    return pipe
+
+
+def _launch_profile(request):
+    """One request under torch.profiler: (device microseconds, device events
+    by kernel group (``_kernel_group``), host launch calls, the request's own
+    seconds inside the profile). The host launch calls are the CUDA runtime
+    (cuda*) and cu* API calls that issue device work (kernel, graph, copy and
+    memset launches) the profiler recorded. The request runs 0.1 s after the
+    profile starts and ends 0.2 s before it stops (host sleeps, no device
+    work): profiles that began and ended with the request missed up to 15 of
+    the VAE's twophase K2 launches, which run first and last."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.1)
+        t0 = time.perf_counter()
+        request()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        time.sleep(0.2)
+    results = prof.profiler.kineto_results
+    groups = collections.Counter()
+    device_us = 0.0
+    for name, (us, n) in _device_events(results).items():
+        groups[_kernel_group(name, "K1 attention")] += n
+        device_us += us
+    host = sum(1 for e in results.events() if e.name().startswith(_LAUNCH_CALLS))
+    return device_us, dict(groups), host, wall_s
+
+
+def _device_launches(paths) -> dict:
+    """The device launches by ``_kernel_group`` label that host-counted
+    launches by (kernel, path) make: one a call, two for a twophase
+    GroupNorm (statistics, then apply); the UNet sites' tensor-core
+    attention codes under "K1 attention"."""
+    want = collections.Counter()
+    for (kernel, path), n in paths.items():
+        if kernel == "group_norm":
+            want[f"K2 group_norm ({path})"] += 2 * n if path == "twophase" else n
+        elif kernel == "conv3x3_int8":
+            want[f"K3 conv3x3_int8 ({path})"] += n
+        elif kernel == "int8_attention":
+            want[f"K4 int8_attention ({path})"] += n
+        elif path == "sm90_split":
+            want["K1 attention (VAE d 512, sm90_split)"] += n
+        else:
+            want["K1 attention" if path in ("sm90", "mma") else "K1 attention (simt)"] += n
+    return dict(want)
+
+
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchCooperativeKernel",
+                 "cudaGraphLaunch", "cuGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync",
+                 "cuMemcpy", "cuMemset")
+
+
+def _graph_ab(pipe, mode, pick=lambda call: True):
+    """The last SD call of ``pipe`` that ``pick`` accepts, served again from
+    the pipeline's own graphed function (a replay of the graph the phase
+    captured) and by the eager function (``graph=False``) of the same stack
+    and settings, graphed then eager on each of three requests: the call's
+    inputs, the image mirrored with other noise, the inputs with a third
+    noise. Fails unless each request's graphed image equals the eager one
+    bitwise and the host counters give the same launches by kernel and path
+    (and, under int8_static, the same table misses); and unless the replayed
+    graph's kernel nodes, read from the CUDA driver (``graphs.graph_nodes``),
+    are by kernel (K1-K6b) the device launches that the eager request's host
+    counters give. One graphed request is profiled and read, not held: its
+    device events and time, its busy share over its own seconds inside the
+    profile. Logs ("graph_json") the first graphed call's seconds (the phase's
+    call that warmed up and captured), the three graphed and eager seconds,
+    the launches a request issues (graphed: the profile's host launch calls;
+    eager: the graph's nodes, which the eager function launches one by one),
+    the busy shares (eager: the graphed profile's device time over the eager
+    seconds, an estimate: the same kernels on the same data) and the peak
+    memory (allocated; and reserved, which holds the graphs' pool)."""
+    import torch
+
+    from image_restoration_and_enhancement_torch.core import graphs, sampling
+    from image_restoration_and_enhancement_torch.ops import _build
+
+    call = [c for c in pipe.sd_calls if pick(c)][-1]
+    shapes = lambda c: [tuple(a.shape) for a in c.args if torch.is_tensor(a)]  # noqa: E731
+    first = [c for c in pipe.sd_calls
+             if c.fn is call.fn and c.captured and shapes(c) == shapes(call)]
+    if not isinstance(call.fn, graphs.GraphedServe) or not first:
+        raise AssertionError(f"{mode}: the pipeline did not serve this call from a graph")
+    mods = call.stack["modules"]
+    maker = sampling.make_inpaint_fn if call.kind == "inpaint" else sampling.make_img2img_fn
+    fns = {"graphed": call.fn,
+           "eager": maker(mods, *call.settings, cfg_cache_interval=pipe.cfg_cache_interval,
+                          graph=False)}
+    mirrored = (torch.flip(call.args[0], dims=[2]),) + tuple(call.args[1:])
+
+    def request(which, inputs, seed):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = (collections.Counter(_build.launch_counts),
+                  collections.Counter(_build.launch_paths))
+        if mods.quant is not None:
+            mods.quant.misses.clear()
+        t0 = time.perf_counter()
+        out = fns[which](*inputs, generator=torch.Generator(device="cuda").manual_seed(seed))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = (dict(collections.Counter(_build.launch_counts) - before[0]),
+                    dict(collections.Counter(_build.launch_paths) - before[1]))
+        misses = set(mods.quant.misses) if mods.quant is not None else set()
+        return out, secs, launched, misses, torch.cuda.max_memory_allocated()
+
+    pairs = []
+    for i, (inputs, seed) in enumerate(((call.args, SEED), (mirrored, SEED + 7),
+                                        (call.args, SEED + 14))):
+        got, want = request("graphed", inputs, seed), request("eager", inputs, seed)
+        if not torch.equal(got[0], want[0]):
+            raise AssertionError(f"{mode}: the graphed image differs from the eager one on "
+                                 f"request {i} (max |d| {(got[0] - want[0]).abs().max():.3e})")
+        if got[2:4] != want[2:4]:
+            raise AssertionError(f"{mode}: graphed launches/misses {got[2:4]} on request {i}, "
+                                 f"eager {want[2:4]}")
+        pairs.append((got, want))
+    if torch.equal(pairs[0][0][0], pairs[1][0][0]):
+        raise AssertionError(f"{mode}: two different requests gave the same image")
+    expected = _device_launches(pairs[0][1][2][1])  # the eager request's, by the host counters
+    nodes = graphs.graph_nodes(call.fn.last.graph)
+    kernels = collections.Counter()
+    for name, n in nodes.items():
+        group = _kernel_group(name, "K1 attention")
+        if group.startswith("K"):
+            kernels[group] += n
+    if dict(kernels) != expected:
+        raise AssertionError(f"{mode}: the graph's kernel nodes {dict(kernels)}, not the eager "
+                             f"request's launches {expected}")
+    steady = {w: [p[i][1] for p in pairs] for i, w in enumerate(("graphed", "eager"))}
+    peak = {w: max(p[i][4] for p in pairs) for i, w in enumerate(("graphed", "eager"))}
+    reserved = torch.cuda.memory_reserved()
+    device_us, seen, host_calls, wall_s = _launch_profile(lambda: call.fn(
+        *call.args, generator=torch.Generator(device="cuda").manual_seed(SEED)))
+    seen_kernels = {k: n for k, n in seen.items() if k.startswith("K")}
+    if seen_kernels != expected:
+        log(f"graph {mode}: the graphed profile saw kernel events {seen_kernels}, the graph "
+            f"launches {expected} (read, not held)")
+    row = {"mode": mode, "first_graphed_s": first[0].seconds,
+           "steady_graphed_s": steady["graphed"], "steady_eager_s": steady["eager"],
+           "launches_per_request": {"graphed_host_launch_calls": host_calls,
+                                    "eager_graph_nodes": sum(nodes.values())},
+           "graph_nodes": {"kernel": sum(n for k, n in nodes.items() if not k.startswith("<")),
+                           **{k: n for k, n in nodes.items() if k.startswith("<")}},
+           "kernel_launches": dict(kernels),
+           "graphed_profile": {"device_events": sum(seen.values()), "device_ms": device_us / 1e3,
+                               "request_ms": wall_s * 1e3, "kernel_events": seen_kernels},
+           "device_busy_share": {"graphed": device_us / 1e6 / wall_s,
+                                 "eager_estimate": device_us / 1e6 / min(steady["eager"])},
+           "peak_allocated_bytes": peak, "reserved_bytes_after": reserved}
+    log(f"graph {mode}: first graphed {first[0].seconds:.3f} s, steady graphed "
+        f"{min(steady['graphed']):.3f} s, eager {min(steady['eager']):.3f} s; bitwise equal "
+        "on three requests; the same launches by host count; the graph's kernel nodes equal "
+        "to the eager request's launches")
+    log("graph_json " + json.dumps(row))
+    del fns
+    return row
+
+
+def _check_misses_replayed(pipe):
+    """int8_static under a table missing one site: a graphed function reports
+    the miss at its first call and at every replay, as eagerly."""
+    import torch
+
+    from image_restoration_and_enhancement_torch.core import sampling
+    from image_restoration_and_enhancement_torch.ops import quant
+
+    stack, kind, settings, args = pipe.sd_calls[-1][:4]
+    mods, full = stack["modules"], pipe.quant
+    missing = sorted(full.table)[0]
+    state = quant.QuantState("int8_static", {s: a for s, a in full.table.items()
+                                             if s != missing})
+    mods.set_quant(state)
+    try:
+        fn = sampling.make_img2img_fn(mods, *settings, graph=True)
+        for i in range(3):
+            state.misses.clear()
+            fn(*args, generator=torch.Generator(device="cuda").manual_seed(SEED + i))
+            if state.misses != {missing}:
+                raise AssertionError(f"int8_static call {i} reported misses {state.misses}, "
+                                     f"not {{{missing!r}}}")
+        del fn
+    finally:
+        mods.set_quant(full)
+    log(f"int8_static with {missing!r} left out of the table: the miss reported at the "
+        "graphed function's first call and at both replays")
 
 
 def phase_serve(tmp):
@@ -910,8 +1162,11 @@ def phase_serve(tmp):
         log("serve_json " + json.dumps(
             {"request_seconds": seconds, "peak_memory_bytes": peak, "launches": launches}))
         _profile_request(lambda: pipe.denoise(image), seconds[2])
+        graph = [_graph_ab(pipe, "serve bf16 CFG", lambda c: c[3][-1] is not None),
+                 _graph_ab(pipe, "serve bf16 gs 1.0", lambda c: c[3][-1] is None)]
     return {"request_seconds": seconds, "peak_bytes": peak, "launches": launches,
-            "shapes": shapes, "codes": codes, "image": image, "out_cfg": outs[2]}
+            "shapes": shapes, "codes": codes, "image": image, "out_cfg": outs[2],
+            "graph": graph}
 
 
 def phase_serve_int8(tmp, bf16):
@@ -974,9 +1229,11 @@ def phase_serve_int8(tmp, bf16):
             {"request_seconds": seconds, "peak_memory_bytes": peak, "launches": launches,
              "psnr_vs_bf16_db": psnr, "static_misses": sorted(pipe.quant.misses)}))
         _profile_request(lambda: pipe.denoise(image), seconds[1])
+        graph = [_graph_ab(pipe, "serve_int8 int8_static CFG", lambda c: c[3][-1] is not None)]
+        _check_misses_replayed(pipe)
         _layer_parity(pipe, image)
     return {"request_seconds": seconds, "peak_bytes": peak, "launches": launches,
-            "shapes": shapes, "codes": codes}
+            "shapes": shapes, "codes": codes, "graph": graph}
 
 
 _VARIANT_KERNEL = {"flash": "flash_attention", "pallas_packed": "packed_attention_grid"}
@@ -1010,10 +1267,11 @@ def phase_serve_variant(tmp, bf16, backend):
             {"request_seconds": seconds, "peak_memory_bytes": peak, "launches": launches,
              "psnr_vs_bf16_db": psnr if math.isfinite(psnr) else None}))
         _profile_request(lambda: pipe.denoise(image), seconds[1], _VARIANT_LABEL[backend])
+        graph = [_graph_ab(pipe, f"{name} CFG")]
         del pipe
         torch.cuda.empty_cache()
     return {"request_seconds": seconds, "peak_bytes": peak, "launches": launches,
-            "shapes": shapes, "codes": codes}
+            "shapes": shapes, "codes": codes, "graph": graph}
 
 
 def _unet_calls(task: str) -> int:
@@ -1079,7 +1337,7 @@ def phase_serve_tasks(tmp, bf16):
         config = {t: {"fine_tuned_dir": tmp, "default_backend": "diffusion"}
                   for t in ("denoise", "sr_x4", "colorize")}
         config["inpaint"] = {"fine_tuned_dir": tmp_inpaint, "default_backend": "diffusion"}
-        pipe = RestorationPipeline(config=config)
+        pipe = _recording(RestorationPipeline(config=config))
         rng = np.random.default_rng(SEED)
         small = rng.integers(0, 256, (128, 128, 3), dtype=np.uint8)
         photo = bf16["image"]
@@ -1161,6 +1419,9 @@ def phase_serve_tasks(tmp, bf16):
         for task, label, call, _ in (requests[1], requests[2], requests[4], requests[6]):
             log(f"profile: {label}")
             profiles[label] = _profile_request(call, steady[label])
+        graph = [_graph_ab(pipe, f"serve_tasks {task}", lambda c, task=task: (
+            c[0]["spec"].name == task and c[3][0].shape[1] == 512))
+            for task in ("sr_x4", "colorize", "inpaint")]
         del pipe
         torch.cuda.empty_cache()
 
@@ -1199,7 +1460,7 @@ def phase_serve_tasks(tmp, bf16):
         torch.cuda.empty_cache()
     return {"requests": rows, "peak_bytes": peak, "launches": dict(launches),
             "shapes": dict(shapes), "codes": dict(codes), "profiles": profiles,
-            "rrdb_seconds": rrdb_s}
+            "rrdb_seconds": rrdb_s, "graph": graph}
 
 
 def _attention_split(shapes):
@@ -1246,7 +1507,7 @@ def phase_serve_modes(tmp, bf16):
              ("dedup", {}, {"IRET_CFG_DEDUP": "1"}))
     rows, shapes, codes, launches = [], collections.Counter(), collections.Counter(), \
         collections.Counter()
-    profile = None
+    profile, graph = None, []
     with _Phase("serve_modes"):
         env = {k: v for k, v in os.environ.items()
                if k not in ("IRET_TOME", "IRET_TOME_MIN", "IRET_CFG_DEDUP")}
@@ -1275,10 +1536,11 @@ def phase_serve_modes(tmp, bf16):
                     launches.update(n)
                 if mode == "tome":
                     profile = _profile_request(lambda: pipe.denoise(image), rows[-1]["seconds"])
+                graph.append(_graph_ab(pipe, f"serve_modes {mode}"))
             del pipe
         log("serve_modes_json " + json.dumps({"requests": rows}))
     return {"requests": rows, "launches": dict(launches), "shapes": dict(shapes),
-            "codes": dict(codes), "profile": profile}
+            "codes": dict(codes), "profile": profile, "graph": graph}
 
 
 EVAL_TASKS = ("denoise", "sr_x4", "colorize", "inpaint")
@@ -2944,12 +3206,13 @@ def phase_serve_sdxl():
                 launches.update(n)
             log("serve_sdxl_json " + json.dumps({"requests": rows}))
             profile = _profile_request(lambda: pipe.denoise(image), rows[1]["seconds"])
+            graph = [_graph_ab(pipe, "serve_sdxl CFG", lambda c: c[3][-1] is not None)]
             del pipe
             torch.cuda.empty_cache()
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
     return {"requests": rows, "launches": dict(launches), "shapes": dict(shapes),
-            "codes": dict(codes), "profile": profile}
+            "codes": dict(codes), "profile": profile, "graph": graph}
 
 
 def _cpu_twin(mod):
@@ -2979,6 +3242,7 @@ def _layer_parity(pipe, image) -> None:
     the card's layer with quantization off must not (the control)."""
     import torch
 
+    from image_restoration_and_enhancement_torch.core import sampling
     from image_restoration_and_enhancement_torch.models.layers import QConv2d, QLinear
     from image_restoration_and_enhancement_torch.ops import tolerance
     from image_restoration_and_enhancement_torch.ops.quant import QuantState
@@ -2997,8 +3261,11 @@ def _layer_parity(pipe, image) -> None:
     hooks = [m.register_forward_hook(hook) for root in (modules.unet, modules.vae)
              for m in root.modules() if isinstance(m, QLinear) or (isinstance(m, QConv2d) and (
                  m.kernel_size, m.stride, m.padding) != ((3, 3), (1, 1), (1, 1)))]
+    # the hooks see the layers only in an eager run: a graph replay calls no module
+    stack, kind, settings, args = pipe.sd_calls[-1][:4]
+    eager = sampling.make_img2img_fn(modules, *settings, graph=False)
     try:
-        pipe.denoise(image)
+        eager(*args, generator=torch.Generator(device="cuda").manual_seed(pipe.seed))
     finally:
         for h in hooks:
             h.remove()
@@ -3043,7 +3310,8 @@ def _kernel_group(name: str, mma_label: str) -> str:
     decides). The d = 512 instance is K1 at the VAE mid-block in every serve.
     K4's sm90 code is the same kernel template with the s8 score product
     (``S8QK`` in its name), so it is told apart by that and never counted as
-    K1."""
+    K1. ``name`` is the profiler's demangled name or the driver's mangled one
+    (a graph node's: ``graphs.graph_nodes``)."""
     low = name.lower()
     if "conv3x3_int8_sm90_kernel" in name:
         return "K3 conv3x3_int8 (sm90)"
@@ -3053,7 +3321,7 @@ def _kernel_group(name: str, mma_label: str) -> str:
         return "K4 int8_attention (sm90)"
     if "int8_attention_kernel" in name:
         return "K4 int8_attention (mma)"
-    if "attention_sm90_kernel<512," in name:
+    if "attention_sm90_kernel<512," in name or "attention_sm90_kernelILi512E" in name:
         return "K1 attention (VAE d 512, sm90_split)"
     if "attention_sm90_kernel" in name or "attention_mma_kernel" in name:
         return mma_label
@@ -3072,7 +3340,7 @@ def _kernel_group(name: str, mma_label: str) -> str:
     return "other"
 
 
-def _device_events(prof) -> dict:
+def _device_events(results) -> dict:
     """{name: (microseconds, count)} of a finished profile's device events:
     the device rows of ``prof.key_averages()`` (each device event's own span,
     summed by name), read straight from the profiler's event list. The
@@ -3081,7 +3349,7 @@ def _device_events(prof) -> dict:
     from torch.autograd import DeviceType
 
     out = {}
-    for e in prof.profiler.kineto_results.events():
+    for e in results.events():
         hidden = getattr(e, "is_hidden_event", lambda: False)()  # as key_averages() reads it
         if (e.device_type() != DeviceType.CUDA or e.is_async() or hidden
                 or e.start_thread_id() != e.end_thread_id()):
@@ -3108,7 +3376,7 @@ def _profile_request(request, unprofiled_s: float, mma_label: str = "K1 attentio
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
     groups = {}
-    for name, (us, n) in _device_events(prof).items():
+    for name, (us, n) in _device_events(prof.profiler.kineto_results).items():
         if us <= 0:
             continue
         group = _kernel_group(name, mma_label)

@@ -19,10 +19,16 @@ Two opt-in modes of the JAX loop, both off by default:
   approximation. Off under the dedup, and never taken by the calibration
   function (which builds its img2img function with k = 1).
 
-PyTorch runs the loop eagerly, one UNet call per step. JAX draws the posterior
-and add_noise noise inside the function from ``jax.random.split(key)``; here
-the caller passes a ``torch.Generator`` or, for parity tests, the noise
-tensors. Images and latents are NHWC, as in the JAX package.
+The JAX factories return ``jax.jit(fn)`` (``jit=True``): one compiled
+program, no host round-trip between steps. The port's factories take
+``graph`` in its place: on a CUDA stack the function is captured as one CUDA
+graph per input signature and replayed per request (``core/graphs.py``);
+``graph=False``, and any CPU stack, run the loop eagerly, one UNet call per
+step. The captured part copies nothing between the host and the device. JAX
+draws the posterior and add_noise noise inside the function from
+``jax.random.split(key)``; here the caller passes a ``torch.Generator`` or,
+for parity tests, the noise tensors, and the noise is drawn before the graph.
+Images and latents are NHWC, as in the JAX package.
 
 Int8 serving: ``SDModules.set_quant`` hands a ``QuantState`` (``ops/quant.py``)
 to the UNet's and VAE's quantized layers; ``make_calib_img2img_fn`` runs the
@@ -35,7 +41,7 @@ which the sharded factories use so that each image's CFG pair stays on the
 rank that holds the image. Both compute the same function.
 
 Multi-device serving (``make_sharded_img2img_fn``, ``make_sharded_inpaint_fn``):
-every rank of a ``parallel/mesh.Mesh`` runs the same function on its share of
+every rank of a ``parallel/mesh.Mesh`` runs the same eager function on its share of
 the request: its rows of the batch over the data axis, its slices of the UNet's
 projections over the model axis (``parallel/sharding_rules.py``) and its rows of
 the image height over the spatial axis (``parallel/spatial.py``). Every rank
@@ -63,6 +69,7 @@ from ..models.vae import AutoencoderKL
 from ..ops import quant, token_merge
 from ..parallel import collectives, sharding_rules, spatial
 from ..parallel.mesh import Mesh, shard_batch
+from . import graphs
 from . import schedulers as sched
 
 # encode_text's context, or encode_text_sdxl's (context, pooled) pair
@@ -80,6 +87,9 @@ class SDModules:
     text_encoder: CLIPTextModel
     text_encoder_2: Optional[CLIPTextModel] = None  # SDXL's bigG tower
     quant: Optional[quant.QuantState] = None
+    tome: Optional[token_merge.TomeState] = None
+    attn_int8_min: int = 0
+    _graph_pool: Optional[graphs.GraphPool] = dataclasses.field(default=None, repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -106,14 +116,39 @@ class SDModules:
     def set_tome(self, state: Optional[token_merge.TomeState]) -> None:
         """Serve the UNet's self-attention under the ToMe policy ``state``
         (None: exact)."""
+        self.tome = state
         layers.set_tome(self.unet, state)
 
     def set_attn_int8(self, min_tokens: int = 0) -> None:
         """Serve the UNet's and the VAE's default-backend attention with Nq and
         Nk >= ``min_tokens`` by the plain s8 attention (0: off;
         ``models/layers.set_attn_int8``)."""
+        self.attn_int8_min = int(min_tokens)
         for module in (self.unet, self.vae):
             layers.set_attn_int8(module, min_tokens)
+
+    def graph_settings(self) -> tuple:
+        """What a CUDA graph of this stack freezes of the serving modes set
+        here (part of its key): the quantization state and mode, the ToMe
+        policy, the int8 attention threshold."""
+        q = self.quant
+        return (id(q), None if q is None else q.mode, self.tome, self.attn_int8_min)
+
+    def quantized_weights(self) -> tuple:
+        """Under an active quantization mode, the (address, version) of every
+        quantized layer's weight, whose s8 copy a CUDA graph reads (a change
+        remakes the copy and drops the graphs); () otherwise."""
+        if self.quant is None or not self.quant.active:
+            return ()
+        return tuple((m.weight.data_ptr(), m.weight._version)
+                     for root in (self.unet, self.vae) for m in root.modules()
+                     if isinstance(m, layers._Quantized))
+
+    def graph_pool(self) -> graphs.GraphPool:
+        """The memory pool, capture stream and lock this stack's graphs share."""
+        if self._graph_pool is None:
+            self._graph_pool = graphs.GraphPool.create(self.device)
+        return self._graph_pool
 
     def freeze_all_but_unet(self) -> None:
         """Training: the UNet's parameters require grad, the VAE's and the text
@@ -163,7 +198,8 @@ def encode_text_sdxl(modules: SDModules, input_ids: torch.Tensor
 def sdxl_time_ids(batch: int, size: int, device=None) -> torch.Tensor:
     """Micro-conditioning ids [batch, 6] (fp32): (orig_h, orig_w, crop_top,
     crop_left, target_h, target_w) of a square ``size`` image, uncropped."""
-    row = torch.tensor([size, size, 0, 0, size, size], dtype=torch.float32, device=device)
+    row = torch.full((6,), float(size), dtype=torch.float32, device=device)
+    row[2:4] = 0.0  # made on the device: no host-to-device copy
     return row.expand(batch, 6)
 
 
@@ -195,12 +231,13 @@ def mask_to_latents(mask: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
 
 def _denoise_loop(modules: SDModules, latents: torch.Tensor, context: torch.Tensor,
                   uncond_context: Optional[torch.Tensor], plan: sched.StepPlan,
-                  guidance_scale: float, sampler: str,
+                  guidance_scale: float, sampler: str, ac: torch.Tensor,
                   extra_channels: Optional[torch.Tensor] = None,
                   added_cond: Optional[Dict[str, torch.Tensor]] = None,
                   cfg_dedup: bool = False, cfg_cache_interval: int = 1,
                   cfg_layout: str = "halves") -> torch.Tensor:
-    """The sampling loop: one (CFG-batched) UNet call per plan row.
+    """The sampling loop: one (CFG-batched) UNet call per plan row. ``ac``:
+    the alpha_bar table on the latents' device (``alphas_cumprod_tensor``).
     ``extra_channels`` (the inpaint mask and masked-image latents) ride along
     un-noised, concatenated to the latents before the CFG duplication.
     ``added_cond`` (SDXL) is broadcast to the batch and duplicated under CFG.
@@ -212,9 +249,7 @@ def _denoise_loop(modules: SDModules, latents: torch.Tensor, context: torch.Tens
     if cfg_layout not in ("halves", "interleaved"):
         raise ValueError(f"unknown cfg_layout {cfg_layout!r}")
     interleaved = cfg_layout == "interleaved"
-    cfg = modules.config.scheduler
-    ac = sched.alphas_cumprod_tensor(cfg, latents.device)
-    fa = sched.final_alpha_cumprod(cfg)
+    fa = sched.final_alpha_cumprod(modules.config.scheduler)
     do_cfg = guidance_scale > 1.0 and uncond_context is not None
 
     b = latents.shape[0]
@@ -310,9 +345,35 @@ def _noise(modules: SDModules, image: torch.Tensor, generator: Optional[torch.Ge
     return tuple(n.to(dev, torch.float32) for n in noise)
 
 
+def _plan(modules: SDModules, sampler: str, num_inference_steps: int, strength: float):
+    """(step plan, alpha_bar table on the stack's device): made with the
+    function, so a request copies neither to the device."""
+    cfg = modules.config.scheduler
+    plan_fn = sched.plms_step_plan if sampler == "plms" else sched.ddim_step_plan
+    return (plan_fn(cfg, num_inference_steps, strength),
+            sched.alphas_cumprod_tensor(cfg, modules.device))
+
+
+def _serving_fn(modules: SDModules, prepare: Callable, run: Callable,
+                graph: Optional[bool]) -> Callable:
+    """``run(*prepare(...))`` eagerly, or replayed from CUDA graphs
+    (``graph``: see ``graphs.resolve``). Either function keeps its two parts
+    as ``fn.prepare`` and ``fn.run``."""
+    if graphs.resolve(graph, modules.device):
+        return graphs.GraphedServe(modules, prepare, run)
+
+    def fn(*args, **kwargs) -> torch.Tensor:
+        with torch.inference_mode():
+            return run(*prepare(*args, **kwargs))
+
+    fn.prepare, fn.run = prepare, run
+    return fn
+
+
 def make_img2img_fn(modules: SDModules, num_inference_steps: int, strength: float,
                     guidance_scale: float, sampler: str = "plms",
-                    cfg_cache_interval: int = 1, cfg_layout: str = "halves") -> Callable:
+                    cfg_cache_interval: int = 1, cfg_layout: str = "halves",
+                    graph: Optional[bool] = None) -> Callable:
     """Build fn(image, prompt_ctx, uncond_ctx, generator=None, noise=None) -> image.
 
     ``image`` is NHWC in [-1, 1]. The contexts come from ``encode_text``, or
@@ -326,45 +387,54 @@ def make_img2img_fn(modules: SDModules, num_inference_steps: int, strength: floa
     ``cfg_layout`` orders the CFG batch. Returns the decoded image, NHWC fp32
     in [-1, 1]. Under a height-sharding policy (``parallel/spatial.py``) the
     inputs are whole, each rank computes on its rows of them and the image is
-    gathered whole.
+    gathered whole (eager functions only).
+
+    ``graph`` (the JAX factory's ``jit``): None replays CUDA graphs on a CUDA
+    stack and runs eagerly on the CPU; False runs eagerly; True on a CPU
+    stack raises. A graphed function has the same signature and returns the
+    same values (``core/graphs.py``).
     """
-    cfg = modules.config.scheduler
-    plan_fn = sched.plms_step_plan if sampler == "plms" else sched.ddim_step_plan
-    plan = plan_fn(cfg, num_inference_steps, strength)
+    plan, ac = _plan(modules, sampler, num_inference_steps, strength)
     dedup = cfg_dedup_from_env()
 
-    @torch.inference_mode()
-    def fn(image: torch.Tensor, prompt_ctx: Conditioning, uncond_ctx: Optional[Conditioning],
-           generator: Optional[torch.Generator] = None,
-           noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    def prepare(image: torch.Tensor, prompt_ctx: Conditioning,
+                uncond_ctx: Optional[Conditioning], generator: Optional[torch.Generator] = None,
+                noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> graphs.Inputs:
         dev = modules.device
         image = image.to(dev)
-        added = None
+        pooled = None
         if modules.is_sdxl:
             prompt_ctx, pooled = prompt_ctx
+            pooled = pooled.to(dev)
             if uncond_ctx is not None:
                 uncond_ctx, _ = uncond_ctx
-            added = {"text_embeds": pooled.to(dev),
-                     "time_ids": sdxl_time_ids(pooled.shape[0], image.shape[1], dev)}
         enc_noise, step_noise = _noise(modules, image, generator, noise)
+        return (image, prompt_ctx.to(dev), None if uncond_ctx is None else uncond_ctx.to(dev),
+                pooled, enc_noise, step_noise)
+
+    def run(image: torch.Tensor, prompt_ctx: torch.Tensor, uncond_ctx: Optional[torch.Tensor],
+            pooled: Optional[torch.Tensor], enc_noise: torch.Tensor,
+            step_noise: torch.Tensor) -> torch.Tensor:
+        added = None
+        if pooled is not None:
+            added = {"text_embeds": pooled,
+                     "time_ids": sdxl_time_ids(pooled.shape[0], image.shape[1], image.device)}
         spatial.request(image.shape[1], enc_noise.shape[1])
         enc_noise, step_noise = spatial.scatter_rows(enc_noise), spatial.scatter_rows(step_noise)
         latents0 = encode_image(modules, spatial.scatter_rows(image), enc_noise)
-        ac = sched.alphas_cumprod_tensor(cfg, dev)
         latents = sched.add_noise(ac, latents0, step_noise, plan.init_timestep)
-        latents = _denoise_loop(modules, latents, prompt_ctx.to(dev),
-                                None if uncond_ctx is None else uncond_ctx.to(dev),
-                                plan, guidance_scale, sampler, added_cond=added,
-                                cfg_dedup=dedup, cfg_cache_interval=cfg_cache_interval,
-                                cfg_layout=cfg_layout)
+        latents = _denoise_loop(modules, latents, prompt_ctx, uncond_ctx, plan, guidance_scale,
+                                sampler, ac, added_cond=added, cfg_dedup=dedup,
+                                cfg_cache_interval=cfg_cache_interval, cfg_layout=cfg_layout)
         return spatial.gather_rows(decode_latents(modules, latents), image.shape[1])
 
-    return fn
+    return _serving_fn(modules, prepare, run, graph)
 
 
 def make_inpaint_fn(modules: SDModules, num_inference_steps: int, strength: float,
                     guidance_scale: float, sampler: str = "ddim",
-                    cfg_cache_interval: int = 1, cfg_layout: str = "halves") -> Callable:
+                    cfg_cache_interval: int = 1, cfg_layout: str = "halves",
+                    graph: Optional[bool] = None) -> Callable:
     """Build fn(image, mask, prompt_ctx, uncond_ctx, generator=None, noise=None) -> image.
 
     The diffusers 9-channel layout at every step: [latents (4), mask (1),
@@ -372,45 +442,46 @@ def make_inpaint_fn(modules: SDModules, num_inference_steps: int, strength: floa
     [B, H, W, 1] in {0, 1}, 1 = the hole to fill. ``noise`` = (image posterior
     noise, masked-image posterior noise, add_noise noise), each shaped like
     the latents; without it all three are drawn in that order from
-    ``generator``. ``cfg_cache_interval``, ``cfg_layout``, ``IRET_CFG_DEDUP``
-    and height sharding as in ``make_img2img_fn``. An SD-1.5(-inpaint) stack
-    only, as in the JAX package. Returns the decoded image, NHWC fp32 in
-    [-1, 1].
+    ``generator``. ``cfg_cache_interval``, ``cfg_layout``, ``IRET_CFG_DEDUP``,
+    height sharding and ``graph`` as in ``make_img2img_fn``. An
+    SD-1.5(-inpaint) stack only, as in the JAX package. Returns the decoded
+    image, NHWC fp32 in [-1, 1].
     """
     if modules.is_sdxl:
         raise ValueError("the inpaint function takes an SD-1.5 stack, not SDXL")
-    cfg = modules.config.scheduler
-    plan_fn = sched.plms_step_plan if sampler == "plms" else sched.ddim_step_plan
-    plan = plan_fn(cfg, num_inference_steps, strength)
+    plan, ac = _plan(modules, sampler, num_inference_steps, strength)
     dedup = cfg_dedup_from_env()
 
-    @torch.inference_mode()
-    def fn(image: torch.Tensor, mask: torch.Tensor, prompt_ctx: torch.Tensor,
-           uncond_ctx: Optional[torch.Tensor], generator: Optional[torch.Generator] = None,
-           noise: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
-           ) -> torch.Tensor:
+    def prepare(image: torch.Tensor, mask: torch.Tensor, prompt_ctx: torch.Tensor,
+                uncond_ctx: Optional[torch.Tensor], generator: Optional[torch.Generator] = None,
+                noise: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
+                ) -> graphs.Inputs:
         dev = modules.device
         image = image.to(dev, torch.float32)
-        mask = mask.to(dev, torch.float32)
+        return (image, mask.to(dev, torch.float32), prompt_ctx.to(dev),
+                None if uncond_ctx is None else uncond_ctx.to(dev),
+                *_noise(modules, image, generator, noise, 3))
+
+    def run(image: torch.Tensor, mask: torch.Tensor, prompt_ctx: torch.Tensor,
+            uncond_ctx: Optional[torch.Tensor], enc_noise: torch.Tensor,
+            mask_enc_noise: torch.Tensor, step_noise: torch.Tensor) -> torch.Tensor:
         enc_noise, mask_enc_noise, step_noise = (
-            spatial.scatter_rows(n) for n in _noise(modules, image, generator, noise, 3))
+            spatial.scatter_rows(n) for n in (enc_noise, mask_enc_noise, step_noise))
         lat_hw = latent_shape(modules, image.shape)[1:3]
         spatial.request(image.shape[1], lat_hw[0])
         latents0 = encode_image(modules, spatial.scatter_rows(image), enc_noise)
         masked_latents = encode_image(modules, spatial.scatter_rows(image * (1.0 - mask)),
                                       mask_enc_noise)
         mask_lat = spatial.scatter_rows(mask_to_latents(mask, lat_hw))
-        ac = sched.alphas_cumprod_tensor(cfg, dev)
         latents = sched.add_noise(ac, latents0, step_noise, plan.init_timestep)
-        latents = _denoise_loop(modules, latents, prompt_ctx.to(dev),
-                                None if uncond_ctx is None else uncond_ctx.to(dev),
-                                plan, guidance_scale, sampler,
+        latents = _denoise_loop(modules, latents, prompt_ctx, uncond_ctx, plan, guidance_scale,
+                                sampler, ac,
                                 extra_channels=torch.cat([mask_lat, masked_latents], dim=-1),
                                 cfg_dedup=dedup, cfg_cache_interval=cfg_cache_interval,
                                 cfg_layout=cfg_layout)
         return spatial.gather_rows(decode_latents(modules, latents), image.shape[1])
 
-    return fn
+    return _serving_fn(modules, prepare, run, graph)
 
 
 def make_calib_img2img_fn(modules: SDModules, num_inference_steps: int, strength: float,
@@ -425,7 +496,8 @@ def make_calib_img2img_fn(modules: SDModules, num_inference_steps: int, strength
     ``QuantState`` table of mode "int8_static". The modules' own state is put
     back when fn returns.
     """
-    img2img = make_img2img_fn(modules, num_inference_steps, strength, guidance_scale, sampler)
+    img2img = make_img2img_fn(modules, num_inference_steps, strength, guidance_scale, sampler,
+                              graph=False)
 
     def fn(image: torch.Tensor, prompt_ctx: torch.Tensor, uncond_ctx: Optional[torch.Tensor],
            generator: Optional[torch.Generator] = None,
@@ -474,10 +546,11 @@ def make_sharded_img2img_fn(modules: SDModules, mesh: Mesh, num_inference_steps:
     ``fn(image, prompt_ctx, uncond_ctx, generator=None, noise=None)`` on every
     rank with the global batch (divisible by the data-axis size) and the same
     generator state or noise; it returns the whole [B, H, W, 3] image on every
-    rank.
+    rank. The function runs eagerly (no CUDA graph: it calls collectives).
     """
     inner = make_img2img_fn(modules, num_inference_steps, strength, guidance_scale, sampler,
-                            cfg_cache_interval=cfg_cache_interval, cfg_layout="interleaved")
+                            cfg_cache_interval=cfg_cache_interval, cfg_layout="interleaved",
+                            graph=False)
     return _shard_serving_fn(modules, mesh, inner, data_axis, model_axis, spatial_axis,
                              n_spatial_args=1, n_noise=2)
 
@@ -491,9 +564,11 @@ def make_sharded_inpaint_fn(modules: SDModules, mesh: Mesh, num_inference_steps:
     """Multi-device inpaint serving: ``make_inpaint_fn`` over ``mesh``, with the
     layout contract of ``make_sharded_img2img_fn``; the mask shards like the
     image. Returns (fn, shard_params_fn) with
-    ``fn(image, mask, prompt_ctx, uncond_ctx, generator=None, noise=None)``."""
+    ``fn(image, mask, prompt_ctx, uncond_ctx, generator=None, noise=None)``;
+    eager, as there."""
     inner = make_inpaint_fn(modules, num_inference_steps, strength, guidance_scale, sampler,
-                            cfg_cache_interval=cfg_cache_interval, cfg_layout="interleaved")
+                            cfg_cache_interval=cfg_cache_interval, cfg_layout="interleaved",
+                            graph=False)
     return _shard_serving_fn(modules, mesh, inner, data_axis, model_axis, spatial_axis,
                              n_spatial_args=2, n_noise=3)
 

@@ -7,9 +7,12 @@ Counterpart of the JAX package's ``core/schedulers.py``, with the same split:
    with diffusers' "leading" spacing, ``steps_offset`` and the img2img strength
    truncation baked in; the plan functions are copied unchanged;
 2. step functions on tensors (DDIM, PLMS, the ancestral DDPM step, and
-   ``pred_x0_from_eps`` for the training loss). PyTorch runs the loop
-   eagerly, so the PLMS history is a small Python-side carry (``PlmsCarry``)
-   and the order code picks its combination with an ordinary branch.
+   ``pred_x0_from_eps`` for the training loss). The loop is unrolled in
+   Python, so the PLMS history is a small Python-side carry (``PlmsCarry``)
+   and the order code picks its combination with an ordinary branch. A
+   Python int timestep selects its table row on the device, so a step copies
+   nothing from the host and can be captured in a CUDA graph
+   (``core/graphs.py``).
 
 All step math is fp32, as in the JAX functions.
 """
@@ -62,9 +65,17 @@ def alphas_cumprod_tensor(cfg: SchedulerConfig, device=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _index(table: torch.Tensor, t) -> torch.Tensor:
+    """table[t]: a select for a Python or numpy int (no host-to-device copy),
+    a gather for an integer tensor or array."""
+    if isinstance(t, (int, np.integer)):
+        return table[int(t)]
+    return table[torch.as_tensor(t, device=table.device).long()]
+
+
 def _at(table: torch.Tensor, t, like: torch.Tensor) -> torch.Tensor:
     """table[t] (t an int or integer tensor), broadcast over like's trailing dims."""
-    a = table[torch.as_tensor(t, device=table.device).long()].float()
+    a = _index(table, t).float()
     while a.dim() < like.dim():
         a = a[..., None]
     return a
@@ -194,7 +205,7 @@ def _alpha_prev(alphas_cumprod: torch.Tensor, final_alpha: float, prev_t: int,
                 like: torch.Tensor) -> torch.Tensor:
     if int(prev_t) >= 0:
         return _at(alphas_cumprod, int(prev_t), like)
-    return torch.tensor(final_alpha, dtype=torch.float32, device=like.device)
+    return torch.full((), final_alpha, dtype=torch.float32, device=like.device)
 
 
 def ddim_step(alphas_cumprod: torch.Tensor, final_alpha: float, sample: torch.Tensor,
@@ -213,11 +224,17 @@ def ddpm_step(alphas_cumprod: torch.Tensor, sample: torch.Tensor, eps: torch.Ten
     ``t``: an int or an integer tensor ([B] or scalar); ``noise`` is the
     standard-normal draw, added where t > 0."""
     sample, eps = sample.float(), eps.float()
-    t = torch.as_tensor(t, device=alphas_cumprod.device).long()
     expand = lambda v: v.reshape(v.shape + (1,) * (sample.dim() - v.dim()))  # noqa: E731
-    live = expand(t > 0)
-    a_t = expand(alphas_cumprod[t]).float()
-    a_prev = torch.where(live, expand(alphas_cumprod[(t - 1).clamp(min=0)]).float(), 1.0)
+    if isinstance(t, (int, np.integer)):
+        t = int(t)
+        live = expand(torch.full((), t > 0, device=alphas_cumprod.device))
+        prev = max(t - 1, 0)
+    else:
+        t = torch.as_tensor(t, device=alphas_cumprod.device).long()
+        live = expand(t > 0)
+        prev = (t - 1).clamp(min=0)
+    a_t = expand(_index(alphas_cumprod, t)).float()
+    a_prev = torch.where(live, expand(_index(alphas_cumprod, prev)).float(), 1.0)
     alpha_t = a_t / a_prev
     beta_t = 1.0 - alpha_t
     x0 = (sample - torch.sqrt(1.0 - a_t) * eps) / torch.sqrt(a_t)

@@ -16,7 +16,10 @@ tokenizer's ids. The opt-in serving modes of the JAX pipeline are here too:
 ``cfg_cache_interval`` (the CFG cache; part of the sampling function's cache
 key), ``tome_ratio`` (token merging, ``ops/token_merge.py``) and
 ``IRET_CFG_DEDUP=1`` (the exact CFG prefix dedup, read when a sampling
-function is built).
+function is built). On the card every single-device request replays a CUDA
+graph of its sampling function (``core/graphs.py``), captured at the first
+request of each input size: the counterpart of the JAX pipeline's jitted
+functions.
 
 Differences from the JAX pipeline:
 - a failed SD run is logged ("SD denoise failed; OpenCV fallback") and served
@@ -278,9 +281,12 @@ class RestorationPipeline:
 
     def _sampler_fn(self, stack, kind: str, steps: int, strength: float, gs: float,
                     sampler: str):
-        """The sampling function of ``kind`` ("img2img" or "inpaint"), cached."""
+        """The sampling function of ``kind`` ("img2img" or "inpaint"), cached.
+        On the card without a mesh it replays CUDA graphs (the factories'
+        default, as the JAX pipeline jits), so the key holds what a function
+        freezes when it is built: the ToMe policy and ``IRET_CFG_DEDUP``."""
         key = (stack["spec"].name, kind, steps, round(strength, 4), round(gs, 4), sampler,
-               self.cfg_cache_interval)
+               self.tome, sampling.cfg_dedup_from_env(), self.cfg_cache_interval)
         if key not in self._fn_cache:
             kw = dict(num_inference_steps=steps, strength=strength, guidance_scale=gs,
                       sampler=sampler, cfg_cache_interval=self.cfg_cache_interval)

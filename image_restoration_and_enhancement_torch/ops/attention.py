@@ -380,8 +380,9 @@ class _AttentionFn(torch.autograd.Function):
 
 
 def _prescale(q: torch.Tensor) -> torch.Tensor:
-    """q * 1/sqrt(D), the factor cast to q's dtype first (as the JAX package)."""
-    return q * torch.tensor(1.0 / math.sqrt(q.shape[-1]), dtype=q.dtype, device=q.device)
+    """q * 1/sqrt(D), the factor cast to q's dtype first (as the JAX package),
+    taken as a host scalar: no tensor is copied to the device."""
+    return q * _scale(q.shape[-1], q.dtype)
 
 
 def smooth_quantize_qk(q: torch.Tensor, k: torch.Tensor

@@ -153,17 +153,22 @@ def _call_plan(b, h, w, c, n, out_dtype, index):
 # Split-K scratch per device: the int32 partial tiles and the per-tile
 # counters (zeroed once; each launch leaves them zero). Grown, never shrunk.
 # Launches that share it must be ordered, as on one stream: the port issues
-# every kernel on the current stream.
+# every kernel on the current stream. An outgrown buffer is kept
+# (``_outgrown``): a CUDA graph captured with it replays on its address.
 _scratch = {}
+_outgrown = []
 
 
 def _split_scratch(device: torch.device, ints: int, tiles: int):
-    ws, counters = _scratch.get(device.index, (None, None))
+    old_ws, old_counters = _scratch.get(device.index, (None, None))
+    ws, counters = old_ws, old_counters
     if ws is None or ws.numel() < ints:
         ws = torch.empty(ints, dtype=torch.int32, device=device)
     if counters is None or counters.numel() < tiles:
         counters = torch.zeros(tiles, dtype=torch.int32, device=device)
-    _scratch[device.index] = (ws, counters)
+    if ws is not old_ws or counters is not old_counters:
+        _outgrown.append((old_ws, old_counters))
+        _scratch[device.index] = (ws, counters)
     return ws.data_ptr(), counters.data_ptr()
 
 

@@ -24,14 +24,18 @@ and the sources are ranked by a stable sort of their best score. The merged
 destination is the fp32 mean of its group, cast to the input dtype. The token
 order after merging is [destinations, unmerged sources]. The JAX function
 accumulates the groups with a one-hot matmul and builds its row map from
-scatter-free index maps, for the TPU; here the groups are summed with
-``index_add_`` in fp32 and unmerged with one ``gather``.
+scatter-free index maps, for the TPU; here the groups are summed in fp32 by
+``index_put_`` with ``accumulate=True`` and unmerged with one ``gather``. On
+the card that sum is sort-based and adds each group's rows in token order, so
+a merge gives the same bits at every run (``index_add_``'s atomic adds land
+in any order: a served image then differed from run to run, and a CUDA graph
+of the serve from the eager serve).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -89,6 +93,24 @@ def merge_count(h: int, w: int, ratio: float, sx: int = 2, sy: int = 2) -> int:
     return max(0, min(int(n * ratio), ns))
 
 
+_indices: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _plan_indices(h: int, w: int, sx: int, sy: int, device: torch.device
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``plan``'s (dst, src) as int64 tensors on ``device``, copied there once
+    per grid and kept: a merge then copies nothing from the host, so it can be
+    captured in a CUDA graph. The tensors are only read, and are made outside
+    inference mode, so that autograd may save them."""
+    key = (h, w, sx, sy, str(device))
+    idx = _indices.get(key)
+    if idx is None:
+        with torch.inference_mode(False):
+            idx = _indices[key] = tuple(torch.from_numpy(a.astype(np.int64)).to(device)
+                                        for a in plan(h, w, sx, sy))
+    return idx
+
+
 def build_merge(metric: torch.Tensor, h: int, w: int, r: int, sx: int = 2, sy: int = 2
                 ) -> Tuple[Callable, Callable, int]:
     """(merge, unmerge, N - r) from the similarity ``metric`` [B, N, C] (the
@@ -98,14 +120,14 @@ def build_merge(metric: torch.Tensor, h: int, w: int, r: int, sx: int = 2, sy: i
     b, n, _ = metric.shape
     if n != h * w:
         raise ValueError(f"{n} tokens are not a {h}x{w} grid")
-    dst_np, src_np = plan(h, w, sx, sy)
-    nd, ns = len(dst_np), len(src_np)
+    nd = (-(-h // sy)) * (-(-w // sx))
+    ns = n - nd
     r = max(0, min(int(r), ns))
     if r == 0:
         return (lambda x: x), (lambda y: y), n
 
     dev = metric.device
-    dst, src = (torch.from_numpy(a.astype(np.int64)).to(dev) for a in (dst_np, src_np))
+    dst, src = _plan_indices(h, w, sx, sy, dev)
     mn = metric.float()
     mn = (mn / (torch.linalg.vector_norm(mn, dim=-1, keepdim=True) + 1e-6)).to(metric.dtype)
     scores = torch.einsum("bsc,bdc->bsd", mn[:, src].float(), mn[:, dst].float())
@@ -134,8 +156,8 @@ def build_merge(metric: torch.Tensor, h: int, w: int, r: int, sx: int = 2, sy: i
     def merge(x: torch.Tensor) -> torch.Tensor:
         c = x.shape[-1]
         xs = x[:, src]
-        sums = x[:, dst].float().reshape(b * nd, c).index_add_(
-            0, flat_dst, take(xs, merged_pos).float().reshape(b * r, c))
+        sums = x[:, dst].float().reshape(b * nd, c).index_put_(
+            (flat_dst,), take(xs, merged_pos).float().reshape(b * r, c), accumulate=True)
         xd = (sums.view(b, nd, c) / counts).to(x.dtype)
         return torch.cat([xd, take(xs, unm_pos)], dim=1)
 

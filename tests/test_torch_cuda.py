@@ -69,6 +69,17 @@ outputs agree within one level (chip_smoke's 2e-3 image limit is a quarter of
 one), and
 ``test_rrdbnet_matches_cpu`` holds RRDBNet to 1e-4 of its largest output;
 both turn cuDNN's TF32 off, so the card's convs are fp32 like the CPU's.
+
+The serving functions replay CUDA graphs on the card (``core/graphs.py``):
+``test_graphed_serving_equals_eager`` serves TINY img2img (PLMS, DDIM),
+inpaint, int8_static and ToMe from a graph and eagerly on the same inputs and
+noise and requires bitwise equal images and equal host-counted launches, on
+two requests with different inputs, the graph's kernel nodes (read from the
+CUDA driver) equal to the eager request's launches, and int8_static's table
+miss at every replay; ``test_int8_graph_follows_a_weight_updated_in_place``
+updates a quantized weight in place between replays;
+``test_graph_refused_under_a_mesh`` holds the sharded factories to their
+eager functions (they take no ``graph``).
 """
 import collections
 import contextlib
@@ -1619,3 +1630,175 @@ def test_group_norm_gradients_under_autograd(cuda, shape, groups, eps, act):
     want = torch.autograd.grad(ref, (x, scale, bias), g)
     for a, w in zip(got, want):
         assert torch.equal(a, w)
+
+
+def _graph_kernels(nodes):
+    """The repo's kernels among a graph's nodes (the driver's mangled names):
+    by host-counter kernel, GroupNorm by path (twophase: two kernels a call)."""
+    out = collections.Counter()
+    for name, n in nodes.items():
+        if "gn_onchip_kernel" in name:
+            out[("group_norm", "onchip")] += n
+        elif "gn_stats_kernel" in name or "gn_apply_kernel" in name:
+            out[("group_norm", "twophase")] += n
+        elif "conv3x3_int8" in name:
+            out["conv3x3_int8"] += n
+        elif "int8_attention_kernel" in name or ("attention_sm90_kernel" in name
+                                                 and "S8QK" in name):
+            out["int8_attention"] += n
+        elif "attention" in name and "_kernel" in name:
+            out["attention"] += n
+    return out
+
+
+def _device_kernels(paths):
+    """What host-counted launches by (kernel, path) launch on the device, in
+    ``_graph_kernels``' terms."""
+    out = collections.Counter()
+    for (kernel, path), n in paths.items():
+        if kernel == "group_norm":
+            out[(kernel, path)] += 2 * n if path == "twophase" else n
+        else:
+            out[kernel if kernel in ("conv3x3_int8", "int8_attention") else "attention"] += n
+    return out
+
+
+GRAPH_MODES = {  # (config, factory kind, sampler, serving mode)
+    "img2img_plms": ("sd", "img2img", "plms", None),
+    "img2img_ddim": ("sd", "img2img", "ddim", None),
+    "inpaint": ("inpaint", "inpaint", "ddim", None),
+    "int8_static": ("sd", "img2img", "plms", "int8_static"),
+    "tome": ("sd", "img2img", "plms", "tome"),
+}
+
+
+def _graph_inputs(kind, modules, seed):
+    """A 64 px request of ``kind`` made on the host from ``seed`` (image,
+    [mask,] context, uncond context), as the pipeline hands it over."""
+    from image_restoration_and_enhancement_torch.core import sampling
+
+    rng = np.random.default_rng(seed)
+    image = torch.from_numpy(rng.uniform(-1, 1, (1, 64, 64, 3)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(3, 128, (2, 77)).astype(np.int32))
+    with torch.inference_mode():
+        ctx = sampling.encode_text(modules, ids)
+    args = (image,)
+    if kind == "inpaint":
+        mask = np.zeros((1, 64, 64, 1), np.float32)
+        mask[:, 8 + seed:40, 16:48 - seed] = 1.0
+        args += (torch.from_numpy(mask),)
+    return args + (ctx[:1], ctx[1:])
+
+
+@pytest.mark.parametrize("mode", list(GRAPH_MODES))
+def test_graphed_serving_equals_eager(cuda, mode):
+    """TINY_SD(-inpaint) at random (fp32) served from a CUDA graph and eagerly
+    on the same inputs and noise: bitwise equal, on a first request and on a
+    second with a new image, mask, contexts and noise (the static buffers are
+    refreshed); the same host-counted launches per request; under
+    int8_static (int8 attention, a table missing one site) the miss is
+    reported at every replay."""
+    from image_restoration_and_enhancement_torch import config as C
+    from image_restoration_and_enhancement_torch.core import graphs, sampling
+    from image_restoration_and_enhancement_torch.models.layers import init_random_
+    from image_restoration_and_enhancement_torch.ops import quant, token_merge
+
+    name, kind, sampler, serving = GRAPH_MODES[mode]
+    config = C.TINY_SD_INPAINT if name == "inpaint" else C.TINY_SD
+    mods = sampling.SDModules.create(config, torch.float32, "cuda",
+                                     attention_backend="int8" if serving == "int8_static" else None)
+    for m in mods.components().values():
+        init_random_(m, cuda)
+    maker = sampling.make_inpaint_fn if kind == "inpaint" else sampling.make_img2img_fn
+    missing = None
+    if serving == "int8_static":
+        calib = sampling.make_calib_img2img_fn(mods, 4, 0.75, 5.0, sampler)
+        _, table = calib(*_graph_inputs(kind, mods, 0),
+                         generator=torch.Generator(device="cuda").manual_seed(0))
+        missing = sorted(table)[0]
+        mods.set_quant(quant.QuantState("int8_static", {s: a for s, a in table.items()
+                                                         if s != missing}))
+    elif serving == "tome":
+        mods.set_tome(token_merge.TomeState(0.5, 64))
+    graphed = maker(mods, 4, 0.75, 5.0, sampler)
+    eager = maker(mods, 4, 0.75, 5.0, sampler, graph=False)
+    assert isinstance(graphed, graphs.GraphedServe) and not isinstance(eager, graphs.GraphedServe)
+
+    served = {}
+
+    def serve(fn, seed):
+        if mods.quant is not None:
+            mods.quant.misses.clear()
+        before = collections.Counter(_build.launch_shapes)
+        paths = collections.Counter(_build.launch_paths)
+        out = fn(*_graph_inputs(kind, mods, seed),
+                 generator=torch.Generator(device="cuda").manual_seed(seed))
+        torch.cuda.synchronize()
+        if missing is not None:
+            assert mods.quant.misses == {missing}
+        served[fn] = collections.Counter(_build.launch_paths) - paths
+        return out, collections.Counter(_build.launch_shapes) - before
+
+    first, first_launches = serve(graphed, 1)  # the warm-up's output; then the capture
+    outs = {}
+    for seed in (1, 2):
+        outs[seed] = [serve(fn, seed) for fn in (graphed, eager)]
+        (got, got_n), (want, want_n) = outs[seed]
+        assert got.shape == (1, 64, 64, 3) and torch.isfinite(got).all()
+        assert torch.equal(got, want), f"request {seed}: graphed differs from eager"
+        assert got_n == want_n and sum(got_n.values()) > 0
+    assert torch.equal(first, outs[1][1][0]) and first_launches == outs[1][1][1]
+    assert not torch.equal(outs[1][0][0], outs[2][0][0])
+    assert len(graphed.graphs) == 1
+    # the graph itself launches what the eager request launched
+    nodes = graphs.graph_nodes(graphed.last.graph)
+    assert _graph_kernels(nodes) == _device_kernels(served[eager]) and len(nodes) > 0
+    if serving == "tome":
+        assert any(k == "attention" and key[1] == 32 for k, key in outs[1][0][1])
+
+
+def test_graph_refused_under_a_mesh(cuda):
+    from image_restoration_and_enhancement_torch import config as C
+    from image_restoration_and_enhancement_torch.core import sampling
+
+    mods = sampling.SDModules.create(C.TINY_SD, torch.float32, "cuda")
+    for maker in (sampling.make_sharded_img2img_fn, sampling.make_sharded_inpaint_fn):
+        with pytest.raises(TypeError, match="graph"):
+            maker(mods, None, 4, 0.75, 5.0, graph=True)
+
+
+def test_int8_graph_follows_a_weight_updated_in_place(cuda):
+    """An int8_static graph reads the s8 copies of the weights: after a
+    quantized weight is updated in place, the next call captures anew and
+    equals the eager function on the new weights, and differs from before."""
+    from image_restoration_and_enhancement_torch import config as C
+    from image_restoration_and_enhancement_torch.core import graphs, sampling
+    from image_restoration_and_enhancement_torch.models.layers import QConv2d, init_random_
+    from image_restoration_and_enhancement_torch.ops import quant
+
+    mods = sampling.SDModules.create(C.TINY_SD, torch.float32, "cuda")
+    for m in mods.components().values():
+        init_random_(m, cuda)
+    calib = sampling.make_calib_img2img_fn(mods, 4, 0.75, 5.0)
+    _, table = calib(*_graph_inputs("img2img", mods, 0),
+                     generator=torch.Generator(device="cuda").manual_seed(0))
+    mods.set_quant(quant.QuantState("int8_static", table))
+    graphed = sampling.make_img2img_fn(mods, 4, 0.75, 5.0)
+    eager = sampling.make_img2img_fn(mods, 4, 0.75, 5.0, graph=False)
+
+    def serve(fn):
+        return fn(*_graph_inputs("img2img", mods, 1),
+                  generator=torch.Generator(device="cuda").manual_seed(1))
+
+    serve(graphed)  # warm-up and capture
+    before = serve(graphed)  # a replay
+    assert torch.equal(before, serve(eager))
+    captured = graphed.last
+    layer = next(m for m in mods.unet.modules() if isinstance(m, QConv2d))
+    with torch.no_grad():
+        layer.weight.mul_(-1.5)
+    after = serve(graphed)
+    assert graphed.last is not captured and len(graphed.graphs) == 1
+    assert isinstance(graphed, graphs.GraphedServe)
+    assert torch.equal(after, serve(eager)) and not torch.equal(after, before)
+    assert torch.equal(serve(graphed), after)  # and its replay
